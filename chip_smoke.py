@@ -1,0 +1,327 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``jointpose_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and ``nvcc``; exits non-zero without them, and when
+the package is missing.  Phases, each fatal on failure:
+
+1. print the card's name and power limit; build every kernel under
+   ``jointpose_torch/csrc/`` (one ``nvcc`` per source, all at once);
+2. with TF32 off, hold each kernel against its plain PyTorch version on
+   the card at its main-path shape;
+3. serve the paper ``joint`` preset at full width (bf16, direct head
+   conv, seeded random weights): 4 requests of 8 uint8 240×360 images,
+   through the fused Fourier tail kernel;
+4. serve ``flagship`` with ``mrf.impl='pallas'`` the same way, through
+   the fused epilogue kernel;
+5. check both MRF paths on the card against the CPU at the ``tiny``
+   preset (fp32);
+6. time each kernel and its plain version at the main-path shape.
+
+The last lines are the card's ``nvidia-smi`` line, one JSON object with
+every kernel's numbers, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12  # CUDA cores, no tensor cores
+# max|kernel - plain| / max|plain|: the reference's parity tolerance for
+# every MRF message-pass path (BENCH_r05.json parity_tolerances).
+KERNEL_RTOL = 1e-3
+BATCH = 8
+REQUESTS = 4
+TIMED_RUNS = 50
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max|got - want| / max|want|, max|got - want|)."""
+    diff = (got.double() - want.double()).abs().max().item()
+    return diff / want.double().abs().max().item(), diff
+
+
+def time_ms(fn, runs: int = TIMED_RUNS, per_graph: int = 10) -> float:
+    """Median device time of one call of ``fn``, CUDA events around
+    replays of a CUDA graph of ``per_graph`` calls: the host's launch
+    overhead (Python, ctypes) stays out of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(per_graph):
+            fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_graph)
+    return float(np.median(times))
+
+
+def call_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Median time of one eager call of ``fn``, CUDA events around it:
+    device time plus whatever launch overhead the card waits for."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_flops: int) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unaries(gen: torch.Generator, b: int, h: int, w: int, k: int, dtype) -> torch.Tensor:
+    """Spatially softmaxed random heatmaps (B, H, W, K) on the card."""
+    x = torch.randn(b, h * w, k, generator=gen).softmax(dim=1)
+    return x.reshape(b, h, w, k).to("cuda", dtype)
+
+
+def mrf_params(gen: torch.Generator, window, k: int):
+    """Positive kernels near the uniform init and small positive biases."""
+    from jointpose_torch.models.mrf import inverse_softplus
+
+    wh, ww = window
+    raw = inverse_softplus(1.0 / (wh * ww)) + 0.5 * torch.randn(wh, ww, k, k, generator=gen)
+    kernels = torch.nn.functional.softplus(raw)
+    biases = torch.nn.functional.softplus(inverse_softplus(1e-4) + torch.randn(k, k, generator=gen))
+    return kernels.cuda(), biases.cuda()
+
+
+def serve(config, seed: int, counters: dict) -> dict:
+    """Serve ``REQUESTS`` requests of ``BATCH`` uint8 images; return timings."""
+    from jointpose_torch.predict import build_predictor, init_state_dict
+
+    state = init_state_dict(config, torch.Generator().manual_seed(seed))
+    predict = build_predictor(config, state)
+    h, w = config.data.image_hw
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.integers(0, 256, (REQUESTS, BATCH, h, w, 3), dtype=np.uint8))
+    images = images.cuda()
+    predict(images[0])  # warm-up: cuDNN algorithm choice, DFT tables
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    latencies = []
+    for r in range(REQUESTS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        coords, probs = predict(images[r])
+        end.record()
+        end.synchronize()
+        latencies.append(start.elapsed_time(end))
+        hm = config.heatmap_hw
+        check(tuple(coords.shape) == (BATCH, config.num_joints, 2), f"coords shape {tuple(coords.shape)}")
+        check(tuple(probs.shape) == (BATCH, *hm, config.num_joints), f"probs shape {tuple(probs.shape)}")
+        check(bool(torch.isfinite(coords).all()) and bool(torch.isfinite(probs).all()),
+              "non-finite output")
+        check(bool(((coords[..., 0] >= 0) & (coords[..., 0] <= w - 1)).all()
+                   and ((coords[..., 1] >= 0) & (coords[..., 1] <= h - 1)).all()),
+              "coordinates outside the frame")
+        mass = probs.sum(dim=(1, 2))
+        check(bool(((mass - 1).abs() < 1e-3).all()), "heatmaps do not sum to 1")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return {"p50_ms": float(np.median(latencies)), "latencies_ms": latencies, "launches": launches}
+
+
+def tiny_cpu_vs_card(mrf_overrides: dict) -> float:
+    """Max relative error of the card's MRF log-heatmaps against the CPU's
+    plain path on the fp32 ``tiny`` preset with random spatial kernels."""
+    from jointpose_torch import get_config
+    from jointpose_torch.models.pose import PoseModel
+    from jointpose_torch.predict import init_state_dict
+
+    cfg = get_config("tiny")
+    cfg = cfg.replace(mrf=dataclasses.replace(cfg.mrf, **mrf_overrides))
+    gen = torch.Generator().manual_seed(3)
+    state = init_state_dict(cfg, gen)
+    state["spatial_model.raw_kernels"] += 0.5 * torch.randn(
+        state["spatial_model.raw_kernels"].shape, generator=gen)
+    images = torch.rand(2, *cfg.data.image_hw, 3, generator=gen)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = PoseModel(cfg)
+        model.load_state_dict(state)
+        model = model.to(device).eval()
+        with torch.inference_mode():
+            outs[device] = model(images.to(device))["mrf_log_heatmaps"].cpu()
+    return rel_err(outs["cuda"], outs["cpu"])[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    from jointpose_torch import _build, get_config
+    from jointpose_torch.ops.mrf_epilogue import mrf_epilogue, mrf_epilogue_plain
+    from jointpose_torch.ops.mrf_fft import forward_ffts
+    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_plain
+    from jointpose_torch.ops.mrf_xla import pairwise_conv
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    t0 = time.perf_counter()
+    _build.build(_build.kernel_names())
+    print(f"build: {time.perf_counter() - t0:.2f} s for {_build.kernel_names()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    k = 9
+
+    # --- kernel 1: fused epilogue at the flagship's coarse grid (30x45).
+    flag = get_config("flagship")
+    ch, cw = flag.heatmap_hw[0] // flag.mrf.stride, flag.heatmap_hw[1] // flag.mrf.stride
+    kern1, bias1 = mrf_params(gen, flag.mrf.window, k)
+    epi_err, resps = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        resp = resps[dtype] = pairwise_conv(unaries(gen, BATCH, ch, cw, k, dtype), kern1.to(dtype))
+        got = mrf_epilogue(resp, bias1, flag.mrf.eps)
+        want = mrf_epilogue_plain(resp, bias1, flag.mrf.eps)
+        torch.cuda.synchronize()
+        epi_err[dtype] = rel_err(got, want)
+        print(f"kernel mrf_epilogue {dtype} {tuple(resp.shape)}: rel err {epi_err[dtype][0]:.3e}, "
+              f"max abs err {epi_err[dtype][1]:.3e}")
+        check(epi_err[dtype][0] <= KERNEL_RTOL, f"mrf_epilogue {dtype} disagrees with its plain version")
+    resp1 = resps[torch.bfloat16]  # the flagship path's responses are bf16
+
+    # --- kernel 2: fused Fourier tail at the joint geometry (60x90, 45x67).
+    joint = get_config("joint")
+    jh, jw = joint.heatmap_hw
+    kern2, bias2 = mrf_params(gen, joint.mrf.window, k)
+    p2 = unaries(gen, BATCH, jh, jw, k, torch.float32)
+    pf, kf, tables = forward_ffts(p2, kern2)
+    pf = tuple(t.contiguous() for t in pf)
+    kf = tuple(t.contiguous() for t in kf)
+    got = fused_tail(pf, kf, tables, bias2, joint.mrf.eps)
+    want = fused_tail_plain(pf, kf, tables, bias2, joint.mrf.eps)
+    torch.cuda.synchronize()
+    tail_err = rel_err(got, want)
+    print(f"kernel mrf_fft_tail {tuple(got.shape)}: rel err {tail_err[0]:.3e}, "
+          f"max abs err {tail_err[1]:.3e}")
+    check(tail_err[0] <= KERNEL_RTOL, "mrf_fft_tail disagrees with its plain version")
+
+    # --- the main paths.
+    counters = {"mrf_epilogue": mrf_epilogue, "mrf_fft_tail": fused_tail}
+    torch.backends.cudnn.allow_tf32 = True  # serving runs with PyTorch's defaults
+    joint_cfg = joint.replace(
+        detector=dataclasses.replace(joint.detector, head_conv_impl="direct"))
+    served_joint = serve(joint_cfg, seed=1, counters=counters)
+    print(f"serve joint (bf16, direct head, fused Fourier MRF tail): {REQUESTS} requests x "
+          f"{BATCH} images, p50 {served_joint['p50_ms']:.3f} ms/request, "
+          f"latencies {served_joint['latencies_ms']}, launches {served_joint['launches']}")
+    check(served_joint["launches"]["mrf_fft_tail"] == REQUESTS,
+          "joint: the fused Fourier tail did not launch once per request")
+    flag_cfg = flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"))
+    served_flag = serve(flag_cfg, seed=2, counters=counters)
+    print(f"serve flagship (bf16, mrf.impl='pallas', fused epilogue): {REQUESTS} requests x "
+          f"{BATCH} images, p50 {served_flag['p50_ms']:.3f} ms/request, "
+          f"latencies {served_flag['latencies_ms']}, launches {served_flag['launches']}")
+    check(served_flag["launches"]["mrf_epilogue"] == REQUESTS,
+          "flagship: the fused epilogue did not launch once per request")
+    torch.backends.cudnn.allow_tf32 = False
+
+    # --- the card against the CPU on a small input.
+    for name, overrides in (("fft fused", {"impl": "fft", "use_pallas": True}),
+                            ("coarse + epilogue", {"impl": "pallas", "stride": 2})):
+        err = tiny_cpu_vs_card(overrides)
+        print(f"tiny {name}: card vs CPU MRF log-heatmaps rel err {err:.3e}")
+        check(err <= KERNEL_RTOL, f"tiny {name}: card disagrees with the CPU")
+
+    # --- timings at the main-path shapes.
+    out1 = mrf_epilogue(resp1, bias1)
+    rows = resp1.shape[0] * resp1.shape[1] * resp1.shape[2]
+    b1, by1 = bound(nbytes(resp1, bias1, out1), rows * k * k * 4)
+    out2 = fused_tail(pf, kf, tables, bias2)
+    ph, g = pf[0].shape[-2:]
+    flops_pair = 6 * ph * g + 8 * ph * g * jw + 4 * jh * ph * jw + 4 * jh * jw
+    b2, by2 = bound(
+        nbytes(*pf, *kf, tables["ir"], tables["ict_re"], tables["ict_im"], bias2, out2),
+        BATCH * k * k * flops_pair,
+    )
+    kernels = [
+        {
+            "name": "mrf_epilogue", "route": "cuda",
+            "source": "jointpose_torch/csrc/mrf_epilogue.cu",
+            "replaces": "jointpose/ops/mrf_pallas.py:39",
+            "launches": served_flag["launches"]["mrf_epilogue"],
+            "max_abs_err": epi_err[torch.bfloat16][1],
+            "ms": time_ms(lambda: mrf_epilogue(resp1, bias1)),
+            "plain_ms": time_ms(lambda: mrf_epilogue_plain(resp1, bias1)),
+            "bound_ms": b1, "bound_by": by1, "library_ms": None,
+        },
+        {
+            "name": "mrf_fft_tail", "route": "cuda",
+            "source": "jointpose_torch/csrc/mrf_fft_tail.cu",
+            "replaces": "jointpose/ops/mrf_fft_pallas.py:50",
+            "launches": served_joint["launches"]["mrf_fft_tail"],
+            "max_abs_err": tail_err[1],
+            "ms": time_ms(lambda: fused_tail(pf, kf, tables, bias2)),
+            "plain_ms": time_ms(lambda: fused_tail_plain(pf, kf, tables, bias2)),
+            "bound_ms": b2, "bound_by": by2, "library_ms": None,
+        },
+    ]
+    eager = {
+        "mrf_epilogue": call_ms(lambda: mrf_epilogue(resp1, bias1)),
+        "mrf_fft_tail": call_ms(lambda: fused_tail(pf, kf, tables, bias2)),
+    }
+    for kn in kernels:
+        print(f"time {kn['name']}: {kn['ms']:.4f} ms on the device, {eager[kn['name']]:.4f} ms "
+              f"per eager call (plain {kn['plain_ms']:.4f} ms, "
+              f"bound {kn['bound_ms']:.4f} ms by {kn['bound_by']}, launches/request "
+              f"{kn['launches'] / REQUESTS:g}); no single PyTorch call computes it, "
+              f"so library_ms is null")
+    print(f"bounds: HBM {HBM_BYTES_PER_S / 1e12} TB/s, fp32 CUDA-core peak "
+          f"{FP32_FLOPS_PER_S / 1e12} TFLOP/s (H100 SXM data sheet)")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

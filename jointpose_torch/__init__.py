@@ -1,0 +1,23 @@
+"""jointpose_torch — the PyTorch/CUDA port of ``jointpose``.
+
+A second package beside the JAX reference, serving the same joint
+CNN+MRF pose model on an NVIDIA H100.  Plain tensor code is PyTorch;
+each Pallas kernel of the reference on this package's path is a CUDA
+kernel written by hand under ``csrc/`` and built at first use
+(``_build.py``).  Public functions keep the reference's layouts: NHWC
+images and (B, H, W, K) heatmaps.
+
+- ``jointpose_torch.models``  — Detector, SpatialModel, PoseModel.
+- ``jointpose_torch.ops``     — heatmap maths and the MRF message passes
+                                (direct, coarse, Fourier), with the two
+                                CUDA kernels' wrappers and plain versions.
+- ``jointpose_torch.predict`` — ``build_predictor`` and seeded weights.
+- ``jointpose_torch.convert`` — flax params tree -> torch ``state_dict``.
+
+The package never imports ``jax`` or anything of ``jointpose``.
+"""
+
+__version__ = "0.1.0"
+
+from jointpose_torch import skeleton  # noqa: F401
+from jointpose_torch.configs import Config, get_config, PRESETS  # noqa: F401

@@ -1,0 +1,164 @@
+"""Fully-convolutional part detector (counterpart of ``jointpose/models/detector.py``).
+
+- a trunk of (conv k×k -> ReLU -> optional 2×2 pool) stages, or stride-2
+  convs in place of the pools (``pool_mode='stride'``);
+- optionally a half-resolution branch on the 2×2 average pyramid, whose
+  features are nearest-upsampled and summed with the full-res ones;
+- the wide head conv, then 1×1 convs down to K heatmap logits.
+
+Internally NCHW; the public ``Detector.forward`` takes NHWC images and
+returns (B, H/stride, W/stride, K) fp32 logits, as the reference does.
+Parameters are fp32 and cast to the compute dtype at each conv.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jointpose_torch.configs import DetectorConfig
+from jointpose_torch.ops.mrf_xla import same_pad
+
+
+def resolve_head_conv_impl(cfg: DetectorConfig) -> str:
+    """Resolve ``head_conv_impl`` for the port.
+
+    'auto' resolves to 'direct': the reference's rule is a roofline
+    calibrated for the TPU, and the Fourier head conv is neither ported
+    nor measured on the H100 yet.  'fft' raises until it is.
+    """
+    if cfg.head_conv_impl in ("auto", "direct"):
+        return "direct"
+    if cfg.head_conv_impl == "fft":
+        raise NotImplementedError(
+            "head_conv_impl='fft' (the Fourier head conv, ops/fft_conv.py) is "
+            "not ported yet; see ROADMAP.md, queue 2, item 4"
+        )
+    raise ValueError(f"unknown head_conv_impl {cfg.head_conv_impl!r}")
+
+
+class Conv(nn.Module):
+    """k×k SAME conv with fp32 parameters, run in the input's dtype.
+
+    The parameters are left uninitialized: a model gets its weights from
+    ``load_state_dict`` (``predict.init_state_dict`` or
+    ``convert.params_from_flax``).
+    """
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(cout))
+        self.kernel = kernel
+        self.stride = stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        (ht, hb), (wl, wr) = same_pad(h, self.kernel, self.stride), same_pad(w, self.kernel, self.stride)
+        w_, b_ = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if ht == hb and wl == wr:
+            return F.conv2d(x, w_, b_, stride=self.stride, padding=(ht, wl))
+        # Asymmetric SAME padding, e.g. (1, 2) for a stride-2 5×5 conv on
+        # an even input: F.conv2d's symmetric padding would shift the grid.
+        return F.conv2d(F.pad(x, (wl, wr, ht, hb)), w_, b_, stride=self.stride)
+
+
+def _pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2×2/2 max pool with SAME padding (an odd edge keeps its last row/col)."""
+    return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
+def _avg_pyramid(x: torch.Tensor) -> torch.Tensor:
+    """Half-resolution pyramid level: 2×2 mean of an NCHW map with even H, W."""
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // 2, 2, w // 2, 2).mean(dim=(3, 5))
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2× spatial upsample of an NCHW map."""
+    b, c, h, w = x.shape
+    x = x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2)
+    return x.reshape(b, c, h * 2, w * 2)
+
+
+class Trunk(nn.Module):
+    """Conv/pool feature trunk, reused across pyramid levels."""
+
+    def __init__(self, cfg: DetectorConfig, cin: int = 3):
+        super().__init__()
+        if cfg.pool_mode not in ("max", "stride"):
+            raise ValueError(f"unknown pool_mode {cfg.pool_mode!r}")
+        self.stride_conv = cfg.pool_mode == "stride"
+        self.pooled = tuple(cfg.trunk_pool)
+        for i, feats in enumerate(cfg.trunk_features):
+            stride = 2 if (self.pooled[i] and self.stride_conv) else 1
+            self.add_module(f"conv{i}", Conv(cin, feats, cfg.trunk_kernel, stride))
+            cin = feats
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, pooled in enumerate(self.pooled):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+            if pooled and not self.stride_conv:
+                x = _pool2x2(x)
+        return x
+
+
+class Detector(nn.Module):
+    """Multi-resolution fully-convolutional part detector.
+
+    Input:  (B, H, W, 3) images in [0, 1], cast to the compute dtype here.
+    Output: (B, H/stride, W/stride, K) float32 heatmap logits.
+    """
+
+    def __init__(self, cfg: DetectorConfig, num_joints: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        resolve_head_conv_impl(cfg)  # only 'direct' exists in the port
+        self.config = cfg
+        self.dtype = dtype
+        if cfg.share_trunk:
+            self.trunk = Trunk(cfg)
+        else:
+            self.trunk_full = Trunk(cfg)
+            if cfg.multires:
+                self.trunk_half = Trunk(cfg)
+        c = cfg.trunk_features[-1]
+        self.head_wide = Conv(c, cfg.head_features[0], cfg.head_kernel)
+        c = cfg.head_features[0]
+        self.n_1x1 = len(cfg.head_features) - 1
+        for i, feats in enumerate(cfg.head_features[1:]):
+            self.add_module(f"head_1x1_{i}", Conv(c, feats, 1))
+            c = feats
+        self.head_out = Conv(c, num_joints, 1)
+
+    @staticmethod
+    def stride(cfg: DetectorConfig) -> int:
+        return 2 ** sum(cfg.trunk_pool)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        stride = Detector.stride(cfg)
+        need = stride * 2 if cfg.multires else stride
+        h, w = images.shape[1], images.shape[2]
+        if h % need or w % need:
+            raise ValueError(
+                f"input {h}x{w} must be divisible by {need} "
+                f"(heatmap stride {stride}{', multires' if cfg.multires else ''})"
+            )
+        x = (images.to(self.dtype) - 0.5) * 2.0
+        x = x.permute(0, 3, 1, 2)  # NCHW
+        if cfg.share_trunk:
+            full = self.trunk(x)
+            if cfg.multires:
+                half = self.trunk(_avg_pyramid(x))
+        else:
+            full = self.trunk_full(x)
+            if cfg.multires:
+                half = self.trunk_half(_avg_pyramid(x))
+        if cfg.multires:
+            full = full + _upsample2x(half)
+        y = F.relu(self.head_wide(full))
+        for i in range(self.n_1x1):
+            y = F.relu(getattr(self, f"head_1x1_{i}")(y))
+        logits = self.head_out(y)
+        return logits.float().permute(0, 2, 3, 1)

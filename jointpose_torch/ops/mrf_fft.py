@@ -1,0 +1,132 @@
+"""MRF pairwise correlation in Fourier space via DFT matmuls
+(counterpart of ``jointpose/ops/mrf_fft.py``).
+
+Linear correlation of H×W unaries with wh×ww kernels uses circular
+transforms of size Ph = H+wh-1 by Pw = W+ww-1, keeping only the
+G = Pw//2+1 independent column bins of the real inputs.  The forward
+transforms contract over the unpadded rows/cols only; the inverse
+operators evaluate exactly the SAME-crop output positions.  All
+arithmetic is fp32; on the card the caller keeps TF32 off.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_consts(hm: tuple[int, int], window: tuple[int, int]) -> dict[str, np.ndarray]:
+    """Real/imag DFT operator tables for one (heatmap, window) geometry,
+    half column spectrum (the reference's ``real_cols=True``).
+
+    The inverse column operator carries the conjugate-pair weights (2 for
+    interior bins, 1 for DC and, when Pw is even, Nyquist), so the half
+    sum equals the full sum's real part exactly.
+    """
+    (h, w), (wh, ww) = hm, window
+    ph, pw = h + wh - 1, w + ww - 1
+    ch, cw = (wh - 1) // 2, (ww - 1) // 2
+    ncols = pw // 2 + 1
+
+    def fwd(p: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+        f = np.arange(p)[:, None] * np.arange(n)[None, :]
+        ang = -2.0 * np.pi * f / p
+        return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+    def inv(n_out: int, p: int, shift: int) -> tuple[np.ndarray, np.ndarray]:
+        f = (np.arange(n_out)[:, None] - shift) * np.arange(p)[None, :]
+        ang = 2.0 * np.pi * f / p
+        return (np.cos(ang) / p).astype(np.float32), (np.sin(ang) / p).astype(np.float32)
+
+    fr, fc, gr, gc = fwd(ph, h), fwd(pw, w), fwd(ph, wh), fwd(pw, ww)
+    ir, ic = inv(h, ph, ch), inv(w, pw, cw)
+    alpha = np.full((ncols,), 2.0, np.float32)
+    alpha[0] = 1.0
+    if pw % 2 == 0:
+        alpha[-1] = 1.0
+    fc = (fc[0][:ncols], fc[1][:ncols])
+    gc = (gc[0][:ncols], gc[1][:ncols])
+    ic = (ic[0][:, :ncols] * alpha, ic[1][:, :ncols] * alpha)
+    return {
+        "fr_re": fr[0], "fr_im": fr[1],
+        "fc_re": fc[0], "fc_im": fc[1],
+        "gr_re": gr[0], "gr_im": gr[1],
+        "gc_re": gc[0], "gc_im": gc[1],
+        "ir_re": ir[0], "ir_im": ir[1],
+        "ic_re": ic[0], "ic_im": ic[1],
+    }
+
+
+@functools.lru_cache(maxsize=16)
+def dft_tables(
+    hm: tuple[int, int], window: tuple[int, int], device: torch.device
+) -> dict[str, torch.Tensor]:
+    """The DFT tables of one geometry as fp32 tensors on ``device``,
+    copied there once.  Callers must not write to them.
+
+    Beside the reference's tables it holds the fused tail's operands:
+    ``ir`` (H, Ph, 2) with (re, im) interleaved and ``ict_re``/``ict_im``
+    (G, W), the inverse column operator transposed.
+    """
+    c = _dft_consts(hm, window)
+    t = {n: torch.from_numpy(v).to(device) for n, v in c.items()}
+    t["ir"] = torch.stack([t["ir_re"], t["ir_im"]], dim=-1).contiguous()
+    t["ict_re"] = t["ic_re"].T.contiguous()
+    t["ict_im"] = t["ic_im"].T.contiguous()
+    return t
+
+
+def _transform2d(x, row_re, row_im, col_re, col_im):
+    """Complex 2-D DFT of real planes x (..., n_rows, n_cols) -> (re, im)."""
+    a_re = torch.matmul(row_re, x)
+    a_im = torch.matmul(row_im, x)
+    re = torch.matmul(a_re, col_re.T) - torch.matmul(a_im, col_im.T)
+    im = torch.matmul(a_re, col_im.T) + torch.matmul(a_im, col_re.T)
+    return re, im
+
+
+def forward_ffts(p: torch.Tensor, kernels: torch.Tensor):
+    """Forward DFTs of unaries and kernels.
+
+    Returns ((pf_re, pf_im) (B, K, Ph, G), (kf_re, kf_im) (Kv, Ka, Ph, G),
+    tables dict).
+    """
+    b, h, w, k = p.shape
+    wh, ww, kv, ka = kernels.shape
+    if kv != k:
+        raise ValueError(f"p {tuple(p.shape)} does not match kernels {tuple(kernels.shape)}")
+    t = dft_tables((h, w), (wh, ww), p.device)
+    planes = p.float().permute(0, 3, 1, 2)  # (B, K, H, W)
+    pf = _transform2d(planes, t["fr_re"], t["fr_im"], t["fc_re"], t["fc_im"])
+    kplanes = kernels.float().permute(2, 3, 0, 1)  # (Kv, Ka, wh, ww)
+    kf = _transform2d(kplanes, t["gr_re"], t["gr_im"], t["gc_re"], t["gc_im"])
+    return pf, kf, t
+
+
+def fft_pairwise_conv(p: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """All K^2 SAME pairwise correlations via Fourier-space matmuls.
+
+    Drop-in for ``pairwise_conv``: (B, H, W, K), (wh, ww, K, K) ->
+    (B, H, W, Kv, Ka) fp32.
+    """
+    (pf_re, pf_im), (kf_re, kf_im), t = forward_ffts(p, kernels)
+    # R = conj(K_f) ⊙ P_f: P_f[b, v] against K_f[v, a] -> (B, Kv, Ka, Ph, G).
+    r_re = kf_re[None] * pf_re[:, :, None] + kf_im[None] * pf_im[:, :, None]
+    r_im = kf_re[None] * pf_im[:, :, None] - kf_im[None] * pf_re[:, :, None]
+    t_re = torch.matmul(t["ir_re"], r_re) - torch.matmul(t["ir_im"], r_im)
+    t_im = torch.matmul(t["ir_re"], r_im) + torch.matmul(t["ir_im"], r_re)
+    resp = torch.matmul(t_re, t["ic_re"].T) - torch.matmul(t_im, t["ic_im"].T)
+    return resp.permute(0, 3, 4, 1, 2)  # (B, H, W, Kv, Ka)
+
+
+def mrf_message_pass_fft(
+    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """Log-space message pass with the Fourier-space pairwise conv and the
+    plain bias+log+Σ_v tail: the reference's ``use_pallas_epilogue=False``."""
+    resp = fft_pairwise_conv(p, kernels)
+    resp = resp + biases.float()
+    return torch.log(resp.clamp_min(eps)).sum(dim=-2)

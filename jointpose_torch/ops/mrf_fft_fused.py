@@ -1,0 +1,105 @@
+"""Fused Fourier MRF tail (counterpart of ``jointpose/ops/mrf_fft_pallas.py``).
+
+    for each image b, source v, target a:
+      R       = conj(K_f[v,a]) ⊙ P_f[b,v]
+      o       = Re{ Ir @ (R @ Ic) }          (inverse DFTs with the SAME crop)
+      out[b,a] += log(max(o + bias[v,a], eps))
+
+``fused_tail`` is the wrapper: on CUDA tensors it launches the kernel of
+``csrc/mrf_fft_tail.cu`` (or raises), on CPU tensors it runs the plain
+version ``fused_tail_plain``.  Only the forward DFTs' outputs cross
+device memory; the (B, Kv, Ka, H, W) responses never exist.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from jointpose_torch import _build
+from jointpose_torch.ops.mrf_fft import forward_ffts
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "mrf_fft_tail": ([_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I),
+    "mrf_fft_tail_smem_bytes": ([_I, _I], ctypes.c_longlong),
+}
+_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
+
+
+def fused_tail_plain(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: ((B,Kv,Ph,G) re/im, (Kv,Ka,Ph,G) re/im) -> (B, Ka, H, W) fp32."""
+    pf_re, pf_im = pf
+    kf_re, kf_im = kf
+    r_re = kf_re[None] * pf_re[:, :, None] + kf_im[None] * pf_im[:, :, None]
+    r_im = kf_re[None] * pf_im[:, :, None] - kf_im[None] * pf_re[:, :, None]
+    u_re = torch.matmul(r_re, tables["ict_re"]) - torch.matmul(r_im, tables["ict_im"])
+    u_im = torch.matmul(r_re, tables["ict_im"]) + torch.matmul(r_im, tables["ict_re"])
+    o = torch.matmul(tables["ir_re"], u_re) - torch.matmul(tables["ir_im"], u_im)
+    o = o + biases.float()[None, :, :, None, None]  # (B, Kv, Ka, H, W)
+    return torch.log(o.clamp_min(eps)).sum(dim=1)
+
+
+def fused_tail(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
+    """The fused tail: (B, Ka, H, W) fp32 log-messages summed over v."""
+    pf_re, pf_im = pf
+    kf_re, kf_im = kf
+    if pf_re.device.type == "cpu":
+        return fused_tail_plain(pf, kf, tables, biases, eps)
+    b, kv, ph, g = pf_re.shape
+    ka = kf_re.shape[1]
+    h, w = tables["ir_re"].shape[0], tables["ict_re"].shape[1]
+    operands = {
+        "pf_re": (pf_re, (b, kv, ph, g)), "pf_im": (pf_im, (b, kv, ph, g)),
+        "kf_re": (kf_re, (kv, ka, ph, g)), "kf_im": (kf_im, (kv, ka, ph, g)),
+        "ir": (tables["ir"], (h, ph, 2)),
+        "ict_re": (tables["ict_re"], (g, w)), "ict_im": (tables["ict_im"], (g, w)),
+        "biases": (biases, (kv, ka)),
+    }
+    for name, (t, shape) in operands.items():
+        if t.device != pf_re.device or pf_re.device.type != "cuda":
+            raise ValueError(f"fused_tail: {name} must lie on the CUDA device of pf_re")
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"fused_tail: {name} must be contiguous f32 {shape}, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+    lib = _build.load("mrf_fft_tail", _SIGNATURES)
+    smem = lib.mrf_fft_tail_smem_bytes(ph, g)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"fused_tail: geometry Ph={ph}, G={g} needs {smem} B of shared memory "
+            f"per block, above {_SMEM_LIMIT}"
+        )
+    out = torch.empty((b, ka, h, w), dtype=torch.float32, device=pf_re.device)
+    with torch.cuda.device(pf_re.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mrf_fft_tail(
+            pf_re.data_ptr(), pf_im.data_ptr(), kf_re.data_ptr(), kf_im.data_ptr(),
+            tables["ir"].data_ptr(), tables["ict_re"].data_ptr(),
+            tables["ict_im"].data_ptr(), biases.data_ptr(), out.data_ptr(),
+            b, kv, ka, ph, g, h, w, eps, stream,
+        )
+    _build.check(err, "mrf_fft_tail")
+    fused_tail.launches += 1
+    return out
+
+
+fused_tail.launches = 0
+
+
+def mrf_message_pass_fft_fused(
+    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """Full log-space message pass: torch forward DFTs + the fused tail.
+
+    Same signature and semantics as ``mrf_message_pass_xla``; returns
+    (B, H, W, Ka) fp32.
+    """
+    pf, kf, tables = forward_ffts(p, kernels)
+    pf = tuple(t.contiguous() for t in pf)
+    kf = tuple(t.contiguous() for t in kf)
+    out = fused_tail(pf, kf, tables, biases.float().contiguous(), eps)
+    return out.permute(0, 2, 3, 1)

@@ -1,0 +1,113 @@
+"""The whole served slice on the `tiny` preset, port against reference, in
+fp32 on the CPU: uint8 images -> PoseModel -> model_probs -> decode_probs,
+with the same weights on both sides (converted by params_from_flax).
+
+Two MRF paths: the Fourier pass through the fused tail (`impl='fft'`,
+`use_pallas=True`; the reference's Pallas kernel in interpret mode), and
+the coarse stride-2 pass through the fused epilogue (`impl='pallas'`)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jointpose.configs import get_config as jax_get_config
+from jointpose.models.pose import PoseModel as JaxPoseModel
+from jointpose.ops.heatmaps import decode_probs, model_probs
+from jointpose_torch import get_config
+from jointpose_torch.convert import params_from_flax
+from jointpose_torch.models.pose import PoseModel
+from jointpose_torch.predict import build_predictor, init_state_dict
+
+# MRF log-heatmaps: the reference's parity tolerance for every
+# message-pass path (BENCH_r05.json parity_tolerances), max|Δ| / max|ref|.
+MRF_RTOL = 1e-3
+# Conv stacks in fp32 (detector logits), max|Δ| / max|ref|.
+CONV_RTOL = 1e-4
+# Decoded coordinates in image pixels.
+COORD_ATOL = 1e-3
+
+PATHS = {
+    "fft_fused": {"impl": "fft", "use_pallas": True},
+    "coarse_epilogue": {"impl": "pallas", "stride": 2},
+}
+
+
+def _configs(path: str, normalize_input: bool):
+    out = []
+    for get in (jax_get_config, get_config):
+        cfg = get("tiny")
+        out.append(cfg.replace(
+            detector=dataclasses.replace(cfg.detector, head_conv_impl="direct"),
+            mrf=dataclasses.replace(cfg.mrf, normalize_input=normalize_input, **PATHS[path]),
+            decode_refine=True,
+        ))
+    return out
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("normalize_input", [True, False])
+def test_served_slice_matches_reference(path, normalize_input):
+    jcfg, tcfg = _configs(path, normalize_input)
+    rs = np.random.RandomState(0)
+    images = rs.randint(0, 256, size=(2, *jcfg.data.image_hw, 3)).astype(np.uint8)
+    jmodel = JaxPoseModel(jcfg)
+    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(images))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    # Perturb the uniform spatial kernels so each target joint differs.
+    sm = variables["params"]["spatial_model"]
+    sm["raw_kernels"] = sm["raw_kernels"] + 0.5 * rs.randn(*sm["raw_kernels"].shape).astype(np.float32)
+
+    out_j = jmodel.apply(variables, jnp.asarray(images))
+    probs_j = model_probs(out_j)
+    coords_j = decode_probs(probs_j, jcfg.data.heatmap_stride, refine=True)
+
+    state = params_from_flax(variables)
+    model = PoseModel(tcfg)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        out_t = model(torch.from_numpy(images))
+    assert _rel(out_t["detector_logits"], out_j["detector_logits"]) <= CONV_RTOL
+    assert _rel(out_t["mrf_log_heatmaps"], out_j["mrf_log_heatmaps"]) <= MRF_RTOL
+
+    coords_t, probs_t = build_predictor(tcfg, state, device="cpu")(torch.from_numpy(images))
+    assert probs_t.shape == probs_j.shape and coords_t.shape == coords_j.shape
+    assert _rel(probs_t, probs_j) <= MRF_RTOL
+    np.testing.assert_allclose(coords_t.numpy(), np.asarray(coords_j), rtol=0, atol=COORD_ATOL)
+
+
+def test_state_dict_matches_reference_layout():
+    jcfg, tcfg = _configs("fft_fused", True)
+    variables = JaxPoseModel(jcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, *jcfg.data.image_hw, 3), jnp.float32)
+    )
+    converted = params_from_flax(jax.tree_util.tree_map(np.asarray, variables))
+    seeded = init_state_dict(tcfg, torch.Generator().manual_seed(0))
+    assert {k: tuple(v.shape) for k, v in converted.items()} == {
+        k: tuple(v.shape) for k, v in seeded.items()
+    }
+    again = init_state_dict(tcfg, torch.Generator().manual_seed(0))
+    assert all(torch.equal(seeded[k], again[k]) for k in seeded)
+    # The uniform spatial-model init equals the reference's.
+    for name in ("raw_kernels", "raw_bias"):
+        np.testing.assert_allclose(
+            seeded[f"spatial_model.{name}"].numpy(),
+            converted[f"spatial_model.{name}"].numpy(), rtol=1e-6,
+        )
+
+
+def test_unported_options_raise():
+    cfg = get_config("tiny")
+    state = init_state_dict(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="flip"):
+        build_predictor(cfg.replace(eval_flip_tta=True), state, device="cpu")
+    with pytest.raises(NotImplementedError, match="precision"):
+        PoseModel(cfg.replace(mrf=dataclasses.replace(cfg.mrf, precision="default")))
