@@ -9,15 +9,20 @@ the package is missing.  Phases, each fatal on failure:
 1. print the card's name and power limit; build every kernel under
    ``jointpose_torch/csrc/`` (one ``nvcc`` per source, all at once);
 2. with TF32 off, hold each kernel against its plain PyTorch version on
-   the card at its main-path shape;
+   the card at its main-path shape: the epilogue forward and backward
+   (the backward twice, bit-identical), the fused Fourier tail, and both
+   shear-warp entries on a random full augmentation draw;
 3. serve the paper ``joint`` preset at full width (bf16, direct head
    conv, seeded random weights): 4 requests of 8 uint8 240×360 images,
    through the fused Fourier tail kernel;
 4. serve ``flagship`` with ``mrf.impl='pallas'`` the same way, through
    the fused epilogue kernel;
-5. check both MRF paths on the card against the CPU at the ``tiny``
-   preset (fp32);
-6. time each kernel and its plain version at the main-path shape.
+5. train ``flagship`` with ``mrf.impl='pallas'``: one warm-up and 4 timed
+   joint-stage steps at batch 32, through the shear warp and the
+   epilogue forward and backward;
+6. check both MRF paths on the card against the CPU at the ``tiny``
+   preset (fp32): the forward, and one training step's gradients;
+7. time each kernel and its plain version at the main-path shape.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -40,8 +45,12 @@ FP32_FLOPS_PER_S = 67e12  # CUDA cores, no tensor cores
 # max|kernel - plain| / max|plain|: the reference's parity tolerance for
 # every MRF message-pass path (BENCH_r05.json parity_tolerances).
 KERNEL_RTOL = 1e-3
+# max|kernel - plain| on pixels in [0, 1]: the reference's tolerance for
+# its shear-warp kernel against its oracle (tests/test_warp_pallas.py).
+WARP_ATOL = 2e-5
 BATCH = 8
 REQUESTS = 4
+TRAIN_STEPS = 4
 TIMED_RUNS = 50
 
 
@@ -51,9 +60,11 @@ def check(cond: bool, msg: str) -> None:
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max|got - want| / max|want|, max|got - want|)."""
+    """(max|got - want| / max|want|, max|got - want|); the relative error
+    of an all-zero ``want`` is the absolute one."""
     diff = (got.double() - want.double()).abs().max().item()
-    return diff / want.double().abs().max().item(), diff
+    scale = want.double().abs().max().item()
+    return (diff / scale if scale > 0 else diff), diff
 
 
 def time_ms(fn, runs: int = TIMED_RUNS, per_graph: int = 10) -> float:
@@ -126,6 +137,11 @@ def mrf_params(gen: torch.Generator, window, k: int):
     return kernels.cuda(), biases.cuda()
 
 
+def reset(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
 def serve(config, seed: int, counters: dict) -> dict:
     """Serve ``REQUESTS`` requests of ``BATCH`` uint8 images; return timings."""
     from jointpose_torch.predict import build_predictor, init_state_dict
@@ -138,8 +154,7 @@ def serve(config, seed: int, counters: dict) -> dict:
     images = images.cuda()
     predict(images[0])  # warm-up: cuDNN algorithm choice, DFT tables
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    reset(counters)
     latencies = []
     for r in range(REQUESTS):
         start = torch.cuda.Event(enable_timing=True)
@@ -163,15 +178,62 @@ def serve(config, seed: int, counters: dict) -> dict:
     return {"p50_ms": float(np.median(latencies)), "latencies_ms": latencies, "launches": launches}
 
 
+def train_batches(config, seed: int, n: int, device: str) -> list[dict]:
+    """``n`` batches of seeded uint8 images, joints drawn inside the frame."""
+    rng = np.random.default_rng(seed)
+    b, (h, w), k = config.train.batch_size, config.data.image_hw, config.num_joints
+    return [{
+        "image": torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(device),
+        "joints": torch.from_numpy(
+            rng.uniform([1.0, 1.0], [w - 2.0, h - 2.0], (b, k, 2)).astype(np.float32)).to(device),
+        "visible": torch.ones(b, k, device=device),
+    } for _ in range(n)]
+
+
+def train(config, seed: int, counters: dict) -> dict:
+    """One warm-up and ``TRAIN_STEPS`` timed joint-stage steps of ``config``
+    from seeded random weights; checks losses, updates and gradients."""
+    from jointpose_torch.train import create_state, make_train_step
+
+    state = create_state(config, torch.Generator().manual_seed(seed))
+    step = make_train_step(config, "joint")
+    batches = train_batches(config, seed, 1 + TRAIN_STEPS, "cuda")
+    state, _ = step(state, batches[0])  # warm-up: cuDNN algorithm choice
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    reset(counters)
+    step_ms, metrics = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({key: float(v) for key, v in m.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite metrics {metrics}")
+    unchanged = [n for n, p in state.model.named_parameters() if torch.equal(p, before[n])]
+    check(not unchanged, f"parameters unchanged by {TRAIN_STEPS} steps: {unchanged}")
+    sm = state.model.spatial_model
+    for name, p in (("raw_kernels", sm.raw_kernels), ("raw_bias", sm.raw_bias)):
+        check(p.grad is not None and p.grad.abs().max().item() > 0, f"zero gradient of {name}")
+    return {"p50_ms": float(np.median(step_ms)), "step_ms": step_ms, "metrics": metrics,
+            "launches": launches}
+
+
+def tiny_config(mrf_overrides: dict):
+    from jointpose_torch import get_config
+
+    cfg = get_config("tiny")
+    return cfg.replace(mrf=dataclasses.replace(cfg.mrf, **mrf_overrides))
+
+
 def tiny_cpu_vs_card(mrf_overrides: dict) -> float:
     """Max relative error of the card's MRF log-heatmaps against the CPU's
     plain path on the fp32 ``tiny`` preset with random spatial kernels."""
-    from jointpose_torch import get_config
     from jointpose_torch.models.pose import PoseModel
     from jointpose_torch.predict import init_state_dict
 
-    cfg = get_config("tiny")
-    cfg = cfg.replace(mrf=dataclasses.replace(cfg.mrf, **mrf_overrides))
+    cfg = tiny_config(mrf_overrides)
     gen = torch.Generator().manual_seed(3)
     state = init_state_dict(cfg, gen)
     state["spatial_model.raw_kernels"] += 0.5 * torch.randn(
@@ -187,15 +249,52 @@ def tiny_cpu_vs_card(mrf_overrides: dict) -> float:
     return rel_err(outs["cuda"], outs["cpu"])[0]
 
 
+def tiny_grads_cpu_vs_card(mrf_overrides: dict) -> tuple[float, str]:
+    """One joint-stage training step of the fp32 ``tiny`` preset (stride-2
+    trunk, shear warp) on the CPU and on the card, from the same weights,
+    batch and augmentation draw.  Returns the worst gradient tensor's
+    max|Δ| / max|CPU gradient| and its name; fails if the spatial model's
+    gradients are zero on either device."""
+    from jointpose_torch.data.augment import random_augment_params
+    from jointpose_torch.train import create_state, make_train_step
+
+    cfg = tiny_config(mrf_overrides)
+    cfg = cfg.replace(
+        detector=dataclasses.replace(cfg.detector, pool_mode="stride"),
+        augment=dataclasses.replace(cfg.augment, enabled=True, warp_impl="shear",
+                                    crop_frac_range=(0.8, 1.0)),
+    )
+    gen = torch.Generator().manual_seed(5)
+    aug = random_augment_params(gen, cfg.train.batch_size, cfg.augment, cfg.data.image_hw)
+    noise = 0.5 * torch.randn(cfg.mrf.window + (cfg.num_joints,) * 2, generator=gen)
+    batch = train_batches(cfg, 5, 1, "cpu")[0]
+    grads = {}
+    for device in ("cpu", "cuda"):
+        state = create_state(cfg, torch.Generator().manual_seed(5), device=device)
+        with torch.no_grad():
+            state.model.spatial_model.raw_kernels += noise.to(device)
+        make_train_step(cfg, "joint")(state, batch, aug=aug)
+        grads[device] = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+        for name in ("spatial_model.raw_kernels", "spatial_model.raw_bias"):
+            check(grads[device][name].abs().max().item() > 0, f"{device}: zero gradient of {name}")
+    errs = {n: rel_err(grads["cuda"][n], g)[0] for n, g in grads["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     from jointpose_torch import _build, get_config
-    from jointpose_torch.ops.mrf_epilogue import mrf_epilogue, mrf_epilogue_plain
+    from jointpose_torch.data.augment import inverse_affine, random_augment_params
+    from jointpose_torch.ops.mrf_epilogue import (
+        mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_plain,
+    )
     from jointpose_torch.ops.mrf_fft import forward_ffts
     from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_plain
     from jointpose_torch.ops.mrf_xla import pairwise_conv
+    from jointpose_torch.ops.warp import shear_warp, shear_warp_reference, shear_warp_rowmajor
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -211,21 +310,46 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     k = 9
 
-    # --- kernel 1: fused epilogue at the flagship's coarse grid (30x45).
+    # --- kernel 1: fused epilogue at the flagship's coarse grid (30x45),
+    # forward at the serving batch, backward at the training batch.
     flag = get_config("flagship")
+    eps = flag.mrf.eps
     ch, cw = flag.heatmap_hw[0] // flag.mrf.stride, flag.heatmap_hw[1] // flag.mrf.stride
     kern1, bias1 = mrf_params(gen, flag.mrf.window, k)
     epi_err, resps = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         resp = resps[dtype] = pairwise_conv(unaries(gen, BATCH, ch, cw, k, dtype), kern1.to(dtype))
-        got = mrf_epilogue(resp, bias1, flag.mrf.eps)
-        want = mrf_epilogue_plain(resp, bias1, flag.mrf.eps)
+        got = mrf_epilogue(resp, bias1, eps)
+        want = mrf_epilogue_plain(resp, bias1, eps)
         torch.cuda.synchronize()
         epi_err[dtype] = rel_err(got, want)
         print(f"kernel mrf_epilogue {dtype} {tuple(resp.shape)}: rel err {epi_err[dtype][0]:.3e}, "
               f"max abs err {epi_err[dtype][1]:.3e}")
         check(epi_err[dtype][0] <= KERNEL_RTOL, f"mrf_epilogue {dtype} disagrees with its plain version")
     resp1 = resps[torch.bfloat16]  # the flagship path's responses are bf16
+
+    tb = flag.train.batch_size
+    bwd_err, bwd_in = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        resp = pairwise_conv(unaries(gen, tb, ch, cw, k, dtype), kern1.to(dtype))
+        g = torch.randn(*resp.shape[:3], k, generator=gen).cuda()
+        bwd_in[dtype] = (resp, g)
+        dresp, dbias = mrf_epilogue_bwd(resp, bias1, g, eps)
+        want_dresp, want_dbias = mrf_epilogue_bwd_plain(resp, bias1, g, eps)
+        torch.cuda.synchronize()
+        check(dresp.dtype == resp.dtype and dbias.dtype == torch.float32, "mrf_epilogue_bwd dtypes")
+        e_resp, e_bias = rel_err(dresp, want_dresp), rel_err(dbias, want_dbias)
+        bwd_err[dtype] = max(e_resp[1], e_bias[1])
+        print(f"kernel mrf_epilogue_bwd {dtype} {tuple(resp.shape)}: dresp rel err {e_resp[0]:.3e} "
+              f"(max abs {e_resp[1]:.3e}), dbias rel err {e_bias[0]:.3e} (max abs {e_bias[1]:.3e})")
+        check(max(e_resp[0], e_bias[0]) <= KERNEL_RTOL,
+              f"mrf_epilogue_bwd {dtype} disagrees with its plain version")
+        again = mrf_epilogue_bwd(resp, bias1, g, eps)
+        torch.cuda.synchronize()
+        check(torch.equal(again[0], dresp) and torch.equal(again[1], dbias),
+              f"mrf_epilogue_bwd {dtype}: a second run is not bit-identical")
+    print("kernel mrf_epilogue_bwd: a second run gave bit-identical dresp and dbias (both dtypes)")
+    resp3, g3 = bwd_in[torch.bfloat16]
 
     # --- kernel 2: fused Fourier tail at the joint geometry (60x90, 45x67).
     joint = get_config("joint")
@@ -243,9 +367,29 @@ def main() -> int:
           f"max abs err {tail_err[1]:.3e}")
     check(tail_err[0] <= KERNEL_RTOL, "mrf_fft_tail disagrees with its plain version")
 
+    # --- kernel 3: the shear warp, both entries, on a random full draw
+    # (scale, rotation, translation, flip and crop) at the training shape.
+    h, w = flag.data.image_hw
+    images = torch.rand(tb, h, w, 3, generator=gen).cuda()
+    draw_cfg = dataclasses.replace(flag.augment, crop_frac_range=(0.8, 1.0))
+    draw = random_augment_params(torch.Generator().manual_seed(1), tb, draw_cfg, (h, w))
+    a_inv, b_inv = (t.cuda() for t in inverse_affine(draw, (h, w)))
+    want = shear_warp_reference(images, a_inv, b_inv)
+    warp_err = {}
+    for fn in (shear_warp, shear_warp_rowmajor):
+        got = fn(images, a_inv, b_inv)
+        torch.cuda.synchronize()
+        check(got.shape == images.shape and got.dtype == torch.float32, f"{fn.__name__} output")
+        warp_err[fn.__name__] = rel_err(got, want)[1]
+        print(f"kernel {fn.__name__} {tuple(images.shape)}: max abs err "
+              f"{warp_err[fn.__name__]:.3e} (limit {WARP_ATOL:g})")
+        check(warp_err[fn.__name__] <= WARP_ATOL, f"{fn.__name__} disagrees with its plain version")
+
     # --- the main paths.
-    counters = {"mrf_epilogue": mrf_epilogue, "mrf_fft_tail": fused_tail}
-    torch.backends.cudnn.allow_tf32 = True  # serving runs with PyTorch's defaults
+    counters = {"mrf_epilogue": mrf_epilogue, "mrf_epilogue_bwd": mrf_epilogue_bwd,
+                "mrf_fft_tail": fused_tail, "shear_warp": shear_warp,
+                "shear_warp_rowmajor": shear_warp_rowmajor}
+    torch.backends.cudnn.allow_tf32 = True  # serving and training run with PyTorch's defaults
     joint_cfg = joint.replace(
         detector=dataclasses.replace(joint.detector, head_conv_impl="direct"))
     served_joint = serve(joint_cfg, seed=1, counters=counters)
@@ -261,36 +405,71 @@ def main() -> int:
           f"latencies {served_flag['latencies_ms']}, launches {served_flag['launches']}")
     check(served_flag["launches"]["mrf_epilogue"] == REQUESTS,
           "flagship: the fused epilogue did not launch once per request")
+    trained = train(flag_cfg, seed=4, counters=counters)
+    print(f"train flagship (bf16, mrf.impl='pallas', shear warp, joint stage): {TRAIN_STEPS} "
+          f"steps x {tb} images, p50 {trained['p50_ms']:.3f} ms/step, "
+          f"{tb / trained['p50_ms'] * 1e3:.1f} images/s, step times {trained['step_ms']}, "
+          f"launches {trained['launches']}, on {smi}")
+    print(f"train flagship metrics per step: {trained['metrics']}")
+    want_launches = {"shear_warp": 2 * TRAIN_STEPS, "mrf_epilogue": TRAIN_STEPS,
+                     "mrf_epilogue_bwd": TRAIN_STEPS}
+    for name, n in want_launches.items():
+        check(trained["launches"][name] == n,
+              f"flagship training: {name} launched {trained['launches'][name]} times, not {n}")
     torch.backends.cudnn.allow_tf32 = False
 
     # --- the card against the CPU on a small input.
-    for name, overrides in (("fft fused", {"impl": "fft", "use_pallas": True}),
-                            ("coarse + epilogue", {"impl": "pallas", "stride": 2})):
+    tiny_paths = (("fft fused", {"impl": "fft", "use_pallas": True}),
+                  ("coarse + epilogue", {"impl": "pallas", "stride": 2}))
+    for name, overrides in tiny_paths:
         err = tiny_cpu_vs_card(overrides)
         print(f"tiny {name}: card vs CPU MRF log-heatmaps rel err {err:.3e}")
         check(err <= KERNEL_RTOL, f"tiny {name}: card disagrees with the CPU")
+    for name, overrides in tiny_paths:
+        err, worst = tiny_grads_cpu_vs_card(overrides)
+        print(f"tiny {name}, one training step (stride trunk, shear warp): card vs CPU gradients, "
+              f"worst tensor {worst} rel err {err:.3e}")
+        check(err <= KERNEL_RTOL, f"tiny {name}: the card's gradient of {worst} disagrees with the CPU")
 
     # --- timings at the main-path shapes.
     out1 = mrf_epilogue(resp1, bias1)
     rows = resp1.shape[0] * resp1.shape[1] * resp1.shape[2]
     b1, by1 = bound(nbytes(resp1, bias1, out1), rows * k * k * 4)
+    dresp3, dbias3 = mrf_epilogue_bwd(resp3, bias1, g3)
+    rows3 = resp3.shape[0] * resp3.shape[1] * resp3.shape[2]
+    # per value: bias add, compare, reciprocal, product, and its add to dbias
+    b3, by3 = bound(nbytes(resp3, bias1, g3, dresp3, dbias3), rows3 * k * k * 5)
     out2 = fused_tail(pf, kf, tables, bias2)
-    ph, g = pf[0].shape[-2:]
-    flops_pair = 6 * ph * g + 8 * ph * g * jw + 4 * jh * ph * jw + 4 * jh * jw
+    ph, gw = pf[0].shape[-2:]
+    flops_pair = 6 * ph * gw + 8 * ph * gw * jw + 4 * jh * ph * jw + 4 * jh * jw
     b2, by2 = bound(
         nbytes(*pf, *kf, tables["ir"], tables["ict_re"], tables["ict_im"], bias2, out2),
         BATCH * k * k * flops_pair,
     )
+    # The warp's function reads the images and the (B, 2, 2) and (B, 2)
+    # maps and writes the images; per output value and pass: the position
+    # (4), the two tap weights (4) and the two products and their sum (3).
+    b4, by4 = bound(2 * nbytes(images) + nbytes(a_inv, b_inv), 2 * images.numel() * 11)
     kernels = [
         {
             "name": "mrf_epilogue", "route": "cuda",
             "source": "jointpose_torch/csrc/mrf_epilogue.cu",
             "replaces": "jointpose/ops/mrf_pallas.py:39",
-            "launches": served_flag["launches"]["mrf_epilogue"],
+            "launches": trained["launches"]["mrf_epilogue"],
             "max_abs_err": epi_err[torch.bfloat16][1],
             "ms": time_ms(lambda: mrf_epilogue(resp1, bias1)),
             "plain_ms": time_ms(lambda: mrf_epilogue_plain(resp1, bias1)),
             "bound_ms": b1, "bound_by": by1, "library_ms": None,
+        },
+        {
+            "name": "mrf_epilogue_bwd", "route": "cuda",
+            "source": "jointpose_torch/csrc/mrf_epilogue.cu",
+            "replaces": "jointpose/ops/mrf_pallas.py:50",
+            "launches": trained["launches"]["mrf_epilogue_bwd"],
+            "max_abs_err": bwd_err[torch.bfloat16],
+            "ms": time_ms(lambda: mrf_epilogue_bwd(resp3, bias1, g3)),
+            "plain_ms": time_ms(lambda: mrf_epilogue_bwd_plain(resp3, bias1, g3)),
+            "bound_ms": b3, "bound_by": by3, "library_ms": None,
         },
         {
             "name": "mrf_fft_tail", "route": "cuda",
@@ -303,16 +482,35 @@ def main() -> int:
             "bound_ms": b2, "bound_by": by2, "library_ms": None,
         },
     ]
+    plain_warp_ms = time_ms(lambda: shear_warp_reference(images, a_inv, b_inv), runs=5, per_graph=1)
+    for fn, line in ((shear_warp, 155), (shear_warp_rowmajor, 52)):
+        kernels.append({
+            "name": fn.__name__, "route": "cuda",
+            "source": "jointpose_torch/csrc/shear_warp.cu",
+            "replaces": f"jointpose/ops/warp_pallas.py:{line}",
+            "launches": trained["launches"][fn.__name__],
+            "max_abs_err": warp_err[fn.__name__],
+            "ms": time_ms(lambda fn=fn: fn(images, a_inv, b_inv)),
+            "plain_ms": plain_warp_ms,
+            "bound_ms": b4, "bound_by": by4, "library_ms": None,
+        })
     eager = {
         "mrf_epilogue": call_ms(lambda: mrf_epilogue(resp1, bias1)),
+        "mrf_epilogue_bwd": call_ms(lambda: mrf_epilogue_bwd(resp3, bias1, g3)),
         "mrf_fft_tail": call_ms(lambda: fused_tail(pf, kf, tables, bias2)),
+        "shear_warp": call_ms(lambda: shear_warp(images, a_inv, b_inv)),
+        "shear_warp_rowmajor": call_ms(lambda: shear_warp_rowmajor(images, a_inv, b_inv)),
     }
+    per = {"mrf_fft_tail": (REQUESTS, "request (joint serving)")}
     for kn in kernels:
+        n, unit = per.get(kn["name"], (TRAIN_STEPS, "step (flagship training)"))
         print(f"time {kn['name']}: {kn['ms']:.4f} ms on the device, {eager[kn['name']]:.4f} ms "
               f"per eager call (plain {kn['plain_ms']:.4f} ms, "
-              f"bound {kn['bound_ms']:.4f} ms by {kn['bound_by']}, launches/request "
-              f"{kn['launches'] / REQUESTS:g}); no single PyTorch call computes it, "
+              f"bound {kn['bound_ms']:.4f} ms by {kn['bound_by']}, launches per {unit} "
+              f"{kn['launches'] / n:g}); no single PyTorch call computes it, "
               f"so library_ms is null")
+    print("shear_warp_rowmajor is the reference's cross-orientation oracle: no preset's path "
+          "launches it, so its main-path count is 0; it ran in its parity phase above")
     print(f"bounds: HBM {HBM_BYTES_PER_S / 1e12} TB/s, fp32 CUDA-core peak "
           f"{FP32_FLOPS_PER_S / 1e12} TFLOP/s (H100 SXM data sheet)")
     print(smi)

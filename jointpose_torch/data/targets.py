@@ -9,6 +9,40 @@ from __future__ import annotations
 import torch
 
 
+def image_to_heatmap_coords(joints_xy: torch.Tensor, stride: int) -> torch.Tensor:
+    """Image-pixel coords -> heatmap coords (pixel-centre convention)."""
+    return (joints_xy - (stride - 1) / 2.0) / stride
+
+
+def render_gaussian_heatmaps(
+    joints_hm: torch.Tensor,
+    visible: torch.Tensor,
+    heatmap_hw: tuple[int, int],
+    sigma: float,
+    normalize: bool = False,
+) -> torch.Tensor:
+    """Per-joint Gaussian targets: joints (..., K, 2) in heatmap pixels (x, y)
+    and visibility (..., K) -> (..., Hm, Wm, K) fp32.
+
+    ``normalize=False`` peaks at 1 (the regression target); ``True`` makes
+    each visible channel sum to 1 (the CE target).  Invisible joints
+    render as zero.
+    """
+    hm_h, hm_w = heatmap_hw
+    x = joints_hm[..., 0].float()
+    y = joints_hm[..., 1].float()
+    ys = torch.arange(hm_h, dtype=torch.float32, device=joints_hm.device)
+    xs = torch.arange(hm_w, dtype=torch.float32, device=joints_hm.device)
+    dy = ys[:, None, None] - y[..., None, None, :]  # (..., Hm, 1, K)
+    dx = xs[None, :, None] - x[..., None, None, :]  # (..., 1, Wm, K)
+    d2 = dy * dy + dx * dx
+    hm = torch.exp(-d2 / (2.0 * sigma * sigma))
+    if normalize:
+        denom = hm.sum(dim=(-3, -2), keepdim=True)
+        hm = hm / denom.clamp_min(1e-12)
+    return hm * visible.float()[..., None, None, :]
+
+
 def heatmap_to_image_coords(coords_hm: torch.Tensor, stride: int) -> torch.Tensor:
     """Heatmap coords -> image-pixel coords (pixel-centre convention)."""
     return coords_hm * stride + (stride - 1) / 2.0

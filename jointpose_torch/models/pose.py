@@ -26,14 +26,20 @@ class PoseModel(nn.Module):
             if config.mrf is not None else None
         )
 
-    def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, freeze_detector: bool = False) -> dict[str, torch.Tensor]:
         """``images`` (B, H, W, 3): float in [0, 1], or raw uint8 RGB,
-        normalized here in the compute dtype."""
+        normalized here in the compute dtype.
+
+        ``freeze_detector`` stops gradients at the detector logits, so the
+        spatial model trains on fixed unaries and the detector's backward
+        never runs."""
         if images.dtype == torch.uint8:
             images = images.to(self.dtype) * torch.tensor(
                 1.0 / 255.0, dtype=self.dtype, device=images.device
             )
         logits = self.detector(images)
+        if freeze_detector:
+            logits = logits.detach()
         out = {"detector_logits": logits}
         if self.spatial_model is not None:
             if self.config.mrf.normalize_input:

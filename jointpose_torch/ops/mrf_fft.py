@@ -70,12 +70,16 @@ def dft_tables(
     Beside the reference's tables it holds the fused tail's operands:
     ``ir`` (H, Ph, 2) with (re, im) interleaved and ``ict_re``/``ict_im``
     (G, W), the inverse column operator transposed.
+
+    Built outside inference mode whatever the caller's mode: a table first
+    made while serving is then still usable by a training step's autograd.
     """
     c = _dft_consts(hm, window)
-    t = {n: torch.from_numpy(v).to(device) for n, v in c.items()}
-    t["ir"] = torch.stack([t["ir_re"], t["ir_im"]], dim=-1).contiguous()
-    t["ict_re"] = t["ic_re"].T.contiguous()
-    t["ict_im"] = t["ic_im"].T.contiguous()
+    with torch.inference_mode(False):
+        t = {n: torch.from_numpy(v).to(device) for n, v in c.items()}
+        t["ir"] = torch.stack([t["ir_re"], t["ir_im"]], dim=-1).contiguous()
+        t["ict_re"] = t["ic_re"].T.contiguous()
+        t["ict_im"] = t["ic_im"].T.contiguous()
     return t
 
 

@@ -9,6 +9,8 @@
 ``csrc/mrf_fft_tail.cu`` (or raises), on CPU tensors it runs the plain
 version ``fused_tail_plain``.  Only the forward DFTs' outputs cross
 device memory; the (B, Kv, Ka, H, W) responses never exist.
+``mrf_message_pass_fft_fused`` wraps it in a ``torch.autograd.Function``
+whose backward recomputes the plain Fourier pass.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import ctypes
 import torch
 
 from jointpose_torch import _build
-from jointpose_torch.ops.mrf_fft import forward_ffts
+from jointpose_torch.ops.mrf_fft import forward_ffts, mrf_message_pass_fft
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -90,16 +92,40 @@ def fused_tail(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
 fused_tail.launches = 0
 
 
+class _FusedPass(torch.autograd.Function):
+    """Forward through the fused tail; backward by recomputing the plain
+    Fourier pass under autograd and taking its VJP, as the reference's
+    custom VJP does (``mrf_fft_pallas.py:184-203``): the fused kernel and
+    the plain tail compute the same function, and only the three inputs
+    are kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, p, kernels, biases, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(p, kernels, biases)
+        pf, kf, tables = forward_ffts(p, kernels)
+        pf = tuple(t.contiguous() for t in pf)
+        kf = tuple(t.contiguous() for t in kf)
+        out = fused_tail(pf, kf, tables, biases.float().contiguous(), eps)
+        return out.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = mrf_message_pass_fft(*inputs, eps=ctx.eps)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
 def mrf_message_pass_fft_fused(
     p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
     """Full log-space message pass: torch forward DFTs + the fused tail.
 
     Same signature and semantics as ``mrf_message_pass_xla``; returns
-    (B, H, W, Ka) fp32.
+    (B, H, W, Ka) fp32, differentiable in all three inputs.
     """
-    pf, kf, tables = forward_ffts(p, kernels)
-    pf = tuple(t.contiguous() for t in pf)
-    kf = tuple(t.contiguous() for t in kf)
-    out = fused_tail(pf, kf, tables, biases.float().contiguous(), eps)
-    return out.permute(0, 2, 3, 1)
+    return _FusedPass.apply(p, kernels, biases, eps)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where a served request's time goes on the card, by kernel.
+"""Where a served request's or a training step's time goes on the card, by kernel.
 
     python3 profile_serve.py [--preset joint|flagship_pallas] [--batch 8] [--requests 4]
+    python3 profile_serve.py --train [--batch 32] [--requests 4]
 
 Serves ``--requests`` requests of ``--batch`` uint8 images through the
 port's predictor (seeded random weights, as ``chip_smoke.py`` does) under
-``torch.profiler`` and prints, per preset: the wall time per request,
-the device's busy time (the sum of kernel times) and its idle share, and
-the kernels by total device time.  Needs a CUDA card.
+``torch.profiler``; with ``--train`` it takes ``--requests`` joint-stage
+training steps of ``flagship`` with ``mrf.impl='pallas'`` instead, after
+two warm-up steps.  Prints, per preset: the wall time per request or
+step, the device's busy time (the sum of kernel times) and its idle
+share, and the kernels by total device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import numpy as np
 import torch
 
 PRESETS = ("joint", "flagship_pallas")
+# The port's own kernels (jointpose_torch/csrc/), listed whatever their rank.
+PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
+                "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel", "shear_pass_kernel")
 
 
 def _config(preset: str):
@@ -34,51 +40,81 @@ def _config(preset: str):
     return cfg.replace(mrf=dataclasses.replace(cfg.mrf, impl="pallas"))
 
 
-def profile(preset: str, batch: int, requests: int, top: int = 12) -> dict:
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
+def _serve_unit(preset: str, batch: int, n: int):
+    """One request per call: ``batch`` seeded uint8 images."""
     from jointpose_torch.predict import build_predictor, init_state_dict
 
     cfg = _config(preset)
     predict = build_predictor(cfg, init_state_dict(cfg, torch.Generator().manual_seed(0)))
     h, w = cfg.data.image_hw
     rng = np.random.default_rng(0)
-    images = torch.from_numpy(rng.integers(0, 256, (requests, batch, h, w, 3), dtype=np.uint8))
-    images = images.cuda()
+    images = torch.from_numpy(rng.integers(0, 256, (n, batch, h, w, 3), dtype=np.uint8)).cuda()
+    return lambda r: predict(images[r % n])
+
+
+def _train_unit(preset: str, batch: int, n: int):
+    """One joint-stage training step per call on seeded uint8 batches."""
+    from jointpose_torch.train import create_state, make_train_step
+
+    cfg = _config(preset)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch))
+    state = create_state(cfg, torch.Generator().manual_seed(0))
+    step = make_train_step(cfg, "joint")
+    h, w = cfg.data.image_hw
+    k = cfg.num_joints
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (n, batch, h, w, 3), dtype=np.uint8)).cuda()
+    joints = torch.from_numpy(
+        rng.uniform([1.0, 1.0], [w - 2.0, h - 2.0], (n, batch, k, 2)).astype(np.float32)).cuda()
+    visible = torch.ones(batch, k, device="cuda")
+    return lambda r: step(state, {"image": images[r % n], "joints": joints[r % n],
+                                  "visible": visible})
+
+
+def profile(run, units: int, top: int = 12) -> dict:
+    """Profile ``units`` calls of ``run`` after two warm-up calls."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     for r in range(2):
-        predict(images[r % requests])
+        run(r)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in range(requests):
-            predict(images[r])
+        for r in range(units):
+            run(r)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / requests
+        wall_ms = (time.perf_counter() - t0) * 1e3 / units
     kernels = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # GPU-side user annotations (e.g. "Optimizer.step#AdamW.step") span
+        # kernels already counted; only kernels, copies and memsets add up.
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
             kernels.setdefault(evt.name, [0.0, 0])
-            kernels[evt.name][0] += evt.time_range.elapsed_us() / 1e3 / requests
+            kernels[evt.name][0] += evt.time_range.elapsed_us() / 1e3 / units
             kernels[evt.name][1] += 1
     busy_ms = sum(t for t, _ in kernels.values())
-    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+
+    def rows(items):
+        return [{"name": n[:90], "ms_per_unit": t, "launches_per_unit": c / units}
+                for n, (t, c) in items]
+
     return {
-        "preset": preset, "batch": batch, "requests": requests,
-        "wall_ms_per_request": wall_ms, "device_busy_ms_per_request": busy_ms,
+        "units": units, "wall_ms_per_unit": wall_ms, "device_busy_ms_per_unit": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "top_kernels": [
-            {"name": n[:90], "ms_per_request": t, "launches_per_request": c / requests}
-            for n, (t, c) in ranked
-        ],
+        "top_kernels": rows(ranked[:top]),
+        "port_kernels": rows(kv for kv in ranked if any(f"::{k}" in kv[0] for k in PORT_KERNELS)),
     }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=PRESETS, action="append")
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--train", action="store_true",
+                    help="profile training steps of flagship_pallas instead of requests")
+    ap.add_argument("--batch", type=int, default=None, help="default 8 served, 32 trained")
+    ap.add_argument("--requests", type=int, default=4, help="requests, or training steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
@@ -86,13 +122,20 @@ def main(argv=None) -> int:
     from jointpose_torch import _build
 
     _build.build(_build.kernel_names())
-    for preset in args.preset or PRESETS:
-        res = profile(preset, args.batch, args.requests)
-        print(f"{preset}: {res['wall_ms_per_request']:.3f} ms/request wall, device busy "
-              f"{res['device_busy_ms_per_request']:.3f} ms, idle share "
+    if args.train:
+        unit, make, presets, batch = "step", _train_unit, ["flagship_pallas"], args.batch or 32
+    else:
+        unit, make, presets, batch = "request", _serve_unit, args.preset or PRESETS, args.batch or 8
+    for preset in presets:
+        res = profile(make(preset, batch, args.requests), args.requests)
+        res.update(preset=preset, batch=batch, unit=unit)
+        print(f"{preset}: {res['wall_ms_per_unit']:.3f} ms/{unit} wall, device busy "
+              f"{res['device_busy_ms_per_unit']:.3f} ms, idle share "
               f"{res['device_idle_share']:.3f}")
-        for k in res["top_kernels"]:
-            print(f"  {k['ms_per_request']:8.4f} ms  x{k['launches_per_request']:g}  {k['name']}")
+        for title in ("top_kernels", "port_kernels"):
+            print(f" {title}:")
+            for k in res[title]:
+                print(f"  {k['ms_per_unit']:8.4f} ms  x{k['launches_per_unit']:g}  {k['name']}")
         print(json.dumps(res))
     return 0
 

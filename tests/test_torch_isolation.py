@@ -17,6 +17,7 @@ import jointpose.configs as jax_configs
 import jointpose.skeleton as jax_skeleton
 from jointpose_torch import configs, skeleton
 from jointpose_torch.predict import build_predictor, init_state_dict, resolve_device
+from jointpose_torch.train import create_state
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "jointpose"}
@@ -76,3 +77,14 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         torch.zeros(1, *cfg.data.image_hw, 3, dtype=torch.uint8)
     )
     assert coords.shape == (1, 9, 2) and probs.device.type == "cpu"
+
+
+def test_trainer_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_config("tiny")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            create_state(cfg, torch.Generator().manual_seed(0), device=device)
+    state = create_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert {p.device.type for p in state.model.parameters()} == {"cpu"}
+    assert state.generator.device.type == "cpu" and state.step == 0

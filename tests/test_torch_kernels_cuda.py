@@ -1,15 +1,21 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they need an NVIDIA GPU with sm_90a and ``nvcc``, and
-skip elsewhere.  On the card: ``python -m pytest tests/test_torch_kernels_cuda.py``;
+skip elsewhere.  On the card, where JAX (which ``tests/conftest.py``
+imports) need not be installed:
+``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``;
 ``chip_smoke.py`` runs the same comparisons at the full main-path shapes.
 """
 
 import pytest
 import torch
 
+from jointpose_torch.configs import AugmentConfig, MRFConfig
+from jointpose_torch.data.augment import inverse_affine, random_augment_params
+from jointpose_torch.models.mrf import SpatialModel
 from jointpose_torch.ops import mrf_epilogue as tme
 from jointpose_torch.ops import mrf_fft_fused as tmff
+from jointpose_torch.ops import warp as tw
 from jointpose_torch.ops.mrf_fft import forward_ffts
 from jointpose_torch.ops.mrf_xla import pairwise_conv
 
@@ -18,6 +24,9 @@ pytestmark = pytest.mark.cuda
 # max|kernel - plain| / max|plain|: the reference's parity tolerance for
 # every MRF message-pass path (BENCH_r05.json parity_tolerances).
 KERNEL_RTOL = 1e-3
+# The reference's tolerance for its shear kernel against its oracle
+# (tests/test_warp_pallas.py), on pixels in [0, 1].
+WARP_ATOL = 2e-5
 K = 9
 
 
@@ -76,3 +85,58 @@ def test_wrappers_raise_on_tensors_they_cannot_take(cuda):
     pf, kf, tables = forward_ffts(p, kernels)
     with pytest.raises(ValueError):
         tmff.fused_tail(pf, kf, tables, biases.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw,win,batch", [((30, 45), (17, 25), 32), ((7, 5), (3, 3), 3)])
+def test_epilogue_bwd_kernel_matches_plain_and_repeats(cuda, dtype, hw, win, batch):
+    p, kernels, biases = _inputs(hw, win, batch, dtype, cuda)
+    resp = pairwise_conv(p, kernels.to(dtype))
+    g = torch.randn(*resp.shape[:3], K, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = tme.mrf_epilogue_bwd.launches
+    dresp, dbias = tme.mrf_epilogue_bwd(resp, biases, g)
+    assert tme.mrf_epilogue_bwd.launches == before + 1
+    assert dresp.dtype == dtype and dbias.dtype == torch.float32
+    want_dresp, want_dbias = tme.mrf_epilogue_bwd_plain(resp, biases, g)
+    assert _rel(dresp, want_dresp) <= KERNEL_RTOL
+    assert _rel(dbias, want_dbias) <= KERNEL_RTOL
+    again = tme.mrf_epilogue_bwd(resp, biases, g)
+    assert torch.equal(again[0], dresp) and torch.equal(again[1], dbias)  # fixed summation order
+
+
+@pytest.mark.parametrize("entry", ["shear_warp", "shear_warp_rowmajor"])
+@pytest.mark.parametrize("shape", [(32, 240, 360, 3), (3, 17, 29, 2)])
+def test_shear_warp_kernels_match_plain(cuda, entry, shape):
+    b, h, w, _ = shape
+    images = torch.rand(shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    draw = random_augment_params(torch.Generator().manual_seed(3), b,
+                                 AugmentConfig(crop_frac_range=(0.8, 1.0)), (h, w))
+    a_inv, b_inv = (t.to(cuda) for t in inverse_affine(draw, (h, w)))
+    fn = getattr(tw, entry)
+    before = fn.launches
+    got = fn(images, a_inv, b_inv)
+    assert fn.launches == before + 2  # one launch per pass
+    want = tw.shear_warp_reference(images, a_inv, b_inv)
+    assert (got - want).abs().max().item() <= WARP_ATOL
+
+
+@pytest.mark.parametrize("mrf", [MRFConfig(window=(5, 7), impl="pallas", stride=2),
+                                 MRFConfig(window=(5, 7), impl="fft", use_pallas=True)],
+                         ids=["epilogue", "fft_fused"])
+def test_spatial_model_gradients_on_card_match_cpu(cuda, mrf):
+    """Gradients of the spatial model's parameters through each kernel
+    wrapper: an output that autograd cannot trace back would give zeros
+    (or None) on the card and the right values on the CPU."""
+    p, _, _ = _inputs((12, 16), (5, 7), 2, torch.float32, "cpu", seed=4)
+    cot = torch.randn(p.shape, generator=torch.Generator().manual_seed(5))
+    grads = {}
+    for device in ("cpu", cuda):
+        model = SpatialModel(mrf, K).to(device)
+        with torch.no_grad():
+            model.raw_kernels += 0.5 * torch.randn(
+                model.raw_kernels.shape, generator=torch.Generator().manual_seed(6)).to(device)
+        (model(p.to(device)) * cot.to(device)).sum().backward()
+        grads[torch.device(device).type] = (model.raw_kernels.grad, model.raw_bias.grad)
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert got is not None and got.abs().max() > 0
+        assert _rel(got.cpu(), want) <= KERNEL_RTOL

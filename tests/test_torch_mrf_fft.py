@@ -89,3 +89,19 @@ def test_fft_pass_plain_tail_matches_reference():
     )
     got = tmf.mrf_message_pass_fft(*map(torch.from_numpy, (p, kernels, biases)))
     assert _rel(got, want) <= MRF_RTOL
+
+
+@pytest.mark.parametrize("fn", [tmf.mrf_message_pass_fft, tmff.mrf_message_pass_fft_fused],
+                             ids=["plain", "fused"])
+def test_tables_built_while_serving_serve_training(fn):
+    """The DFT tables are cached per geometry: a table first built under
+    inference mode must still take part in a later backward."""
+    p, kernels, biases = map(torch.from_numpy, _inputs((9, 13), (5, 7), seed=4))
+    tmf.dft_tables.cache_clear()
+    with torch.inference_mode():
+        served = fn(p, kernels, biases)
+    kernels.requires_grad_()
+    trained = fn(p, kernels, biases)
+    trained.sum().backward()
+    assert torch.equal(trained.detach(), served)
+    assert kernels.grad.abs().max() > 0
