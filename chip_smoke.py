@@ -10,19 +10,25 @@ the package is missing.  Phases, each fatal on failure:
    ``jointpose_torch/csrc/`` (one ``nvcc`` per source, all at once);
 2. with TF32 off, hold each kernel against its plain PyTorch version on
    the card at its main-path shape: the epilogue forward and backward
-   (the backward twice, bit-identical), the fused Fourier tail, and both
-   shear-warp entries on a random full augmentation draw;
+   (the backward twice, bit-identical), the fused Fourier MRF tail, both
+   shear-warp entries on a random full augmentation draw, and the three
+   Fourier head-conv tails at the paper head (bf16 and f32, and against
+   each other); then ``fft_conv2d`` against cuDNN's direct conv in f32;
 3. serve the paper ``joint`` preset at full width (bf16, direct head
    conv, seeded random weights): 4 requests of 8 uint8 240×360 images,
-   through the fused Fourier tail kernel;
-4. serve ``flagship`` with ``mrf.impl='pallas'`` the same way, through
+   through the fused Fourier MRF tail kernel;
+4. serve ``joint`` with ``head_conv_impl='fft'`` the same way, through
+   the head-conv tail the dispatcher picks and the fused MRF tail; then
+   one request through each of the other two head-conv tails;
+5. serve ``flagship`` with ``mrf.impl='pallas'`` the same way, through
    the fused epilogue kernel;
-5. train ``flagship`` with ``mrf.impl='pallas'``: one warm-up and 4 timed
+6. train ``flagship`` with ``mrf.impl='pallas'``: one warm-up and 4 timed
    joint-stage steps at batch 32, through the shear warp and the
    epilogue forward and backward;
-6. check both MRF paths on the card against the CPU at the ``tiny``
-   preset (fp32): the forward, and one training step's gradients;
-7. time each kernel and its plain version at the main-path shape.
+7. check the MRF paths and the Fourier head on the card against the CPU
+   at the ``tiny`` preset (fp32): the forward, and one training step's
+   gradients;
+8. time each kernel and its plain version at the main-path shape.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,12 +49,21 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12  # CUDA cores, no tensor cores
+BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
 # max|kernel - plain| / max|plain|: the reference's parity tolerance for
 # every MRF message-pass path (BENCH_r05.json parity_tolerances).
 KERNEL_RTOL = 1e-3
 # max|kernel - plain| on pixels in [0, 1]: the reference's tolerance for
 # its shear-warp kernel against its oracle (tests/test_warp_pallas.py).
 WARP_ATOL = 2e-5
+# Fourier head-conv tails, max|kernel - plain| / max|plain|.  f32: the
+# reference's bound for its fused tail against its XLA tail
+# (tests/test_fft_conv.py).  bf16: K_f, R and the output round to bf16, so
+# another summation order flips some roundings by one bf16 step, 2^-8 =
+# 3.9e-3 of the largest value (measured: 3.9e-3); two steps are allowed.
+TAIL_RTOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+# fft_conv2d against the direct conv in f32 (the reference's head parity bound).
+CONV_RTOL = 1e-4
 BATCH = 8
 REQUESTS = 4
 TRAIN_STEPS = 4
@@ -114,9 +130,9 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_flops: int) -> tuple[float, str]:
+def bound(n_bytes: int, n_flops: int, peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -142,21 +158,22 @@ def reset(counters: dict) -> None:
         fn.launches = 0
 
 
-def serve(config, seed: int, counters: dict) -> dict:
-    """Serve ``REQUESTS`` requests of ``BATCH`` uint8 images; return timings."""
+def serve(config, seed: int, counters: dict, requests: int = REQUESTS) -> dict:
+    """Serve ``requests`` requests of ``BATCH`` uint8 images; return timings,
+    launch counts, the decoded coordinates and the heatmaps."""
     from jointpose_torch.predict import build_predictor, init_state_dict
 
     state = init_state_dict(config, torch.Generator().manual_seed(seed))
     predict = build_predictor(config, state)
     h, w = config.data.image_hw
     rng = np.random.default_rng(seed)
-    images = torch.from_numpy(rng.integers(0, 256, (REQUESTS, BATCH, h, w, 3), dtype=np.uint8))
+    images = torch.from_numpy(rng.integers(0, 256, (requests, BATCH, h, w, 3), dtype=np.uint8))
     images = images.cuda()
     predict(images[0])  # warm-up: cuDNN algorithm choice, DFT tables
     torch.cuda.synchronize()
     reset(counters)
-    latencies = []
-    for r in range(REQUESTS):
+    latencies, all_coords, all_probs = [], [], []
+    for r in range(requests):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -164,6 +181,8 @@ def serve(config, seed: int, counters: dict) -> dict:
         end.record()
         end.synchronize()
         latencies.append(start.elapsed_time(end))
+        all_coords.append(coords.cpu())
+        all_probs.append(probs.cpu())
         hm = config.heatmap_hw
         check(tuple(coords.shape) == (BATCH, config.num_joints, 2), f"coords shape {tuple(coords.shape)}")
         check(tuple(probs.shape) == (BATCH, *hm, config.num_joints), f"probs shape {tuple(probs.shape)}")
@@ -175,7 +194,8 @@ def serve(config, seed: int, counters: dict) -> dict:
         mass = probs.sum(dim=(1, 2))
         check(bool(((mass - 1).abs() < 1e-3).all()), "heatmaps do not sum to 1")
     launches = {name: fn.launches for name, fn in counters.items()}
-    return {"p50_ms": float(np.median(latencies)), "latencies_ms": latencies, "launches": launches}
+    return {"p50_ms": float(np.median(latencies)), "latencies_ms": latencies, "launches": launches,
+            "coords": torch.stack(all_coords), "probs": torch.stack(all_probs)}
 
 
 def train_batches(config, seed: int, n: int, device: str) -> list[dict]:
@@ -220,20 +240,21 @@ def train(config, seed: int, counters: dict) -> dict:
             "launches": launches}
 
 
-def tiny_config(mrf_overrides: dict):
+def tiny_config(mrf_overrides: dict, head: str):
     from jointpose_torch import get_config
 
     cfg = get_config("tiny")
-    return cfg.replace(mrf=dataclasses.replace(cfg.mrf, **mrf_overrides))
+    return cfg.replace(mrf=dataclasses.replace(cfg.mrf, **mrf_overrides),
+                       detector=dataclasses.replace(cfg.detector, head_conv_impl=head))
 
 
-def tiny_cpu_vs_card(mrf_overrides: dict) -> float:
+def tiny_cpu_vs_card(mrf_overrides: dict, head: str) -> float:
     """Max relative error of the card's MRF log-heatmaps against the CPU's
     plain path on the fp32 ``tiny`` preset with random spatial kernels."""
     from jointpose_torch.models.pose import PoseModel
     from jointpose_torch.predict import init_state_dict
 
-    cfg = tiny_config(mrf_overrides)
+    cfg = tiny_config(mrf_overrides, head)
     gen = torch.Generator().manual_seed(3)
     state = init_state_dict(cfg, gen)
     state["spatial_model.raw_kernels"] += 0.5 * torch.randn(
@@ -249,7 +270,7 @@ def tiny_cpu_vs_card(mrf_overrides: dict) -> float:
     return rel_err(outs["cuda"], outs["cpu"])[0]
 
 
-def tiny_grads_cpu_vs_card(mrf_overrides: dict) -> tuple[float, str]:
+def tiny_grads_cpu_vs_card(mrf_overrides: dict, head: str) -> tuple[float, str]:
     """One joint-stage training step of the fp32 ``tiny`` preset (stride-2
     trunk, shear warp) on the CPU and on the card, from the same weights,
     batch and augmentation draw.  Returns the worst gradient tensor's
@@ -258,7 +279,7 @@ def tiny_grads_cpu_vs_card(mrf_overrides: dict) -> tuple[float, str]:
     from jointpose_torch.data.augment import random_augment_params
     from jointpose_torch.train import create_state, make_train_step
 
-    cfg = tiny_config(mrf_overrides)
+    cfg = tiny_config(mrf_overrides, head)
     cfg = cfg.replace(
         detector=dataclasses.replace(cfg.detector, pool_mode="stride"),
         augment=dataclasses.replace(cfg.augment, enabled=True, warp_impl="shear",
@@ -288,6 +309,7 @@ def main() -> int:
         return 2
     from jointpose_torch import _build, get_config
     from jointpose_torch.data.augment import inverse_affine, random_augment_params
+    from jointpose_torch.ops import fft_conv as fc
     from jointpose_torch.ops.mrf_epilogue import (
         mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_plain,
     )
@@ -385,10 +407,60 @@ def main() -> int:
               f"{warp_err[fn.__name__]:.3e} (limit {WARP_ATOL:g})")
         check(warp_err[fn.__name__] <= WARP_ATOL, f"{fn.__name__} disagrees with its plain version")
 
+    # --- kernels 4-6: the three Fourier head-conv tails at the paper head
+    # (60x90, 9x9, 128 -> 512, serving batch), on the spectra the conv's own
+    # front half makes of seeded features and a LeCun-normal kernel.
+    jd = joint.detector
+    ci, co, kk = jd.trunk_features[-1], jd.head_features[0], jd.head_kernel
+    check((ci, co, kk) == (128, 512, 9), f"joint head is {kk}x{kk}x{ci}->{co}, not the paper's")
+    feats = torch.randn(BATCH, jh, jw, ci, generator=gen).relu().cuda()
+    hkernel = (torch.randn(kk, kk, ci, co, generator=gen) / math.sqrt(kk * kk * ci)).cuda()
+    tails = {"fft_conv_tail_kdft_resident": fc.tail_kdft_resident,
+             "fft_conv_tail_kdft": fc.tail_kdft, "fft_conv_tail_kf": fc.tail_kf}
+    tail_args, conv_tail_err = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        (xr, xi), (a_re, a_im), ct = fc.forward_spectra(feats.to(dtype), hkernel)
+        ops = [v.contiguous() for v in (xr, xi, a_re, a_im)]
+        kf_ops = [v.contiguous() for v in fc._kf_from_a(ops[2], ops[3], ct)]
+        want = fc.tail_kdft_plain(*ops, ct)
+        outs = {}
+        for name, fn in tails.items():
+            args = (ops[0], ops[1], *kf_ops, ct) if fn is fc.tail_kf else (*ops, ct)
+            tail_args[name, dtype] = args
+            outs[name] = fn(*args)
+            torch.cuda.synchronize()
+            check(outs[name].shape == want.shape and outs[name].dtype == dtype, f"{name} output")
+            conv_tail_err[name, dtype] = rel_err(outs[name], want)
+            print(f"kernel {name} {dtype} x {tuple(ops[0].shape)} -> {tuple(want.shape)}: rel err "
+                  f"{conv_tail_err[name, dtype][0]:.3e} (limit {TAIL_RTOL[dtype]:g}), max abs err "
+                  f"{conv_tail_err[name, dtype][1]:.3e}")
+            check(conv_tail_err[name, dtype][0] <= TAIL_RTOL[dtype],
+                  f"{name} {dtype} disagrees with its plain version")
+        if dtype == torch.float32:
+            names = list(tails)
+            for i, a in enumerate(names):
+                for b in names[i + 1:]:
+                    err = rel_err(outs[a], outs[b])[0]
+                    print(f"kernels {a} vs {b} (f32): rel err {err:.3e}")
+                    check(err <= TAIL_RTOL[dtype], f"{a} and {b} disagree in f32")
+        del want, outs
+    # The whole function in f32 against cuDNN's direct conv (TF32 off).
+    with torch.no_grad():
+        got = fc.fft_conv2d(feats[:2], hkernel)
+        want = torch.nn.functional.conv2d(
+            feats[:2].permute(0, 3, 1, 2), hkernel.permute(3, 2, 0, 1), padding=kk // 2
+        ).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    conv_err = rel_err(got, want)[0]
+    print(f"fft_conv2d f32 {tuple(feats[:2].shape)} vs F.conv2d: rel err {conv_err:.3e} "
+          f"(limit {CONV_RTOL:g})")
+    check(conv_err <= CONV_RTOL, "fft_conv2d disagrees with the direct conv in f32")
+    del got, want
+
     # --- the main paths.
     counters = {"mrf_epilogue": mrf_epilogue, "mrf_epilogue_bwd": mrf_epilogue_bwd,
                 "mrf_fft_tail": fused_tail, "shear_warp": shear_warp,
-                "shear_warp_rowmajor": shear_warp_rowmajor}
+                "shear_warp_rowmajor": shear_warp_rowmajor, **tails}
     torch.backends.cudnn.allow_tf32 = True  # serving and training run with PyTorch's defaults
     joint_cfg = joint.replace(
         detector=dataclasses.replace(joint.detector, head_conv_impl="direct"))
@@ -398,6 +470,48 @@ def main() -> int:
           f"latencies {served_joint['latencies_ms']}, launches {served_joint['launches']}")
     check(served_joint["launches"]["mrf_fft_tail"] == REQUESTS,
           "joint: the fused Fourier tail did not launch once per request")
+    check(not any(served_joint["launches"][n] for n in tails),
+          "joint with the direct head launched a head-conv tail")
+
+    # The same weights and images through the Fourier head: the dispatcher's
+    # own choice, then one request through each of the other two tails.
+    fft_cfg = joint.replace(detector=dataclasses.replace(joint.detector, head_conv_impl="fft"))
+    served_fft = serve(fft_cfg, seed=1, counters=counters)
+    chosen = "fft_conv_tail_" + fc.select_tail(
+        tail_args["fft_conv_tail_kdft", torch.bfloat16][0].shape[1], BATCH, kk, 2)
+    print(f"serve joint (bf16, head_conv_impl='fft' through {chosen}, fused Fourier MRF tail): "
+          f"{REQUESTS} requests x {BATCH} images, p50 {served_fft['p50_ms']:.3f} ms/request "
+          f"(direct head {served_joint['p50_ms']:.3f}), latencies {served_fft['latencies_ms']}, "
+          f"launches {served_fft['launches']}, on {smi}")
+    check(chosen == "fft_conv_tail_kdft_resident", f"the dispatcher chose {chosen}")
+    for name in (*tails, "mrf_fft_tail"):
+        want_n = REQUESTS if name in (chosen, "mrf_fft_tail") else 0
+        check(served_fft["launches"][name] == want_n,
+              f"joint 'fft': {name} launched {served_fft['launches'][name]} times, not {want_n}")
+    tail_launches = {chosen: served_fft["launches"][chosen]}
+    for route in ("kdft", "kf"):
+        name, preference = f"fft_conv_tail_{route}", fc.TAIL_PREFERENCE
+        fc.TAIL_PREFERENCE = (route,)
+        try:
+            steered = serve(fft_cfg, seed=1, counters=counters, requests=1)
+        finally:
+            fc.TAIL_PREFERENCE = preference
+        for other in (*tails, "mrf_fft_tail"):
+            want_n = 1 if other in (name, "mrf_fft_tail") else 0
+            check(steered["launches"][other] == want_n,
+                  f"joint 'fft' steered to {route}: {other} launched "
+                  f"{steered['launches'][other]} times, not {want_n}")
+        tail_launches[name] = steered["launches"][name]
+        drift = (steered["coords"][0] - served_fft["coords"][0]).abs().max().item()
+        print(f"serve joint 'fft' steered to {name}: 1 request, {steered['latencies_ms'][0]:.3f} ms, "
+              f"launches {steered['launches']}, max coordinate difference from {chosen} "
+              f"{drift:.3f} px")
+    head_drift = (served_fft["coords"] - served_joint["coords"]).abs()
+    prob_drift = rel_err(served_fft["probs"], served_joint["probs"])
+    print(f"joint 'fft' vs 'direct' head, same state_dict and images (bf16): decoded coordinates "
+          f"differ by max {head_drift.max().item():.3f} px, median {head_drift.median().item():.4f} px, "
+          f"{(head_drift > 1).float().mean().item():.4f} of values by more than 1 px; heatmaps "
+          f"differ by max {prob_drift[1]:.3e} ({prob_drift[0]:.3e} of the largest probability)")
     flag_cfg = flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"))
     served_flag = serve(flag_cfg, seed=2, counters=counters)
     print(f"serve flagship (bf16, mrf.impl='pallas', fused epilogue): {REQUESTS} requests x "
@@ -419,17 +533,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # --- the card against the CPU on a small input.
-    tiny_paths = (("fft fused", {"impl": "fft", "use_pallas": True}),
-                  ("coarse + epilogue", {"impl": "pallas", "stride": 2}))
-    for name, overrides in tiny_paths:
-        err = tiny_cpu_vs_card(overrides)
+    tiny_paths = (("fft fused", {"impl": "fft", "use_pallas": True}, "direct"),
+                  ("coarse + epilogue", {"impl": "pallas", "stride": 2}, "direct"),
+                  ("fft fused, Fourier head", {"impl": "fft", "use_pallas": True}, "fft"))
+    reset(counters)
+    for name, overrides, head in tiny_paths:
+        err = tiny_cpu_vs_card(overrides, head)
         print(f"tiny {name}: card vs CPU MRF log-heatmaps rel err {err:.3e}")
         check(err <= KERNEL_RTOL, f"tiny {name}: card disagrees with the CPU")
-    for name, overrides in tiny_paths:
-        err, worst = tiny_grads_cpu_vs_card(overrides)
+    for name, overrides, head in tiny_paths:
+        err, worst = tiny_grads_cpu_vs_card(overrides, head)
         print(f"tiny {name}, one training step (stride trunk, shear warp): card vs CPU gradients, "
               f"worst tensor {worst} rel err {err:.3e}")
         check(err <= KERNEL_RTOL, f"tiny {name}: the card's gradient of {worst} disagrees with the CPU")
+    check(fc.tail_kdft_resident.launches >= 2,
+          "tiny Fourier head: the card's forward and training step did not launch the resident tail")
 
     # --- timings at the main-path shapes.
     out1 = mrf_epilogue(resp1, bias1)
@@ -494,14 +612,66 @@ def main() -> int:
             "plain_ms": plain_warp_ms,
             "bound_ms": b4, "bound_by": by4, "library_ms": None,
         })
+    # The head-conv tails in bf16, the served path's type.  Function bytes:
+    # x, the kernel operand (a, or K_f for the kf entry), both tables and
+    # the output, once each.  Operations: the K_f build (not in the kf
+    # entry), the pointwise product over Ci and the inverse row DFT, over
+    # the tensor-core peak of the input type.
+    x_ops = tail_args["fft_conv_tail_kdft", torch.bfloat16]
+    ng, nph = x_ops[0].shape[:2]
+    pointwise_inverse = 8 * nph * ci * co * ng * BATCH + 8 * jh * nph * co * ng * BATCH
+    kf_build = 8 * nph * kk * ci * co * ng
+    plain_tail_ms = {
+        fn: time_ms(lambda fn=fn, a=a: fn(*a), runs=5, per_graph=1)
+        for fn, a in ((fc.tail_kdft_plain, x_ops),
+                      (fc.tail_kf_plain, tail_args["fft_conv_tail_kf", torch.bfloat16]))
+    }
+    for (name, fn), line in zip(tails.items(), (478, 307, 284)):
+        args = tail_args[name, torch.bfloat16]
+        built = fn is not fc.tail_kf
+        out_bytes = 2 * jh * ng * BATCH * co * 2
+        dft = (args[4]["gr"], args[4]["ir_t"]) if built else (args[4]["ir_t"],)
+        bt, bby = bound(nbytes(*args[:4], *dft) + out_bytes,
+                        pointwise_inverse + (kf_build if built else 0), BF16_FLOPS_PER_S)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "jointpose_torch/csrc/fft_conv_tail.cu",
+            "replaces": f"jointpose/ops/fft_conv.py:{line}",
+            "launches": tail_launches[name],
+            "max_abs_err": conv_tail_err[name, torch.bfloat16][1],
+            "ms": time_ms(lambda fn=fn, args=args: fn(*args)),
+            "plain_ms": plain_tail_ms[fc.tail_kdft_plain if built else fc.tail_kf_plain],
+            "bound_ms": bt, "bound_by": bby, "library_ms": None,
+        })
+        f32_ms = time_ms(lambda fn=fn, a=tail_args[name, torch.float32]: fn(*a), runs=10, per_graph=2)
+        print(f"time {name} in f32 (not the served type): {f32_ms:.4f} ms on the device, on {smi}")
+    # The path's yardstick: the whole Fourier conv beside cuDNN's direct one
+    # for the same head, bf16, serving batch (TF32 plays no part in bf16).
+    feats16 = feats.bfloat16()
+    nchw16 = feats16.permute(0, 3, 1, 2).contiguous()
+    oihw16 = hkernel.permute(3, 2, 0, 1).bfloat16().contiguous()
+    with torch.no_grad():
+        fft_ms = time_ms(lambda: fc.fft_conv2d(feats16, hkernel))
+        direct_ms = time_ms(lambda: torch.nn.functional.conv2d(nchw16, oihw16, padding=kk // 2))
+    flops_direct, flops_fourier = fc.fourier_conv_flops((jh, jw), (kk, kk), ci, co)
+    print(f"yardstick, paper head {kk}x{kk}x{ci}->{co} at {jh}x{jw}, bf16, batch {BATCH}: fft_conv2d "
+          f"{fft_ms:.4f} ms, F.conv2d (cuDNN) {direct_ms:.4f} ms, ratio {fft_ms / direct_ms:.2f}; "
+          f"per image {flops_fourier / 1e9:.2f} GFLOP Fourier against {flops_direct / 1e9:.2f} direct; "
+          f"served joint p50 {served_fft['p50_ms']:.3f} ms/request with 'fft' against "
+          f"{served_joint['p50_ms']:.3f} with 'direct', on {smi}")
     eager = {
+        **{name: call_ms(lambda fn=fn, a=tail_args[name, torch.bfloat16]: fn(*a))
+           for name, fn in tails.items()},
         "mrf_epilogue": call_ms(lambda: mrf_epilogue(resp1, bias1)),
         "mrf_epilogue_bwd": call_ms(lambda: mrf_epilogue_bwd(resp3, bias1, g3)),
         "mrf_fft_tail": call_ms(lambda: fused_tail(pf, kf, tables, bias2)),
         "shear_warp": call_ms(lambda: shear_warp(images, a_inv, b_inv)),
         "shear_warp_rowmajor": call_ms(lambda: shear_warp_rowmajor(images, a_inv, b_inv)),
     }
-    per = {"mrf_fft_tail": (REQUESTS, "request (joint serving)")}
+    per = {"mrf_fft_tail": (REQUESTS, "request (joint serving)"),
+           "fft_conv_tail_kdft_resident": (REQUESTS, "request (joint serving, 'fft' head)"),
+           "fft_conv_tail_kdft": (1, "request (joint serving, 'fft' head, steered)"),
+           "fft_conv_tail_kf": (1, "request (joint serving, 'fft' head, steered)")}
     for kn in kernels:
         n, unit = per.get(kn["name"], (TRAIN_STEPS, "step (flagship training)"))
         print(f"time {kn['name']}: {kn['ms']:.4f} ms on the device, {eager[kn['name']]:.4f} ms "
@@ -511,8 +681,11 @@ def main() -> int:
               f"so library_ms is null")
     print("shear_warp_rowmajor is the reference's cross-orientation oracle: no preset's path "
           "launches it, so its main-path count is 0; it ran in its parity phase above")
+    print("the plain head-conv tails were timed over 5 replays of 1 call (f32 products on the "
+          "widened operands, with K_f and R in device memory)")
     print(f"bounds: HBM {HBM_BYTES_PER_S / 1e12} TB/s, fp32 CUDA-core peak "
-          f"{FP32_FLOPS_PER_S / 1e12} TFLOP/s (H100 SXM data sheet)")
+          f"{FP32_FLOPS_PER_S / 1e12} TFLOP/s, bf16 tensor-core peak {BF16_FLOPS_PER_S / 1e12} "
+          f"TFLOP/s for the bf16 head-conv tails (H100 SXM data sheet)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

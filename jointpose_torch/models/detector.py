@@ -4,7 +4,8 @@
   convs in place of the pools (``pool_mode='stride'``);
 - optionally a half-resolution branch on the 2×2 average pyramid, whose
   features are nearest-upsampled and summed with the full-res ones;
-- the wide head conv, then 1×1 convs down to K heatmap logits.
+- the wide head conv, direct or in Fourier space (``head_conv_impl``),
+  then 1×1 convs down to K heatmap logits.
 
 Internally NCHW; the public ``Detector.forward`` takes NHWC images and
 returns (B, H/stride, W/stride, K) fp32 logits, as the reference does.
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jointpose_torch.configs import DetectorConfig
+from jointpose_torch.ops.fft_conv import FFTConv
 from jointpose_torch.ops.mrf_xla import same_pad
 
 
@@ -25,16 +27,14 @@ def resolve_head_conv_impl(cfg: DetectorConfig) -> str:
     """Resolve ``head_conv_impl`` for the port.
 
     'auto' resolves to 'direct': the reference's rule is a roofline
-    calibrated for the TPU, and the Fourier head conv is neither ported
-    nor measured on the H100 yet.  'fft' raises until it is.
+    calibrated for the TPU, and on the H100 the Fourier head's first
+    kernels are slower than cuDNN's direct conv (PERF.md).  'fft' is the
+    Fourier head conv of ``ops/fft_conv.py``.
     """
     if cfg.head_conv_impl in ("auto", "direct"):
         return "direct"
     if cfg.head_conv_impl == "fft":
-        raise NotImplementedError(
-            "head_conv_impl='fft' (the Fourier head conv, ops/fft_conv.py) is "
-            "not ported yet; see ROADMAP.md, queue 2, item 4"
-        )
+        return "fft"
     raise ValueError(f"unknown head_conv_impl {cfg.head_conv_impl!r}")
 
 
@@ -113,7 +113,7 @@ class Detector(nn.Module):
 
     def __init__(self, cfg: DetectorConfig, num_joints: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        resolve_head_conv_impl(cfg)  # only 'direct' exists in the port
+        head_conv = FFTConv if resolve_head_conv_impl(cfg) == "fft" else Conv
         self.config = cfg
         self.dtype = dtype
         if cfg.share_trunk:
@@ -123,7 +123,7 @@ class Detector(nn.Module):
             if cfg.multires:
                 self.trunk_half = Trunk(cfg)
         c = cfg.trunk_features[-1]
-        self.head_wide = Conv(c, cfg.head_features[0], cfg.head_kernel)
+        self.head_wide = head_conv(c, cfg.head_features[0], cfg.head_kernel)
         c = cfg.head_features[0]
         self.n_1x1 = len(cfg.head_features) - 1
         for i, feats in enumerate(cfg.head_features[1:]):

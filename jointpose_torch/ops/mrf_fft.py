@@ -18,16 +18,21 @@ import torch
 
 
 @functools.lru_cache(maxsize=16)
-def _dft_consts(hm: tuple[int, int], window: tuple[int, int]) -> dict[str, np.ndarray]:
+def _dft_consts(
+    hm: tuple[int, int], window: tuple[int, int], row_pad_to: int = 1
+) -> dict[str, np.ndarray]:
     """Real/imag DFT operator tables for one (heatmap, window) geometry,
     half column spectrum (the reference's ``real_cols=True``).
 
     The inverse column operator carries the conjugate-pair weights (2 for
     interior bins, 1 for DC and, when Pw is even, Nyquist), so the half
-    sum equals the full sum's real part exactly.
+    sum equals the full sum's real part exactly.  ``row_pad_to`` rounds
+    the row transform size up to a multiple; a larger circular size keeps
+    the linear correlation exact.
     """
     (h, w), (wh, ww) = hm, window
     ph, pw = h + wh - 1, w + ww - 1
+    ph = -(-ph // row_pad_to) * row_pad_to
     ch, cw = (wh - 1) // 2, (ww - 1) // 2
     ncols = pw // 2 + 1
 
@@ -62,10 +67,15 @@ def _dft_consts(hm: tuple[int, int], window: tuple[int, int]) -> dict[str, np.nd
 
 @functools.lru_cache(maxsize=16)
 def dft_tables(
-    hm: tuple[int, int], window: tuple[int, int], device: torch.device
+    hm: tuple[int, int],
+    window: tuple[int, int],
+    device: torch.device,
+    row_pad_to: int = 1,
+    dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
-    """The DFT tables of one geometry as fp32 tensors on ``device``,
-    copied there once.  Callers must not write to them.
+    """The DFT tables of one geometry as ``dtype`` tensors on ``device``
+    (computed in fp32, then cast), copied there once per geometry, padding
+    and dtype.  Callers must not write to them.
 
     Beside the reference's tables it holds the fused tail's operands:
     ``ir`` (H, Ph, 2) with (re, im) interleaved and ``ict_re``/``ict_im``
@@ -74,9 +84,9 @@ def dft_tables(
     Built outside inference mode whatever the caller's mode: a table first
     made while serving is then still usable by a training step's autograd.
     """
-    c = _dft_consts(hm, window)
+    c = _dft_consts(hm, window, row_pad_to)
     with torch.inference_mode(False):
-        t = {n: torch.from_numpy(v).to(device) for n, v in c.items()}
+        t = {n: torch.from_numpy(v).to(device, dtype) for n, v in c.items()}
         t["ir"] = torch.stack([t["ir_re"], t["ir_im"]], dim=-1).contiguous()
         t["ict_re"] = t["ic_re"].T.contiguous()
         t["ict_im"] = t["ic_im"].T.contiguous()

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a served request's or a training step's time goes on the card, by kernel.
 
-    python3 profile_serve.py [--preset joint|flagship_pallas] [--batch 8] [--requests 4]
+    python3 profile_serve.py [--preset joint|joint_fft|flagship_pallas] [--batch 8] [--requests 4]
     python3 profile_serve.py --train [--batch 32] [--requests 4]
+    python3 profile_serve.py --head-stages [--batch 8]
 
 Serves ``--requests`` requests of ``--batch`` uint8 images through the
 port's predictor (seeded random weights, as ``chip_smoke.py`` does) under
@@ -10,7 +11,11 @@ port's predictor (seeded random weights, as ``chip_smoke.py`` does) under
 training steps of ``flagship`` with ``mrf.impl='pallas'`` instead, after
 two warm-up steps.  Prints, per preset: the wall time per request or
 step, the device's busy time (the sum of kernel times) and its idle
-share, and the kernels by total device time.  Needs a CUDA card.
+share, and the kernels by total device time.  ``joint_fft`` is ``joint``
+with ``head_conv_impl='fft'``.  With ``--head-stages`` it times the stages
+of the Fourier head conv at the paper head instead (bf16): the input's
+forward transforms, the kernel's column DFT, the fused tail and the
+inverse column product, beside cuDNN's direct conv.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,18 +29,20 @@ import time
 import numpy as np
 import torch
 
-PRESETS = ("joint", "flagship_pallas")
+PRESETS = ("joint", "joint_fft", "flagship_pallas")
 # The port's own kernels (jointpose_torch/csrc/), listed whatever their rank.
 PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
-                "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel", "shear_pass_kernel")
+                "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel", "shear_pass_kernel",
+                "tail_kernel", "tail_mma_kernel")
 
 
 def _config(preset: str):
     from jointpose_torch import get_config
 
-    if preset == "joint":
+    if preset in ("joint", "joint_fft"):
         cfg = get_config("joint")
-        return cfg.replace(detector=dataclasses.replace(cfg.detector, head_conv_impl="direct"))
+        head = "fft" if preset == "joint_fft" else "direct"
+        return cfg.replace(detector=dataclasses.replace(cfg.detector, head_conv_impl=head))
     cfg = get_config("flagship")
     return cfg.replace(mrf=dataclasses.replace(cfg.mrf, impl="pallas"))
 
@@ -108,11 +115,59 @@ def profile(run, units: int, top: int = 12) -> dict:
     }
 
 
+def head_stages(batch: int, runs: int = 30) -> dict:
+    """Median device time (CUDA events around one eager call) of each stage
+    of ``fft_conv2d`` at the paper head in bf16, on seeded features."""
+    import math
+
+    from jointpose_torch import get_config
+    from jointpose_torch.ops import fft_conv as fc
+
+    cfg = get_config("joint")
+    (h, w), det = cfg.heatmap_hw, cfg.detector
+    ci, co, k = det.trunk_features[-1], det.head_features[0], det.head_kernel
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(batch, h, w, ci, generator=gen).relu().cuda().bfloat16()
+    kernel = (torch.randn(k, k, ci, co, generator=gen) / math.sqrt(k * k * ci)).cuda()
+
+    def timed(fn):
+        for _ in range(3):
+            out = fn()
+        times = []
+        for _ in range(runs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times)), out
+
+    res = {"batch": batch, "head": f"{k}x{k}x{ci}->{co} at {h}x{w}, bf16"}
+    with torch.no_grad():
+        (_, _), (_, _), t = fc.forward_spectra(x, kernel)
+        res["input_transforms_ms"], (xr, xi) = timed(lambda: fc.input_spectrum(x, t))
+        res["kernel_cast_and_column_dft_ms"], (a_re, a_im) = timed(
+            lambda: fc.kernel_column_dft(kernel.bfloat16(), t))
+        res["fused_tail_with_operand_copies_ms"], tail = timed(
+            lambda: fc.fused_tail(xr, xi, a_re, a_im, t))
+        tcat = tail.reshape(tail.shape[0], -1, *tail.shape[3:])
+        res["inverse_column_product_ms"], _ = timed(lambda: fc.inverse_columns(tcat, t).contiguous())
+        res["fft_conv2d_ms"], _ = timed(lambda: fc.fft_conv2d(x, kernel))
+        nchw = x.permute(0, 3, 1, 2).contiguous()
+        oihw = kernel.permute(3, 2, 0, 1).bfloat16().contiguous()
+        res["cudnn_direct_conv_ms"], _ = timed(
+            lambda: torch.nn.functional.conv2d(nchw, oihw, padding=k // 2))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=PRESETS, action="append")
     ap.add_argument("--train", action="store_true",
                     help="profile training steps of flagship_pallas instead of requests")
+    ap.add_argument("--head-stages", action="store_true",
+                    help="time the stages of the Fourier head conv instead")
     ap.add_argument("--batch", type=int, default=None, help="default 8 served, 32 trained")
     ap.add_argument("--requests", type=int, default=4, help="requests, or training steps")
     args = ap.parse_args(argv)
@@ -122,6 +177,12 @@ def main(argv=None) -> int:
     from jointpose_torch import _build
 
     _build.build(_build.kernel_names())
+    if args.head_stages:
+        res = head_stages(args.batch or 8)
+        for name, v in res.items():
+            print(f" {name}: {v:.4f}" if isinstance(v, float) else f" {name}: {v}")
+        print(json.dumps(res))
+        return 0
     if args.train:
         unit, make, presets, batch = "step", _train_unit, ["flagship_pallas"], args.batch or 32
     else:

@@ -23,11 +23,11 @@ from jointpose_torch.ops.mrf_xla import same_pad
 CONV_RTOL = 1e-4
 
 
-def _detector_cfg(pool_mode: str, multires: bool, share_trunk: bool):
+def _detector_cfg(pool_mode: str, multires: bool, share_trunk: bool, head: str = "direct"):
     base = jax_get_config("tiny").detector
     return dataclasses.replace(
         base, pool_mode=pool_mode, multires=multires, share_trunk=share_trunk,
-        head_conv_impl="direct",
+        head_conv_impl=head,
     )
 
 
@@ -67,5 +67,38 @@ def test_head_conv_impl_resolution():
     det = get_config("joint").detector
     assert det.head_conv_impl == "auto"
     assert resolve_head_conv_impl(det) == "direct"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_head_conv_impl(dataclasses.replace(det, head_conv_impl="fft"))
+    assert resolve_head_conv_impl(dataclasses.replace(det, head_conv_impl="fft")) == "fft"
+    with pytest.raises(ValueError, match="unknown head_conv_impl"):
+        resolve_head_conv_impl(dataclasses.replace(det, head_conv_impl="winograd"))
+    # One state_dict serves both heads; the Fourier head is an FFTConv.
+    tiny = get_config("tiny").detector
+    direct = Detector(dataclasses.replace(tiny, head_conv_impl="direct"), 9)
+    fourier = Detector(dataclasses.replace(tiny, head_conv_impl="fft"), 9)
+    assert type(fourier.head_wide).__name__ == "FFTConv"
+    assert {k: v.shape for k, v in direct.state_dict().items()} == {
+        k: v.shape for k, v in fourier.state_dict().items()}
+
+
+@pytest.mark.parametrize("pool_mode", ["max", "stride"])
+def test_fft_head_matches_direct_head_and_reference(pool_mode):
+    """The same weights through the 'direct' and 'fft' heads give the same
+    logits, on both sides: 1e-4 of scale, the reference's own bound
+    (tests/test_fft_conv.py, test_detector_head_impls_agree)."""
+    rs = np.random.RandomState(1)
+    images = rs.rand(2, 48, 64, 3).astype(np.float32)
+    jdet = JaxDetector(_detector_cfg(pool_mode, True, True, "fft"), 9)
+    variables = jdet.init(jax.random.PRNGKey(2), jnp.asarray(images))
+    variables = jax.tree_util.tree_map(
+        lambda a: a + 0.05 * rs.randn(*a.shape).astype(np.float32), variables
+    )
+    want = np.asarray(jdet.apply(variables, jnp.asarray(images)))
+    state = params_from_flax(jax.tree_util.tree_map(np.asarray, variables))
+    got = {}
+    for head in ("direct", "fft"):
+        tdet = Detector(_detector_cfg(pool_mode, True, True, head), 9)
+        tdet.load_state_dict(state)
+        with torch.no_grad():
+            got[head] = tdet(torch.from_numpy(images)).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got["fft"] - got["direct"]).max() / scale <= CONV_RTOL
+    assert np.abs(got["fft"] - want).max() / scale <= CONV_RTOL

@@ -13,6 +13,7 @@ import torch
 from jointpose_torch.configs import AugmentConfig, MRFConfig
 from jointpose_torch.data.augment import inverse_affine, random_augment_params
 from jointpose_torch.models.mrf import SpatialModel
+from jointpose_torch.ops import fft_conv as tfc
 from jointpose_torch.ops import mrf_epilogue as tme
 from jointpose_torch.ops import mrf_fft_fused as tmff
 from jointpose_torch.ops import warp as tw
@@ -27,6 +28,12 @@ KERNEL_RTOL = 1e-3
 # The reference's tolerance for its shear kernel against its oracle
 # (tests/test_warp_pallas.py), on pixels in [0, 1].
 WARP_ATOL = 2e-5
+# Fourier head-conv tails, max|kernel - plain| / max|plain|: in f32 the
+# reference's bound for its fused tail against its XLA tail
+# (tests/test_fft_conv.py); in bf16 K_f, R and the output round, so another
+# summation order flips roundings by one bf16 step (2^-8 of the largest
+# value); two steps are allowed.
+TAIL_RTOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
 K = 9
 
 
@@ -140,3 +147,68 @@ def test_spatial_model_gradients_on_card_match_cpu(cuda, mrf):
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert got is not None and got.abs().max() > 0
         assert _rel(got.cpu(), want) <= KERNEL_RTOL
+
+
+def _tail_operands(geom, dtype, device, seed=7):
+    b, h, w, kh, ci, co = geom
+    t = tfc._conv_tables((h, w), (kh, kh), device, 8, dtype)
+    ph, g = t["gr_re"].shape[0], t["gc_re"].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    xr, xi = (torch.randn(g, ph, b, ci, generator=gen).to(device, dtype) for _ in range(2))
+    ar, ai = ((torch.randn(g, kh, ci, co, generator=gen) / 30).to(device, dtype) for _ in range(2))
+    return t, xr, xi, ar, ai
+
+
+# (B, H, W, kh, Ci, Co): the paper head at batch 2; ragged sizes in every
+# tiled dimension of the CUDA-core version (Co % 32, Ci % 8, Ph % 16,
+# H % 10, batch 11 > 8); and channel counts the bf16 tensor-core version
+# takes, with ragged row bins, output rows and batch tiles.
+TAIL_GEOMETRIES = [(2, 60, 90, 9, 128, 512), (3, 13, 10, 5, 11, 37), (11, 21, 10, 3, 20, 40),
+                   (5, 21, 12, 5, 32, 64), (11, 21, 12, 5, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geom", TAIL_GEOMETRIES)
+@pytest.mark.parametrize("entry", ["tail_kdft_resident", "tail_kdft", "tail_kf"])
+def test_fft_conv_tail_kernels_match_plain(cuda, entry, geom, dtype):
+    t, xr, xi, ar, ai = _tail_operands(geom, dtype, cuda)
+    want = tfc.tail_kdft_plain(xr, xi, ar, ai, t)
+    fn = getattr(tfc, entry)
+    if entry == "tail_kf":
+        ar, ai = (v.contiguous() for v in tfc._kf_from_a(ar, ai, t))
+    before = fn.launches
+    got = fn(xr, xi, ar, ai, t)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel(got, want) <= TAIL_RTOL[dtype]
+
+
+def test_fft_conv2d_on_card_matches_cudnn_and_steers(cuda, monkeypatch):
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 20, 24, 16, generator=gen).to(cuda)
+    k = torch.randn(9, 9, 16, 32, generator=gen).to(cuda)
+    want = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=4).permute(0, 2, 3, 1)
+    for name in tfc.TAIL_PREFERENCE:
+        monkeypatch.setattr(tfc, "TAIL_PREFERENCE", (name,))
+        fn = getattr(tfc, f"tail_{name}")
+        before = fn.launches
+        assert _rel(tfc.fft_conv2d(x, k), want) <= 1e-4
+        assert fn.launches == before + 1
+    # Gradients on the card recompute the plain route.
+    monkeypatch.undo()
+    x.requires_grad_(True)
+    tfc.fft_conv2d(x, k).square().sum().backward()
+    assert x.grad is not None and x.grad.abs().max() > 0
+
+
+def test_fft_conv_tail_wrappers_raise(cuda):
+    t, xr, xi, ar, ai = _tail_operands((3, 13, 10, 5, 11, 37), torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfc.tail_kdft(xr, xi.transpose(2, 3), ar, ai, t)
+    with pytest.raises(TypeError):
+        tfc.tail_kdft(xr.half(), xi.half(), ar.half(), ai.half(), t)
+    big = _tail_operands((17, 13, 10, 5, 8, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="tail_fits"):
+        tfc.tail_kdft_resident(*big[1:], big[0])  # more than 16 images in one block

@@ -4,7 +4,9 @@ with the same weights on both sides (converted by params_from_flax).
 
 Two MRF paths: the Fourier pass through the fused tail (`impl='fft'`,
 `use_pallas=True`; the reference's Pallas kernel in interpret mode), and
-the coarse stride-2 pass through the fused epilogue (`impl='pallas'`)."""
+the coarse stride-2 pass through the fused epilogue (`impl='pallas'`).
+The first also runs with the Fourier head conv (`head_conv_impl='fft'`,
+the reference's fused tail in interpret mode) in place of the direct one."""
 
 import dataclasses
 
@@ -33,7 +35,9 @@ COORD_ATOL = 1e-3
 PATHS = {
     "fft_fused": {"impl": "fft", "use_pallas": True},
     "coarse_epilogue": {"impl": "pallas", "stride": 2},
+    "fft_fused_fft_head": {"impl": "fft", "use_pallas": True},
 }
+HEADS = {"fft_fused_fft_head": "fft"}
 
 
 def _configs(path: str, normalize_input: bool):
@@ -41,7 +45,7 @@ def _configs(path: str, normalize_input: bool):
     for get in (jax_get_config, get_config):
         cfg = get("tiny")
         out.append(cfg.replace(
-            detector=dataclasses.replace(cfg.detector, head_conv_impl="direct"),
+            detector=dataclasses.replace(cfg.detector, head_conv_impl=HEADS.get(path, "direct")),
             mrf=dataclasses.replace(cfg.mrf, normalize_input=normalize_input, **PATHS[path]),
             decode_refine=True,
         ))
