@@ -25,17 +25,27 @@
 // Backward: the TPU kernel accumulates dbias across its sequential grid in
 // one VMEM block.  CUDA blocks run in no order, and float atomics would
 // make the sum depend on that order, so the reduction has two stages with
-// a fixed order each.  Stage 1: a block of R*Kv*Ka threads owns a fixed
-// range of rows; thread t keeps column j = t % (Kv*Ka) and walks every R-th
-// row of the range, so the block's threads read R whole rows at a time,
-// contiguously, and each thread sums its fp32 dresp values (before any
-// rounding to bf16) in a register.  The R row-slots of a column are then
-// added in order through shared memory and the block writes one partial row.
+// a fixed order each.  What bounds stage 1 is the bytes in flight: a row
+// is Kv*Ka values (162 B at bf16, K=9), so per-value loads move 64 B per
+// warp request.  resp and dresp are therefore walked as flat arrays of
+// 16-byte vectors (8 bf16 or 4 f32): a group of 8 (or 4) rows is exactly
+// Kv*Ka vectors whatever Kv*Ka is, so thread t of a group always holds the
+// columns (8t + i) mod Kv*Ka of rows (8t + i) / (Kv*Ka) of the group, keeps
+// their biases and joint indices in registers, and sums its fp32 dresp
+// values (before any rounding to bf16) in 8 registers.  A block of
+// slots*Kv*Ka threads takes `slots` groups per step and two steps' loads
+// are in flight before the first is used; g[r, a] comes through L1 (a row's
+// Ka values serve Kv*Ka elements).  Rows past the last whole group go
+// through the same threads one value at a time.  At the end the block adds,
+// per column, its slots and the group's rows in a fixed order through shared
+// memory and writes one partial row.
 // Stage 2: one block per column adds the partial rows, each thread a fixed
 // strided subset, then a fixed-shape tree in shared memory.  Repeated runs
 // give bit-identical dbias.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -69,35 +79,130 @@ mrf_epilogue_fwd_kernel(const T* __restrict__ resp, const float* __restrict__ bi
   out[idx] = acc;
 }
 
-// Stage 1 of the backward: blockDim.x = slots * kk, kk = Kv*Ka.
-template <typename T>
-__global__ void mrf_epilogue_bwd_kernel(const T* __restrict__ resp, const float* __restrict__ bias,
-                                        const float* __restrict__ g, T* __restrict__ dresp,
-                                        float* __restrict__ partials, long long rows,
-                                        long long rows_per_block, int kk, int ka, float eps) {
-  extern __shared__ float part_s[];  // (slots, kk)
-  const int slots = blockDim.x / kk;
-  const int j = threadIdx.x % kk;
-  const int slot = threadIdx.x / kk;
-  const int a = j % ka;
-  const float bj = bias[j];
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = min(rows, r0 + rows_per_block);
-  float acc = 0.f;
-  for (long long r = r0 + slot; r < r1; r += slots) {
-    const long long e = r * kk + j;
-    const float x = __fadd_rn(to_f32(resp[e]), bj);
-    const float inv = x > eps ? __frcp_rn(x) : 0.f;
-    const float d = __fmul_rn(g[r * ka + a], inv);
-    store(dresp + e, d);
-    acc = __fadd_rn(acc, d);
+// A 16-byte vector of T as floats and back (bf16 rounds to nearest even).
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void unpack(const uint4& q, float (&v)[4]) {
+    v[0] = __uint_as_float(q.x);
+    v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z);
+    v[3] = __uint_as_float(q.w);
   }
-  part_s[threadIdx.x] = acc;
+  static __device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int n = 8;
+  static __device__ __forceinline__ void unpack(const uint4& q, float (&v)[8]) {
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the upper half of its float
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+constexpr int kSteps = 2;  // steps whose loads are in flight together
+
+// One value of the backward: x = resp + bias, d = g * (x > eps ? 1/x : 0).
+__device__ __forceinline__ float bwd_value(float resp, float bj, float g, float eps) {
+  const float x = __fadd_rn(resp, bj);
+  return __fmul_rn(g, x > eps ? __frcp_rn(x) : 0.f);
+}
+
+// Stage 1 of the backward: blockDim.x = slots * kk, kk = Kv*Ka; a group is
+// VEC rows = kk vectors of VEC values.  MAX_THREADS: 256 where the block is
+// `slots` groups wide (three blocks an SM), 1024 where one group of
+// kk > 256 vectors fills it.
+template <typename T, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS, MAX_THREADS == kThreads ? 3 : 1)
+mrf_epilogue_bwd_kernel(const T* __restrict__ resp, const float* __restrict__ bias,
+                        const float* __restrict__ g, T* __restrict__ dresp,
+                        float* __restrict__ partials, long long rows, int steps_per_block,
+                        int kk, int ka, float eps) {
+  constexpr int VEC = Vec16<T>::n;
+  extern __shared__ float part_s[];  // (slots, VEC * kk)
+  const int slots = blockDim.x / kk;
+  const int t = threadIdx.x % kk;
+  const int slot = threadIdx.x / kk;
+  // This thread's VEC values of a group: value i is flat element t*VEC + i,
+  // row e / kk of the group, column e % kk, joint column % ka; g_of is its
+  // offset into the group's VEC rows of g.  Walked without a division per value.
+  int g_of[VEC];
+  float bj[VEC], acc[VEC];
+  {
+    int row = t * VEC / kk, col = t * VEC - row * kk, a = col % ka;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      g_of[i] = row * ka + a;
+      bj[i] = bias[col];
+      acc[i] = 0.f;
+      if (++a == ka) a = 0;
+      if (++col == kk) col = 0, ++row;  // kk is a multiple of ka: a is 0 here already
+    }
+  }
+  const long long whole = rows / VEC;  // groups of VEC whole rows
+  const long long first = (long long)blockIdx.x * steps_per_block * slots + slot;
+  const uint4* src = reinterpret_cast<const uint4*>(resp);
+  uint4* dst = reinterpret_cast<uint4*>(dresp);
+
+  for (int s0 = 0; s0 < steps_per_block; s0 += kSteps) {
+    uint4 in[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const long long grp = first + (long long)(s0 + u) * slots;
+      if (s0 + u < steps_per_block && grp < whole) in[u] = __ldg(src + grp * kk + t);
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const long long grp = first + (long long)(s0 + u) * slots;
+      if (s0 + u >= steps_per_block) continue;
+      const float* gp = g + grp * VEC * ka;
+      if (grp < whole) {
+        float vals[VEC];
+        Vec16<T>::unpack(in[u], vals);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          vals[i] = bwd_value(vals[i], bj[i], __ldg(gp + g_of[i]), eps);
+          acc[i] = __fadd_rn(acc[i], vals[i]);
+        }
+        dst[grp * kk + t] = Vec16<T>::pack(vals);
+      } else if (grp == whole) {
+        // The ragged last group: rows % VEC rows, one value at a time.
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const long long e = grp * VEC * kk + t * VEC + i;
+          if (e < rows * kk) {
+            const float d = bwd_value(to_f32(resp[e]), bj[i], __ldg(gp + g_of[i]), eps);
+            store(dresp + e, d);
+            acc[i] = __fadd_rn(acc[i], d);
+          }
+        }
+      }
+    }
+  }
+  // Column j of the block: its slots in order, and within a slot the group's rows in order.
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) part_s[(slot * kk + t) * VEC + i] = acc[i];
   __syncthreads();
   if (slot == 0) {
-    float s = part_s[j];
-    for (int k = 1; k < slots; ++k) s = __fadd_rn(s, part_s[k * kk + j]);
-    partials[(long long)blockIdx.x * kk + j] = s;
+    float s = 0.f;
+    for (int k = 0; k < slots; ++k)
+      for (int r = 0; r < VEC; ++r) s = __fadd_rn(s, part_s[k * kk * VEC + r * kk + t]);
+    partials[(long long)blockIdx.x * kk + t] = s;
   }
 }
 
@@ -142,24 +247,39 @@ extern "C" int mrf_epilogue_fwd(const void* resp, int resp_is_bf16, const void* 
 
 namespace {
 
-// Stage-1 geometry: slots rows in flight per block, rows_per_block a
-// multiple of slots, and at most kMaxPartials blocks.
+// Stage-1 geometry: `slots` groups of `vec` rows per block and step, and so
+// many steps a block that all blocks run at once (three per SM), at most
+// kMaxPartials of them: a second, ragged wave would cost as much as the first.
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      n = 132;
+  }
+  return n;
+}
+
 struct BwdPlan {
   int slots;
-  long long rows_per_block;
+  int steps_per_block;
   int blocks;
 };
 
-BwdPlan bwd_plan(long long rows, int kk) {
+BwdPlan bwd_plan(long long rows, int kk, int vec) {
   BwdPlan p;
   p.slots = kk > kThreads ? 1 : kThreads / kk;
-  long long parts = (rows + p.slots - 1) / p.slots;
-  if (parts > kMaxPartials) parts = kMaxPartials;
-  if (parts < 1) parts = 1;
-  long long per = (rows + parts - 1) / parts;
-  per = (per + p.slots - 1) / p.slots * p.slots;
-  p.rows_per_block = per < 1 ? 1 : per;
-  p.blocks = (int)((rows + p.rows_per_block - 1) / p.rows_per_block);
+  const long long groups = (rows + vec - 1) / vec;
+  const long long steps = (groups + p.slots - 1) / p.slots;
+  long long blocks = (steps + kSteps - 1) / kSteps;
+  const long long wave = (long long)sm_count() * (kk > kThreads ? 1 : 3);
+  if (blocks > wave) blocks = wave;
+  if (blocks > kMaxPartials) blocks = kMaxPartials;
+  if (blocks < 1) blocks = 1;
+  p.steps_per_block = (int)((steps + blocks - 1) / blocks);
+  if (p.steps_per_block < 1) p.steps_per_block = 1;
+  p.blocks = (int)((steps + p.steps_per_block - 1) / p.steps_per_block);
   if (p.blocks < 1) p.blocks = 1;
   return p;
 }
@@ -167,8 +287,8 @@ BwdPlan bwd_plan(long long rows, int kk) {
 }  // namespace
 
 // Rows of the (rows, kk) f32 scratch the backward needs for its partials.
-extern "C" int mrf_epilogue_bwd_partials(long long rows, int kk) {
-  return bwd_plan(rows, kk).blocks;
+extern "C" int mrf_epilogue_bwd_partials(long long rows, int kk, int resp_is_bf16) {
+  return bwd_plan(rows, kk, resp_is_bf16 ? 8 : 4).blocks;
 }
 
 extern "C" int mrf_epilogue_bwd(const void* resp, int resp_is_bf16, const void* bias,
@@ -178,19 +298,22 @@ extern "C" int mrf_epilogue_bwd(const void* resp, int resp_is_bf16, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kk > 1024) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaMemsetAsync(dbias, 0, sizeof(float) * kk, s);
-  const BwdPlan p = bwd_plan(rows, kk);
+  const int vec = resp_is_bf16 ? 8 : 4;
+  const BwdPlan p = bwd_plan(rows, kk, vec);
   const int threads = p.slots * kk;
-  const size_t smem = sizeof(float) * threads;
+  const size_t smem = sizeof(float) * threads * vec;
   if (resp_is_bf16) {
-    mrf_epilogue_bwd_kernel<__nv_bfloat16><<<p.blocks, threads, smem, s>>>(
+    (kk > kThreads ? mrf_epilogue_bwd_kernel<__nv_bfloat16, 1024> : mrf_epilogue_bwd_kernel<__nv_bfloat16, kThreads>)
+        <<<p.blocks, threads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(resp), static_cast<const float*>(bias),
         static_cast<const float*>(g), static_cast<__nv_bfloat16*>(dresp),
-        static_cast<float*>(partials), rows, p.rows_per_block, kk, ka, eps);
+        static_cast<float*>(partials), rows, p.steps_per_block, kk, ka, eps);
   } else {
-    mrf_epilogue_bwd_kernel<float><<<p.blocks, threads, smem, s>>>(
+    (kk > kThreads ? mrf_epilogue_bwd_kernel<float, 1024> : mrf_epilogue_bwd_kernel<float, kThreads>)
+        <<<p.blocks, threads, smem, s>>>(
         static_cast<const float*>(resp), static_cast<const float*>(bias),
         static_cast<const float*>(g), static_cast<float*>(dresp),
-        static_cast<float*>(partials), rows, p.rows_per_block, kk, ka, eps);
+        static_cast<float*>(partials), rows, p.steps_per_block, kk, ka, eps);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -25,7 +25,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "mrf_epilogue_fwd": ([_P, _I, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, _P], _I),
-    "mrf_epilogue_bwd_partials": ([ctypes.c_longlong, _I], _I),
+    "mrf_epilogue_bwd_partials": ([ctypes.c_longlong, _I, _I], _I),
     "mrf_epilogue_bwd": (
         [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, _P], _I
     ),
@@ -48,6 +48,23 @@ def mrf_epilogue_bwd_plain(
     inv = torch.where(x > eps, 1.0 / x.clamp_min(eps), torch.zeros_like(x))
     d = g.float().unsqueeze(-2) * inv  # (B, H, W, Kv, Ka)
     return d.to(resp.dtype), d.sum(dim=(0, 1, 2))
+
+
+def dbias_by_vector_lanes(d: torch.Tensor, vec: int) -> torch.Tensor:
+    """The backward kernel's column map in plain PyTorch: (rows, kk) fp32
+    gradients -> dbias (kk,).  The kernel walks the flat array in 16-byte
+    vectors of ``vec`` values; ``vec`` rows are exactly kk vectors, so lane
+    (t, i) of every such group holds flat element e = vec*t + i of the
+    group, column e mod kk, and sums it over the groups; rows past the
+    last whole group land in the same lanes.  Each column then collects
+    its ``vec`` lanes."""
+    rows, kk = d.shape
+    whole = rows // vec
+    lanes = d[: whole * vec].reshape(whole, kk * vec).sum(dim=0)
+    tail = d[whole * vec:].reshape(-1)
+    lanes[: tail.numel()] += tail
+    cols = torch.arange(kk * vec, device=d.device) % kk
+    return torch.zeros(kk, dtype=d.dtype, device=d.device).index_add_(0, cols, lanes)
 
 
 def _check(resp: torch.Tensor, biases: torch.Tensor, what: str) -> tuple[int, int, int]:
@@ -97,14 +114,15 @@ def mrf_epilogue_bwd(
     lib = _build.load("mrf_epilogue", _SIGNATURES)
     dresp = torch.empty_like(resp)
     dbias = torch.empty((kv, ka), dtype=torch.float32, device=resp.device)
+    is_bf16 = int(resp.dtype == torch.bfloat16)
     parts = torch.empty(
-        (lib.mrf_epilogue_bwd_partials(rows, kv * ka), kv * ka), dtype=torch.float32,
+        (lib.mrf_epilogue_bwd_partials(rows, kv * ka, is_bf16), kv * ka), dtype=torch.float32,
         device=resp.device,
     )
     with torch.cuda.device(resp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mrf_epilogue_bwd(
-            resp.data_ptr(), int(resp.dtype == torch.bfloat16), biases.data_ptr(),
+            resp.data_ptr(), is_bf16, biases.data_ptr(),
             g.data_ptr(), dresp.data_ptr(), dbias.data_ptr(), parts.data_ptr(),
             rows, kv, ka, eps, stream,
         )

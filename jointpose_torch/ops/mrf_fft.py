@@ -79,7 +79,12 @@ def dft_tables(
 
     Beside the reference's tables it holds the fused tail's operands:
     ``ir`` (H, Ph, 2) with (re, im) interleaved and ``ict_re``/``ict_im``
-    (G, W), the inverse column operator transposed.
+    (G, W), the inverse column operator transposed; and both inverse
+    operators as real block matrices, the form in which the tail's two
+    transforms are plain matrix products: ``ir_stack`` (2H, 2Ph) =
+    [[ir_re, -ir_im], [ir_im, ir_re]], so that ir_stack @ [R_re; R_im] =
+    [T_re; T_im] for T = Ir @ R, and ``ic_stack`` (2G, W) =
+    [ict_re; -ict_im], so that [T_re, T_im] @ ic_stack = Re{T @ Ic^T}.
 
     Built outside inference mode whatever the caller's mode: a table first
     made while serving is then still usable by a training step's autograd.
@@ -90,6 +95,10 @@ def dft_tables(
         t["ir"] = torch.stack([t["ir_re"], t["ir_im"]], dim=-1).contiguous()
         t["ict_re"] = t["ic_re"].T.contiguous()
         t["ict_im"] = t["ic_im"].T.contiguous()
+        t["ir_stack"] = torch.cat([
+            torch.cat([t["ir_re"], -t["ir_im"]], dim=1),
+            torch.cat([t["ir_im"], t["ir_re"]], dim=1)], dim=0).contiguous()
+        t["ic_stack"] = torch.cat([t["ict_re"], -t["ict_im"]], dim=0).contiguous()
     return t
 
 

@@ -8,7 +8,11 @@
 ``fused_tail`` is the wrapper: on CUDA tensors it launches the kernel of
 ``csrc/mrf_fft_tail.cu`` (or raises), on CPU tensors it runs the plain
 version ``fused_tail_plain``.  Only the forward DFTs' outputs cross
-device memory; the (B, Kv, Ka, H, W) responses never exist.
+device memory; the (B, Kv, Ka, H, W) responses never exist (where the
+kernel splits an output tile's source joints over blocks, up to three
+partial log-sums of that tile do, in a scratch of two output-sized
+planes).  ``fused_tail_emulated`` repeats the kernel's arithmetic (rows
+first, 3xTF32 products) in plain PyTorch, to size its error on the CPU.
 ``mrf_message_pass_fft_fused`` wraps it in a ``torch.autograd.Function``
 whose backward recomputes the plain Fourier pass.
 """
@@ -25,8 +29,9 @@ from jointpose_torch.ops.mrf_fft import forward_ffts, mrf_message_pass_fft
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mrf_fft_tail": ([_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I),
+    "mrf_fft_tail": ([_P] * 10 + [_I] * 7 + [ctypes.c_float, _P], _I),
     "mrf_fft_tail_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "mrf_fft_tail_scratch_parts": ([], _I),
 }
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 
@@ -41,6 +46,60 @@ def fused_tail_plain(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
     u_im = torch.matmul(r_re, tables["ict_im"]) + torch.matmul(r_im, tables["ict_re"])
     o = torch.matmul(tables["ir_re"], u_re) - torch.matmul(tables["ir_im"], u_im)
     o = o + biases.float()[None, :, :, None, None]  # (B, Kv, Ka, H, W)
+    return torch.log(o.clamp_min(eps)).sum(dim=1)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo exactly, hi a TF32 value: x rounded to 10 explicit
+    mantissa bits, to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds (finite fp32 input)."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+def _tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of an fp32 register: the low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel forms it: three TF32 products with fp32 sums,
+    the two small ones (lo·hi, hi·lo) added before the large one (hi·hi);
+    lo·lo, about 2^-22 of the product, is dropped."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    a_lo, b_lo = _tf32_truncate(a_lo), _tf32_truncate(b_lo)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+
+
+def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Zero-pad the last two dimensions up to multiples of (rows, cols)."""
+    r, c = x.shape[-2:]
+    return torch.nn.functional.pad(x, (0, -c % cols, 0, -r % rows))
+
+
+def fused_tail_emulated(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, for sizing its error on
+    the CPU: rows first, both inverse transforms as real block-matrix
+    products on operands zero-padded to the tensor cores' tiles (16 rows,
+    depth 8, 8 columns), every product 3xTF32 (``matmul_3xtf32``).  The
+    summation order inside a product is PyTorch's, not the kernel's."""
+    pf_re, pf_im = pf
+    kf_re, kf_im = kf
+    h, w = tables["ir_re"].shape[0], tables["ict_re"].shape[1]
+    g = tables["ict_re"].shape[0]
+    r_re = kf_re[None] * pf_re[:, :, None] + kf_im[None] * pf_im[:, :, None]
+    r_im = kf_re[None] * pf_im[:, :, None] - kf_im[None] * pf_re[:, :, None]
+    ir = tables["ir_stack"]  # (2H, 2Ph): the re rows, then the im rows
+    ir = torch.cat([_pad_to(ir[:h], 16, 8), _pad_to(ir[h:], 16, 8)], dim=0)
+    hp = ir.shape[0] // 2
+    r = _pad_to(torch.cat([r_re, r_im], dim=-2), 8, 8)  # (B, Kv, Ka, 2Ph, Gp)
+    t = matmul_3xtf32(ir, r)  # (..., 2Hp, Gp): T_re over T_im
+    ic = tables["ic_stack"]  # (2G, W)
+    ic = torch.cat([_pad_to(ic[:g], 8, 8), _pad_to(ic[g:], 8, 8)], dim=0)
+    o = matmul_3xtf32(torch.cat([t[..., :hp, :], t[..., hp:, :]], dim=-1), ic)
+    o = o[..., :h, :w] + biases.float()[None, :, :, None, None]  # (B, Kv, Ka, H, W)
     return torch.log(o.clamp_min(eps)).sum(dim=1)
 
 
@@ -76,13 +135,16 @@ def fused_tail(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
             f"per block, above {_SMEM_LIMIT}"
         )
     out = torch.empty((b, ka, h, w), dtype=torch.float32, device=pf_re.device)
+    # Partial log-sums of output tiles whose source joints are split over blocks.
+    scratch = torch.empty((lib.mrf_fft_tail_scratch_parts(), *out.shape), dtype=torch.float32,
+                          device=pf_re.device)
     with torch.cuda.device(pf_re.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mrf_fft_tail(
             pf_re.data_ptr(), pf_im.data_ptr(), kf_re.data_ptr(), kf_im.data_ptr(),
             tables["ir"].data_ptr(), tables["ict_re"].data_ptr(),
             tables["ict_im"].data_ptr(), biases.data_ptr(), out.data_ptr(),
-            b, kv, ka, ph, g, h, w, eps, stream,
+            scratch.data_ptr(), b, kv, ka, ph, g, h, w, eps, stream,
         )
     _build.check(err, "mrf_fft_tail")
     fused_tail.launches += 1

@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""What each stage of the fused Fourier MRF tail costs on the card.
+
+    python3 profile_mrf_tail_stages.py [--source PATH] [--batch 8]
+
+Builds ``jointpose_torch/csrc/mrf_fft_tail.cu`` (or ``--source``: any
+version of that file with the same C entry) as it is and copies with one
+stage of the kernel cut out each (forming R and its loads, the row
+transform, the column transform, the log epilogue), and times each at the
+``joint`` geometry (60×90 heatmaps, 45×67 window: Ph=104, G=79; Kv=Ka=9;
+seeded operands): the difference from the whole kernel is what that stage
+costs where it sits.  The cut copies compute wrong results; only their
+times are read.  Each cut is one or more textual replacements that must
+each match the source exactly once, so an edit of the kernel that moves an anchor fails
+here loudly.  Two anchor sets: the tensor-core kernel (the source holds
+``mma.sync``), and the earlier CUDA-core kernel, so that a checkout of an
+older commit's source can be profiled by the same script.  Needs a CUDA
+card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+TENSOR_CORE_ANCHORS = {
+    "whole kernel": None,
+    "without forming R and its loads": (
+        "const int nbatch = (n_el + kLoads * kProducers - 1) / (kLoads * kProducers);",
+        "const int nbatch = p.ph < 0;"),
+    "without the row transform": (
+        "for (int ks = 0; ks < nks; ++ks) {",
+        "for (int ks = 0; ks < (p.ph < 0 ? nks : 0); ++ks) {"),
+    "without the column transform": (
+        "      for (int j = 0; j < kNJ; ++j) {\n        BFrag tr, ti;",
+        "      for (int j = 0; j < (p.ph < 0 ? kNJ : 0); ++j) {\n        BFrag tr, ti;"),
+    "without the log epilogue": (
+        "ls[m][e] += logf(fmaxf(o[m][e] + bv, p.eps));",
+        "ls[m][e] += o[m][e] + bv;"),
+    # Plain TF32: a third of the mma, all of the loads and splits.  The
+    # difference from the whole kernel is what two thirds of the mma cost.
+    "with the hi*hi term only": [
+        ("  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);\n", ""),
+        ("  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);\n", "")],
+}
+CUDA_CORE_ANCHORS = {
+    "whole kernel": None,
+    "without forming R and its loads": (
+        "for (int i = tid; i < plane; i += kThreads) {\n      const float p_r",
+        "for (int i = tid; i < (ph < 0 ? plane : 0); i += kThreads) {\n      const float p_r"),
+    "without the column transform (its stage 2)": (
+        "for (int i0 = 0; i0 < nfi; i0 += kRB) {",
+        "for (int i0 = 0; i0 < (ph < 0 ? nfi : 0); i0 += kRB) {"),
+    "without the row transform (its stage 3)": (
+        "for (int f = 0; f < ph; ++f) {\n      const float2 u",
+        "for (int f = 0; f < (w < 0 ? ph : 0); ++f) {\n      const float2 u"),
+    "without the log epilogue": (
+        "acc[j] += logf(fmaxf(o[j] + bv, eps));", "acc[j] += o[j] + bv;"),
+}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--source", type=Path, default=None,
+                        help="a version of mrf_fft_tail.cu (default: the package's)")
+    parser.add_argument("--batch", type=int, default=8)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_mrf_tail_stages: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import time_ms
+    from jointpose_torch import _build
+    from jointpose_torch.ops.mrf_fft import dft_tables
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    path = args.source or _build.CSRC / "mrf_fft_tail.cu"
+    src = path.read_text()
+    anchors = TENSOR_CORE_ANCHORS if "mma.sync" in src else CUDA_CORE_ANCHORS
+    b, k, (h, w), window = args.batch, 9, (60, 90), (45, 67)
+    t = dft_tables((h, w), window, torch.device("cuda"))
+    ph, g = t["ir_re"].shape[1], t["ict_re"].shape[0]
+    gen = torch.Generator().manual_seed(0)
+    pf_re, pf_im = (torch.randn(b, k, ph, g, generator=gen).cuda() for _ in range(2))
+    kf_re, kf_im = (torch.randn(k, k, ph, g, generator=gen).cuda() for _ in range(2))
+    bias = torch.rand(k, k, generator=gen).cuda()
+    out = torch.empty(b, k, h, w, device="cuda")
+    operands = [pf_re, pf_im, kf_re, kf_im, t["ir"], t["ict_re"], t["ict_im"], bias, out]
+    if anchors is TENSOR_CORE_ANCHORS:  # its entry takes a scratch for partial log-sums
+        operands.append(torch.empty(2, *out.shape, device="cuda"))
+    pointers = [v.data_ptr() for v in operands]
+    print(f"{path}: {'tensor-core' if anchors is TENSOR_CORE_ANCHORS else 'CUDA-core'} kernel, "
+          f"B={b}, Kv=Ka={k}, H={h}, W={w}, Ph={ph}, G={g}")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for i, (name, cut) in enumerate(anchors.items()):
+            text = src
+            for old, new in ([] if cut is None else cut if isinstance(cut, list) else [cut]):
+                if src.count(old) != 1:
+                    raise SystemExit(f"anchor of '{name}' matches {src.count(old)} times")
+                text = text.replace(old, new)
+            cu = Path(tmp) / f"v{i}.cu"
+            cu.write_text(text)
+            procs[name] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        base = None
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise SystemExit(f"nvcc failed for '{name}':\n{log}")
+            fn = ctypes.CDLL(proc.args[proc.args.index("-o") + 1]).mrf_fft_tail
+            fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 7
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def run():
+                stream = torch.cuda.current_stream().cuda_stream
+                _build.check(fn(*pointers, b, k, k, ph, g, h, w, 1e-6, stream), name)
+
+            ms = time_ms(run, runs=30)  # median of 30 CUDA-graph replays of 10 calls
+            base = ms if base is None else base
+            print(f"{name}: {ms:.4f} ms ({base - ms:+.4f} ms saved), on {smi}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,7 +32,8 @@ import torch
 PRESETS = ("joint", "joint_fft", "flagship_pallas")
 # The port's own kernels (jointpose_torch/csrc/), listed whatever their rank.
 PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
-                "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel", "shear_pass_kernel",
+                "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel",
+                "mrf_fft_tail_combine_kernel", "shear_pass_kernel",
                 "tail_kernel", "tail_mma_kernel")
 
 

@@ -24,7 +24,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "jointpose"}
 
 
 def _port_sources() -> list[Path]:
-    scripts = [ROOT / "chip_smoke.py", ROOT / "profile_serve.py", ROOT / "profile_tail_stages.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "profile_serve.py", ROOT / "profile_tail_stages.py",
+               ROOT / "profile_mrf_tail_stages.py"]
     return sorted((ROOT / "jointpose_torch").rglob("*.py")) + scripts
 
 

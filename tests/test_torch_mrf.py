@@ -116,3 +116,21 @@ def test_spatial_model_helpers_match_reference():
     for kw in ({}, {"stride": 2}, {"window": (11, 15)}, {"impl": "pallas"}, {"impl": "xla"},
                {"window": (23, 23)}, {"window": (21, 25), "stride": 2}):
         assert tmrf.select_impl(MRFConfig(**kw)) == jmrf.select_impl(JaxMRFConfig(**kw)), kw
+
+
+@pytest.mark.parametrize("vec", [8, 4], ids=["bf16_vectors", "f32_vectors"])
+@pytest.mark.parametrize("kv,ka", [(9, 9), (3, 3), (2, 3)], ids=["kk81", "kk9", "kk6"])
+@pytest.mark.parametrize("rows", [8, 13, 43200])
+def test_epilogue_bwd_vector_lane_map_sums_to_plain_dbias(rows, kv, ka, vec):
+    """The backward kernel's column map (16-byte vectors over the flat
+    array, lane (t, i) of every group of ``vec`` rows holding column
+    (vec*t + i) mod Kv*Ka, ragged last group included) gives the plain
+    version's dbias; fp32 sums in another order, hence 1e-5."""
+    rs = np.random.RandomState(rows + 100 * kv + vec)
+    resp = torch.from_numpy((rs.rand(1, rows, 1, kv, ka) * 0.02 - 0.002).astype(np.float32))
+    biases = torch.from_numpy((rs.rand(kv, ka) * 1e-3).astype(np.float32))
+    g = torch.from_numpy(rs.randn(1, rows, 1, ka).astype(np.float32))
+    dresp, want = tme.mrf_epilogue_bwd_plain(resp, biases, g)
+    got = tme.dbias_by_vector_lanes(dresp.reshape(rows, kv * ka), vec)
+    assert got.shape == (kv * ka,)
+    assert _rel(got, want.reshape(-1)) <= 1e-5

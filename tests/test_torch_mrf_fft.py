@@ -105,3 +105,106 @@ def test_tables_built_while_serving_serve_training(fn):
     trained.sum().backward()
     assert torch.equal(trained.detach(), served)
     assert kernels.grad.abs().max() > 0
+
+
+# The kernel's arithmetic (rows first, 3xTF32) against fp32 products: the
+# risk of 3xTF32 is the log of small responses, so the bound is the
+# reference's measured on-chip MRF parity (BENCH_r05.json: 1.4e-5) rounded up.
+EMULATED_RTOL = 2e-5
+
+
+def _small_response_inputs(hw, win, batch=2, seed=5):
+    """Unaries concentrated on a few pixels: most responses lie below the
+    biases and many below eps."""
+    rs = np.random.RandomState(seed)
+    logits = 40.0 * rs.randn(batch, hw[0] * hw[1], K)
+    logits -= logits.max(axis=1, keepdims=True)
+    p = np.exp(logits) / np.exp(logits).sum(axis=1, keepdims=True)
+    p = p.reshape(batch, *hw, K).astype(np.float32)
+    kernels = np.log1p(np.exp(rs.randn(*win, K, K) - 6.0)).astype(np.float32)
+    kernels[rs.rand(*win, K, K) < 0.5] = 0.0
+    biases = np.log1p(np.exp(rs.randn(K, K) - 9.0)).astype(np.float32)
+    biases[rs.rand(K, K) < 0.5] = 1e-8  # with these the clamp at eps takes part
+    return p, kernels, biases
+
+
+EMULATED_CASES = {
+    "12x18_7x11": lambda: _inputs((12, 18), (7, 11), seed=1),
+    "10x14_11x15": lambda: _inputs((10, 14), (11, 15), seed=1),
+    "15x22_29x43": lambda: _inputs((15, 22), (29, 43), seed=2),
+    "8x12_15x23": lambda: _inputs((8, 12), (15, 23), seed=2),
+    "small_responses": lambda: _small_response_inputs((12, 18), (7, 11)),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED_CASES))
+def test_fused_tail_emulated_matches_plain_and_pallas_interpret(case):
+    p, kernels, biases = EMULATED_CASES[case]()
+    if case == "small_responses":
+        resp = tmf.fft_pairwise_conv(torch.from_numpy(p), torch.from_numpy(kernels))
+        below_bias = (resp < torch.from_numpy(biases)).float().mean().item()
+        below_eps = (resp + torch.from_numpy(biases) < 1e-6).float().mean().item()
+        assert below_bias > 0.4 and below_eps > 0.1
+    pf, kf, tables = tmf.forward_ffts(torch.from_numpy(p), torch.from_numpy(kernels))
+    b = torch.from_numpy(biases)
+    got = tmff.fused_tail_emulated(pf, kf, tables, b).permute(0, 2, 3, 1)
+    want = tmff.fused_tail_plain(pf, kf, tables, b).permute(0, 2, 3, 1)
+    want_jax = jmfp.mrf_message_pass_fft_fused(*map(jnp.asarray, (p, kernels, biases)))
+    assert got.shape == want.shape == want_jax.shape
+    assert _rel(got, want) <= EMULATED_RTOL
+    assert _rel(got, want_jax) <= EMULATED_RTOL
+
+
+def test_fused_tail_emulated_takes_kv_other_than_ka():
+    rs = np.random.RandomState(6)
+    kv, ka, hw, win = 5, 7, (9, 13), (6, 8)
+    logits = rs.randn(3, hw[0] * hw[1], kv)
+    p = (np.exp(logits) / np.exp(logits).sum(axis=1, keepdims=True)).reshape(3, *hw, kv)
+    kernels = np.log1p(np.exp(rs.randn(*win, kv, ka))).astype(np.float32)
+    biases = torch.from_numpy(np.log1p(np.exp(rs.randn(kv, ka) - 4.0)).astype(np.float32))
+    pf, kf, tables = tmf.forward_ffts(torch.from_numpy(p.astype(np.float32)),
+                                      torch.from_numpy(kernels))
+    got = tmff.fused_tail_emulated(pf, kf, tables, biases)
+    want = tmff.fused_tail_plain(pf, kf, tables, biases)
+    assert got.shape == want.shape == (3, ka, *hw)
+    assert _rel(got, want) <= EMULATED_RTOL
+
+
+def test_tf32_split_is_exact_and_rounds_to_nearest():
+    rs = np.random.RandomState(7)
+    x = np.concatenate([
+        rs.randn(4096) * 10.0 ** rs.randint(-30, 30, 4096),
+        [0.0, -0.0, 1.0, -1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -10,
+         1.0 + 3 * 2.0 ** -11, 2.0 - 2.0 ** -23, 1e-38, -3e-39],
+    ]).astype(np.float32)
+    hi, lo = tmff.tf32_split(torch.from_numpy(x))
+    hi, lo = hi.numpy(), lo.numpy()
+    assert np.array_equal(hi.astype(np.float64) + lo.astype(np.float64), x.astype(np.float64))
+    assert not (hi.view(np.int32) & 0x1FFF).any()  # a TF32 value: 10 explicit mantissa bits
+    ulp = np.abs(np.nextafter(np.abs(hi), np.inf) - np.abs(hi)) * 2.0 ** 13  # TF32 spacing at hi
+    assert (np.abs(lo) <= ulp / 2).all()
+    # Ties go away from zero, as cvt.rna does: 1 + 2^-11 lies halfway to 1 + 2^-10.
+    tie = tmff.tf32_split(torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)]))[0]
+    assert tie.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    # And the three-term product is then exact on operands whose lo parts vanish.
+    a = torch.from_numpy(hi[:64].reshape(8, 8).copy()).clamp(-1e3, 1e3)
+    a = tmff.tf32_split(a)[0]
+    assert torch.equal(tmff.matmul_3xtf32(a, torch.eye(8)), a)
+
+
+@pytest.mark.parametrize("hw,win", [((12, 18), (7, 11)), ((12, 18), (25, 13)), ((9, 10), (6, 8))])
+def test_stacked_inverse_tables_match_reference(hw, win):
+    """``ir_stack`` and ``ic_stack`` are the reference's inverse operators
+    laid out as real block matrices."""
+    want = jmf._dft_consts(hw, win, real_cols=True)
+    t = tmf.dft_tables(hw, win, torch.device("cpu"))
+    h, g = hw[0], want["ic_re"].shape[1]
+    ir, ic = t["ir_stack"].numpy(), t["ic_stack"].numpy()
+    assert ir.shape == (2 * h, 2 * want["ir_re"].shape[1]) and ic.shape == (2 * g, hw[1])
+    ph = want["ir_re"].shape[1]
+    np.testing.assert_array_equal(ir[:h, :ph], want["ir_re"])
+    np.testing.assert_array_equal(ir[:h, ph:], -want["ir_im"])
+    np.testing.assert_array_equal(ir[h:, :ph], want["ir_im"])
+    np.testing.assert_array_equal(ir[h:, ph:], want["ir_re"])
+    np.testing.assert_array_equal(ic[:g], want["ic_re"].T)
+    np.testing.assert_array_equal(ic[g:], -want["ic_im"].T)
