@@ -14,8 +14,11 @@ the package is missing.  Phases, each fatal on failure:
 1. print the card's name and power limit; build every kernel under
    ``jointpose_torch/csrc/`` (one ``nvcc`` per source, all at once);
 2. with TF32 off, hold each kernel against its plain PyTorch version on
-   the card at its main-path shape: the epilogue forward and backward
-   (the backward twice, bit-identical), the fused Fourier MRF tail (on
+   the card at its main-path shape: the epilogue forward (serving and
+   training batch, bf16 and f32; also against its first design, which
+   adds the logs one by one, and that design's tiled layout, which must
+   be bit-identical to it) and backward (twice, bit-identical), the
+   fused Fourier MRF tail (on
    dense unaries and on unaries concentrated on a few pixels), both
    shear-warp entries on a random full augmentation draw, and the three
    Fourier head-conv tails at the paper head (bf16 and f32, and against
@@ -31,10 +34,15 @@ the package is missing.  Phases, each fatal on failure:
 6. train ``flagship`` with ``mrf.impl='pallas'``: one warm-up and 4 timed
    joint-stage steps at batch 32, through the shear warp and the
    epilogue forward and backward;
-7. check the MRF paths and the Fourier head on the card against the CPU
-   at the ``tiny`` preset (fp32): the forward, and one training step's
-   gradients;
-8. time each kernel and its plain version at the main-path shape.
+7. ``fit`` the same config end to end through ``train.fit``: synthetic
+   source generated on the card, 6 detector + 6 joint steps at batch 32,
+   priors, evals of both stages, checkpoints; then serve the restored
+   checkpoint (bit-equal to the fitted model) and resume for 2 more steps;
+8. check the MRF paths and the Fourier head on the card against the CPU
+   at the ``tiny`` preset (fp32): the forward, one training step's
+   gradients, a whole ``fit`` of 4 + 4 steps, and the synthetic source;
+9. time each kernel and its plain version at the main-path shape, the
+   epilogue forward also against its first design and an empty launch.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -43,11 +51,15 @@ every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,6 +88,22 @@ WARP_ATOL = 2e-5
 TAIL_RTOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
 # fft_conv2d against the direct conv in f32 (the reference's head parity bound).
 CONV_RTOL = 1e-4
+# The epilogue forward sums one log of a product of mantissas per output
+# where its first design adds nine rounded logs: a rounding of the result
+# apart (measured 2.1e-7), max|kernel - first design| / max|first design|.
+EPILOGUE_PRODUCT_RTOL = 1e-6
+# The kernel may not be slower than its first design, timed in turns in one
+# process; 5% covers the spread between two timings of one kernel.
+EPILOGUE_SLOWER_LIMIT = 1.05
+# `fit` of `tiny` on the card against the CPU after 4 + 4 steps, per tensor
+# max|Δ| / max|CPU|: the MRF paths' parity tolerance, for parameters and for
+# the restored models' heatmaps.
+FIT_RTOL = 1e-3
+# The synthetic source on the card against the CPU, images in [0, 1]: the
+# draws are bit-equal, exp/log/sin/cos round differently.  The joints come
+# out one fp32 step apart (7.6e-6 px at coordinates up to 360), and a limb
+# mask changes by up to 0.1 per px, under up to three overlapping limbs.
+SYNTHETIC_ATOL = 5e-6
 BATCH = 8
 REQUESTS = 4
 TRAIN_STEPS = 4
@@ -317,6 +345,157 @@ def tiny_grads_cpu_vs_card(mrf_overrides: dict, head: str) -> tuple[float, str]:
     return errs[worst], worst
 
 
+def read_records(workdir: str) -> list[dict]:
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def timed_ms(fn) -> float:
+    """Wall time of one call of ``fn``, the device's work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fit_phase(config, counters: dict, smi: str) -> None:
+    """``train.fit`` at full width on the card, then what a user does with
+    its workdir: restore, serve, resume.  Fails on a wrong launch count, a
+    non-finite loss, a missing eval or checkpoint, a restored predictor
+    that differs from the fitted model, or a resume that does not take
+    exactly the steps that are left."""
+    from jointpose_torch.checkpoint import Checkpointer, reconcile_config
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.evaluate import evaluate
+    from jointpose_torch.predict import build_predictor, restore_params
+    from jointpose_torch.train import create_state, fit
+
+    det, joint, evals = 6, 6, 2
+    config = config.replace(train=dataclasses.replace(
+        config.train, detector_steps=det, joint_steps=joint, eval_every=6, log_every=3))
+    check(config.data.source == "synthetic" and config.data.image_hw == (240, 360)
+          and config.train.batch_size == 32, "the fit phase is not the full-width synthetic run")
+    tb = config.train.batch_size
+    with tempfile.TemporaryDirectory() as workdir:
+        reset(counters)
+        t0 = time.perf_counter()
+        result = fit(config, workdir, eval_max_batches=evals)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = {"shear_warp": 2 * (det + joint), "mrf_epilogue_bwd": joint,
+                "mrf_epilogue": joint + evals}
+        for name, n in want.items():
+            check(launches[name] == n, f"fit: {name} launched {launches[name]} times, not {n}")
+        check(result.state.step == det + joint, f"fit ended at step {result.state.step}")
+        check(all(p.device.type == "cuda" for p in result.state.model.parameters()),
+              "fit: the model is not on the card")
+        records = read_records(workdir)
+        logs = [r for r in records if "loss" in r]
+        check([(r["step"], r["stage"]) for r in logs]
+              == [(3, "detector"), (6, "detector"), (9, "joint"), (12, "joint")],
+              f"fit logged {[(r['step'], r['stage']) for r in logs]}")
+        check(all(np.isfinite(r[k]) for r in logs for k in r if k != "stage"),
+              f"fit: non-finite logged metrics {logs}")
+        check([(r["step"], r["eval_stage"]) for r in records if "eval_stage" in r]
+              == [(6, "detector"), (12, "joint")], "fit: metrics.jsonl lacks a stage's eval")
+        check(result.metrics["num_examples"] == evals * tb, "fit: the eval saw another split size")
+        ckpt_dir = os.path.join(workdir, config.train.checkpoint_dir)
+        check(sorted(os.listdir(os.path.join(ckpt_dir, "latest"))) == ["12", "6"],
+              "fit: latest/ does not hold steps 6 and 12")
+        check(os.listdir(os.path.join(ckpt_dir, "best")) == ["12"],
+              "fit: best/ does not hold the one full-model eval's step")
+        check(os.path.exists(os.path.join(ckpt_dir, "run_config.json")), "fit: no run_config.json")
+
+        # What was saved serves, bit for bit.
+        _, test_ds = make_dataset(config.data)
+        images = test_ds.get_batch(np.arange(8))["image"]
+        state_dict, step = restore_params(config, ckpt_dir, best=True)
+        served_cfg = reconcile_config(config, ckpt_dir)
+        got = build_predictor(served_cfg, state_dict)(images)
+        ref = build_predictor(served_cfg, result.state.model.state_dict())(images)
+        check(step == det + joint and torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              "fit: the restored predictor differs from the fitted model")
+        check(bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all()),
+              "fit: the restored predictor's output is not finite")
+
+        eval_ms = timed_ms(lambda: evaluate(result.state.model, test_ds, config, max_batches=4))
+        idx = np.arange(tb)
+        get_batch_ms = call_ms(lambda: test_ds.get_batch(idx), runs=10)
+        ckpt = Checkpointer(os.path.join(workdir, "timing"), keep=1)
+        save_ms = timed_ms(lambda: ckpt.save(1, result.state))
+        fresh = create_state(config, torch.Generator().manual_seed(1))
+        restore_ms = timed_ms(lambda: ckpt.restore(fresh))
+        check(all(torch.equal(p, q) for p, q in zip(fresh.model.parameters(),
+                                                    result.state.model.parameters())),
+              "a restored state's parameters differ from the saved ones")
+        kernels_before = result.state.model.spatial_model.raw_kernels.detach().clone()
+
+        # Resume: exactly the 2 steps that are left, the priors not applied again.
+        longer = config.replace(train=dataclasses.replace(config.train, joint_steps=joint + 2))
+        reset(counters)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            resumed = fit(longer, workdir, eval_max_batches=evals, resume=True)
+        print(out.getvalue(), end="")
+        check(f"resumed from step {det + joint}" in out.getvalue()
+              and "estimating pairwise priors" not in out.getvalue(),
+              "fit(resume=True) did not resume after the prior init")
+        check(resumed.state.step == det + joint + 2
+              and counters["mrf_epilogue_bwd"].launches == 2
+              and counters["shear_warp"].launches == 4,
+              f"fit(resume=True) did not take exactly 2 steps: step {resumed.state.step}, "
+              f"{counters['mrf_epilogue_bwd'].launches} backward launches")
+        moved = (resumed.state.model.spatial_model.raw_kernels - kernels_before).abs().max().item()
+        check(0 < moved < 0.1, f"the resumed steps moved the spatial kernels by {moved}")
+    rate = {stage: [r["images_per_sec"] for r in logs if r["stage"] == stage]
+            for stage in ("detector", "joint")}
+    print(f"fit flagship (bf16, mrf.impl='pallas', synthetic source on the card, batch {tb}): "
+          f"{det} + {joint} steps, 2 evals of {evals} batches and 2 checkpoints in {fit_s:.2f} s; "
+          f"images/s per log interval of 3 steps: detector {rate['detector']}, joint "
+          f"{rate['joint']} (each stage's first interval holds cuDNN's algorithm choice, the "
+          f"joint stage's also the prior estimation); launches {launches}; final eval "
+          f"PDJ@0.05 wrist/elbow {result.metrics['pdj_at_05_wrist_elbow']:.4f}; on {smi}")
+    print(f"fit flagship: eval of 4 batches {eval_ms:.1f} ms = {4 * tb / eval_ms * 1e3:.1f} "
+          f"images/s; synthetic get_batch at batch {tb} {get_batch_ms:.3f} ms; checkpoint save "
+          f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms; restored predictor bit-equal on 8 test "
+          f"images; resume took 2 steps and kept the kernels' prior init; on {smi}")
+
+
+def tiny_fit_cpu_vs_card() -> tuple[float, str, float, float]:
+    """``fit`` of ``tiny`` (coarse MRF through the epilogue kernels, stride
+    trunk, augmentation off: the two devices' generators draw differently)
+    for 4 + 4 steps on the CPU and on the card.  Returns the worst
+    parameter tensor's max|Δ| / max|CPU| and its name, the same for the two
+    fitted models' heatmaps on 8 test images, and the share of decoded
+    coordinates that agree to 1e-3 px."""
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.predict import build_predictor
+    from jointpose_torch.train import fit
+
+    cfg = tiny_config({"impl": "pallas", "stride": 2}, "direct")
+    cfg = cfg.replace(
+        detector=dataclasses.replace(cfg.detector, pool_mode="stride"),
+        augment=dataclasses.replace(cfg.augment, enabled=False),
+        train=dataclasses.replace(cfg.train, detector_steps=4, joint_steps=4, eval_every=4,
+                                  log_every=4),
+    )
+    fitted = {}
+    for device in ("cpu", "cuda"):
+        with tempfile.TemporaryDirectory() as workdir:
+            fitted[device] = fit(cfg, workdir, eval_max_batches=1, device=device)
+    cpu = dict(fitted["cpu"].state.model.named_parameters())
+    errs = {n: rel_err(p.detach().cpu(), cpu[n].detach())[0]
+            for n, p in fitted["cuda"].state.model.named_parameters()}
+    worst = max(errs, key=errs.get)
+    images = make_dataset(cfg.data, "cpu")[1].get_batch(np.arange(8))["image"]
+    outs = {d: build_predictor(cfg, r.state.model.state_dict(), device=d)(images)
+            for d, r in fitted.items()}
+    same = ((outs["cuda"][0].cpu() - outs["cpu"][0]).abs() <= 1e-3).float().mean().item()
+    return errs[worst], worst, rel_err(outs["cuda"][1].cpu(), outs["cpu"][1])[0], same
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save-joint", default=None,
@@ -331,7 +510,8 @@ def main() -> int:
     from jointpose_torch.data.augment import inverse_affine, random_augment_params
     from jointpose_torch.ops import fft_conv as fc
     from jointpose_torch.ops.mrf_epilogue import (
-        mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_plain,
+        mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_fwd_empty,
+        mrf_epilogue_fwd_pervalue, mrf_epilogue_fwd_tiled, mrf_epilogue_plain,
     )
     from jointpose_torch.ops.mrf_fft import fft_pairwise_conv, forward_ffts
     from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_plain
@@ -358,19 +538,36 @@ def main() -> int:
     eps = flag.mrf.eps
     ch, cw = flag.heatmap_hw[0] // flag.mrf.stride, flag.heatmap_hw[1] // flag.mrf.stride
     kern1, bias1 = mrf_params(gen, flag.mrf.window, k)
-    epi_err, resps = {}, {}
-    for dtype in (torch.bfloat16, torch.float32):
-        resp = resps[dtype] = pairwise_conv(unaries(gen, BATCH, ch, cw, k, dtype), kern1.to(dtype))
-        got = mrf_epilogue(resp, bias1, eps)
-        want = mrf_epilogue_plain(resp, bias1, eps)
-        torch.cuda.synchronize()
-        epi_err[dtype] = rel_err(got, want)
-        print(f"kernel mrf_epilogue {dtype} {tuple(resp.shape)}: rel err {epi_err[dtype][0]:.3e}, "
-              f"max abs err {epi_err[dtype][1]:.3e}")
-        check(epi_err[dtype][0] <= KERNEL_RTOL, f"mrf_epilogue {dtype} disagrees with its plain version")
-    resp1 = resps[torch.bfloat16]  # the flagship path's responses are bf16
-
     tb = flag.train.batch_size
+    epi_err, resps = {}, {}
+    for batch in (BATCH, tb):
+        for dtype in (torch.bfloat16, torch.float32):
+            resp = resps[batch, dtype] = pairwise_conv(
+                unaries(gen, batch, ch, cw, k, dtype), kern1.to(dtype))
+            got = mrf_epilogue(resp, bias1, eps)
+            want = mrf_epilogue_plain(resp, bias1, eps)
+            first = mrf_epilogue_fwd_pervalue(resp, bias1, eps)
+            tiled = mrf_epilogue_fwd_tiled(resp, bias1, eps)
+            torch.cuda.synchronize()
+            epi_err[batch, dtype] = rel_err(got, want)
+            from_first = rel_err(got, first)
+            print(f"kernel mrf_epilogue {dtype} {tuple(resp.shape)}: rel err "
+                  f"{epi_err[batch, dtype][0]:.3e} (limit {KERNEL_RTOL:g}), max abs err "
+                  f"{epi_err[batch, dtype][1]:.3e}; from its first design (the logs added one by "
+                  f"one) rel {from_first[0]:.3e} (limit {EPILOGUE_PRODUCT_RTOL:g}), max abs "
+                  f"{from_first[1]:.3e}; the first design's tiled layout is "
+                  f"{'bit-identical to it' if torch.equal(tiled, first) else 'DIFFERENT'}")
+            check(epi_err[batch, dtype][0] <= KERNEL_RTOL,
+                  f"mrf_epilogue {dtype} batch {batch} disagrees with its plain version")
+            check(from_first[0] <= EPILOGUE_PRODUCT_RTOL,
+                  f"mrf_epilogue {dtype} batch {batch} strays from its first design")
+            check(torch.equal(tiled, first), "the tiled epilogue forward is not bit-identical "
+                  "to the first design, whose summation order it keeps")
+            check(torch.equal(mrf_epilogue(resp, bias1, eps), got),
+                  "mrf_epilogue: a second run is not bit-identical")
+    resp1 = resps[BATCH, torch.bfloat16]  # the flagship path's responses are bf16
+    resp1_train = resps[tb, torch.bfloat16]
+
     bwd_err, bwd_in = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         resp = pairwise_conv(unaries(gen, tb, ch, cw, k, dtype), kern1.to(dtype))
@@ -587,6 +784,7 @@ def main() -> int:
     for name, n in want_launches.items():
         check(trained["launches"][name] == n,
               f"flagship training: {name} launched {trained['launches'][name]} times, not {n}")
+    fit_phase(flag_cfg, counters, smi)
     torch.backends.cudnn.allow_tf32 = False
 
     # --- the card against the CPU on a small input.
@@ -605,6 +803,21 @@ def main() -> int:
         check(err <= KERNEL_RTOL, f"tiny {name}: the card's gradient of {worst} disagrees with the CPU")
     check(fc.tail_kdft_resident.launches >= 2,
           "tiny Fourier head: the card's forward and training step did not launch the resident tail")
+    err, worst, prob_err, same = tiny_fit_cpu_vs_card()
+    print(f"tiny coarse + epilogue, fit of 4 + 4 steps (synthetic source, augmentation off): card "
+          f"vs CPU parameters, worst tensor {worst} rel err {err:.3e}; the fitted models' heatmaps "
+          f"on 8 test images rel err {prob_err:.3e} (limits {FIT_RTOL:g}); {same:.4f} of the "
+          f"decoded coordinates agree to 1e-3 px")
+    check(err <= FIT_RTOL, f"tiny fit: the card's {worst} disagrees with the CPU's")
+    check(prob_err <= FIT_RTOL and same >= 0.9, "tiny fit: the fitted models disagree")
+    from jointpose_torch.data.pipeline import make_dataset
+    synth = {d: make_dataset(flag.data, d)[0].get_batch(np.arange(4)) for d in ("cpu", "cuda")}
+    synth_err = {key: rel_err(synth["cuda"][key].cpu(), synth["cpu"][key])[1] for key in synth["cpu"]}
+    print(f"synthetic source, examples 0-3 at {flag.data.image_hw}: card vs CPU max abs "
+          f"difference {synth_err} (limit {SYNTHETIC_ATOL:g} on the images; joints in pixels, "
+          f"one fp32 step of 360 is 3e-5)")
+    check(synth_err["image"] <= SYNTHETIC_ATOL and synth_err["joints"] <= 1e-4
+          and synth_err["visible"] == 0, "the synthetic source on the card strays from the CPU's")
 
     # --- timings at the main-path shapes.
     out1 = mrf_epilogue(resp1, bias1)
@@ -631,15 +844,38 @@ def main() -> int:
     # maps and writes the images; per output value and pass: the position
     # (4), the two tap weights (4) and the two products and their sum (3).
     b4, by4 = bound(2 * nbytes(images) + nbytes(a_inv, b_inv), 2 * images.numel() * 11)
+    # Row 1 at both shapes, in turns with its first design and its tiled
+    # layout in this one process, and the floor: an empty launch of its grid.
+    epi_ms = {}
+    for batch, resp in ((BATCH, resp1), (tb, resp1_train)):
+        n_rows = resp.shape[0] * resp.shape[1] * resp.shape[2]
+        turns = [time_ms(lambda f=f, r=resp: f(r, bias1)) for f in
+                 (mrf_epilogue_fwd_pervalue, mrf_epilogue, mrf_epilogue_fwd_tiled,
+                  mrf_epilogue_fwd_tiled, mrf_epilogue, mrf_epilogue_fwd_pervalue)]
+        epi_ms[batch] = {
+            "kernel": min(turns[1], turns[4]), "first": min(turns[0], turns[5]),
+            "tiled": min(turns[2], turns[3]),
+            "empty": time_ms(lambda r=resp: mrf_epilogue_fwd_empty(r, bias1)),
+            "plain": time_ms(lambda r=resp: mrf_epilogue_plain(r, bias1)),
+            "bound": bound(nbytes(resp, bias1) + n_rows * k * 4, n_rows * k * k * 4)[0],
+        }
+        e = epi_ms[batch]
+        print(f"time mrf_epilogue forward at batch {batch} ({n_rows} rows x {k * k} bf16): kernel "
+              f"{turns[1]:.6f} / {turns[4]:.6f} ms, its first design {turns[0]:.6f} / "
+              f"{turns[5]:.6f} ms, the first design tiled {turns[2]:.6f} / {turns[3]:.6f} ms, an "
+              f"empty launch of the kernel's grid {e['empty']:.6f} ms, plain {e['plain']:.6f} ms, "
+              f"byte bound {e['bound']:.6f} ms ({e['bound'] / e['kernel']:.1%} of the kernel's "
+              f"time), on {smi}")
+        check(e["kernel"] <= EPILOGUE_SLOWER_LIMIT * e["first"],
+              f"mrf_epilogue at batch {batch} is slower than its first design")
     kernels = [
         {
             "name": "mrf_epilogue", "route": "cuda",
             "source": "jointpose_torch/csrc/mrf_epilogue.cu",
             "replaces": "jointpose/ops/mrf_pallas.py:39",
             "launches": trained["launches"]["mrf_epilogue"],
-            "max_abs_err": epi_err[torch.bfloat16][1],
-            "ms": time_ms(lambda: mrf_epilogue(resp1, bias1)),
-            "plain_ms": time_ms(lambda: mrf_epilogue_plain(resp1, bias1)),
+            "max_abs_err": epi_err[BATCH, torch.bfloat16][1],
+            "ms": epi_ms[BATCH]["kernel"], "plain_ms": epi_ms[BATCH]["plain"],
             "bound_ms": b1, "bound_by": by1, "library_ms": None,
         },
         {

@@ -1,7 +1,7 @@
 """jointpose_torch — the PyTorch/CUDA port of ``jointpose``.
 
-A second package beside the JAX reference, serving the same joint
-CNN+MRF pose model on an NVIDIA H100.  Plain tensor code is PyTorch;
+A second package beside the JAX reference, training, evaluating and
+serving the same joint CNN+MRF pose model on an NVIDIA H100.  Plain tensor code is PyTorch;
 each Pallas kernel of the reference on this package's path is a CUDA
 kernel written by hand under ``csrc/`` and built at first use
 (``_build.py``).  Public functions keep the reference's layouts: NHWC
@@ -11,7 +11,15 @@ images and (B, H, W, K) heatmaps.
 - ``jointpose_torch.ops``     — heatmap maths and the MRF message passes
                                 (direct, coarse, Fourier), with the two
                                 CUDA kernels' wrappers and plain versions.
-- ``jointpose_torch.predict`` — ``build_predictor`` and seeded weights.
+- ``jointpose_torch.data``    — the synthetic source (generated on the
+                                device), the FLIC loader, the batch
+                                pipeline, augmentation and targets.
+- ``jointpose_torch.train``   — the training step and ``fit`` (staged
+                                training, evals, checkpoints, resume).
+- ``jointpose_torch.priors``, ``evaluate``, ``metrics``, ``checkpoint``
+                              — what ``fit`` is made of.
+- ``jointpose_torch.predict`` — ``build_predictor``, ``restore_params``
+                                and seeded weights.
 - ``jointpose_torch.convert`` — flax params tree -> torch ``state_dict``.
 
 The package never imports ``jax`` or anything of ``jointpose``.

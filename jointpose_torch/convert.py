@@ -5,7 +5,8 @@ on the JAX side), with or without the top-level ``"params"`` key.  Conv
 kernels go from HWIO to OIHW and are renamed ``weight``; biases and the
 spatial model's ``raw_kernels`` (wh, ww, K, K) and ``raw_bias`` (K, K)
 pass through.  Module paths keep their names: ``detector/trunk/conv0``
-becomes ``detector.trunk.conv0``.
+becomes ``detector.trunk.conv0``.  ``write_initial_checkpoint`` turns such
+a ``state_dict`` into a checkpoint that ``train.fit`` resumes from.
 """
 
 from __future__ import annotations
@@ -36,3 +37,17 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def write_initial_checkpoint(config, checkpoint_dir: str, state_dict: dict[str, torch.Tensor]) -> None:
+    """Write a step-0 checkpoint of the port holding ``state_dict`` (e.g.
+    ``params_from_flax`` of the reference's initial parameters) with a
+    fresh optimizer, so that ``train.fit(config, workdir, resume=True)``
+    starts from those weights.  ``checkpoint_dir`` is
+    ``<workdir>/<config.train.checkpoint_dir>``."""
+    from jointpose_torch.checkpoint import Checkpointer
+    from jointpose_torch.train import create_state
+
+    state = create_state(config, torch.Generator().manual_seed(config.train.seed), device="cpu")
+    state.model.load_state_dict(state_dict)
+    Checkpointer(checkpoint_dir, keep=config.train.keep_checkpoints, config=config).save(0, state)

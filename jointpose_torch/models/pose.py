@@ -26,13 +26,17 @@ class PoseModel(nn.Module):
             if config.mrf is not None else None
         )
 
-    def forward(self, images: torch.Tensor, freeze_detector: bool = False) -> dict[str, torch.Tensor]:
+    def forward(
+        self, images: torch.Tensor, freeze_detector: bool = False, detector_only: bool = False
+    ) -> dict[str, torch.Tensor]:
         """``images`` (B, H, W, 3): float in [0, 1], or raw uint8 RGB,
         normalized here in the compute dtype.
 
         ``freeze_detector`` stops gradients at the detector logits, so the
         spatial model trains on fixed unaries and the detector's backward
-        never runs."""
+        never runs.  ``detector_only`` returns the detector logits alone,
+        without running the spatial model (evaluation before the spatial
+        model has its prior init)."""
         if images.dtype == torch.uint8:
             images = images.to(self.dtype) * torch.tensor(
                 1.0 / 255.0, dtype=self.dtype, device=images.device
@@ -41,7 +45,7 @@ class PoseModel(nn.Module):
         if freeze_detector:
             logits = logits.detach()
         out = {"detector_logits": logits}
-        if self.spatial_model is not None:
+        if self.spatial_model is not None and not detector_only:
             if self.config.mrf.normalize_input:
                 unaries = spatial_softmax(logits)
             else:

@@ -1,4 +1,15 @@
-"""Training step (counterpart of ``jointpose/train.py:54-186`` and ``:269-285``).
+"""Staged training (counterpart of ``jointpose/train.py``, one device).
+
+    python -m jointpose_torch.train --config flagship --workdir runs/flagship
+    python -m jointpose_torch.train --config tiny --workdir runs/tiny --device cpu
+
+``fit`` runs the whole staged training through the normal entry point:
+datasets, state, detector stage, pairwise priors from the training
+split, prior init of the spatial model at the first joint-stage step,
+joint stage, PDJ evaluation every ``eval_every`` steps (with the
+detector head alone until the joint stage begins), checkpoints
+(``latest`` keep-N, ``best`` by PDJ) and resume.  The pieces can be
+driven alone:
 
     config = get_config("flagship")
     state = create_state(config, torch.Generator().manual_seed(0))   # on the GPU
@@ -9,7 +20,7 @@ One step: draw the augmentation, warp the batch and transform its
 joints, render the Gaussian targets, take the detector loss (plus the
 MRF loss in the joint stage) and its gradients, and apply the optimizer
 update; under ``freeze_detector_in_joint`` the detector's parameters are
-restored exactly afterwards.  The trainer takes caller-supplied batches.
+restored exactly afterwards.
 
 The update matches the reference's optax chain, which keeps one step
 count for all parameters and updates every parameter every step (a zero
@@ -17,17 +28,27 @@ gradient still decays the weights and the moments).  ``torch.optim``
 skips a parameter whose ``.grad`` is None and counts steps per
 parameter, so the step gives every parameter a gradient, zeros where
 the loss does not reach it.
+
+Not carried over from the reference's ``fit`` (ROADMAP.md names each):
+the mesh and multi-process branches, the K-step scan
+(``steps_per_dispatch`` is read and ignored: one step per call), the
+per-stage roofline log, heartbeat, preemption and fault injection,
+figures and the profiler hook.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import functools
 import math
-from typing import Callable
+import time
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from jointpose_torch.configs import Config
+from jointpose_torch.configs import Config, get_config
 from jointpose_torch.data.augment import AugmentParams, augment_batch, random_augment_params
 from jointpose_torch.data.targets import image_to_heatmap_coords, render_gaussian_heatmaps
 from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
@@ -170,7 +191,8 @@ def make_train_step(config: Config, stage: str) -> Callable:
         targets = _render_targets(config, joints, visible)
 
         opt.zero_grad(set_to_none=True)
-        out = model(images, freeze_detector=freeze_detector)
+        # The detector stage's loss does not read the spatial model's output.
+        out = model(images, freeze_detector=freeze_detector, detector_only=not use_mrf)
         det = heatmap_loss(t.detector_loss, out["detector_logits"], targets, visible)
         metrics = {"detector_loss": det}
         if use_mrf:
@@ -215,3 +237,220 @@ def init_mrf_from_priors(state: TrainState, priors) -> TrainState:
     with torch.no_grad():
         target.copy_(raw.to(target.device, target.dtype))
     return state
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: TrainState
+    metrics: dict
+    workdir: str
+
+
+def fit(
+    config: Config,
+    workdir: str,
+    eval_max_batches: int | None = None,
+    resume: bool = False,
+    profile_steps: int = 0,
+    device: str | torch.device | None = None,
+) -> FitResult:
+    """Run the full staged training on ``device`` (CUDA unless the caller
+    asks for the CPU); returns the final state and eval metrics."""
+    from jointpose_torch.checkpoint import Checkpointer
+    from jointpose_torch.data.pipeline import device_cache, epoch_order, epoch_steps, make_dataset
+    from jointpose_torch.evaluate import evaluate, make_eval_step
+    from jointpose_torch.metrics import MetricLogger
+    from jointpose_torch.priors import estimate_priors
+
+    if profile_steps > 0:
+        raise NotImplementedError(
+            "fit(profile_steps>0): metrics.ProfilerHook is not ported yet; see ROADMAP.md"
+        )
+    device = resolve_device(device)
+    t = config.train
+    logger = MetricLogger(workdir)
+    # Records the architecture mode; fails fast on a resume whose
+    # pool_mode contradicts the saved run's.
+    ckpt = Checkpointer(f"{workdir}/{t.checkpoint_dir}", keep=t.keep_checkpoints, config=config)
+    train_ds, test_ds = make_dataset(config.data, device)
+    if config.data.device_cache_gb > 0:
+        budget = config.data.device_cache_gb * 1e9
+        train_ds = device_cache(train_ds, budget, device)
+        test_ds = device_cache(test_ds, budget, device)
+    state = create_state(config, torch.Generator().manual_seed(t.seed), device=device)
+    model = state.model
+
+    start_step = 0
+    mrf_initialized = False
+    if resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        start_step = state.step
+        # Strictly greater: a checkpoint taken at the stage boundary was
+        # written before the prior init (which runs at the first joint
+        # step), so resuming there must still apply it.
+        mrf_initialized = start_step > t.detector_steps
+        print(f"resumed from step {start_step}")
+
+    det_steps = t.detector_steps
+    joint_steps = t.joint_steps if config.mrf is not None else 0
+    total_steps = det_steps + joint_steps
+    step_fns = {stage: make_train_step(config, stage) for stage in ("detector", "joint")}
+
+    # Deterministic dataset position: the batch of step s is a function of
+    # (seed, s), so a resume continues the exact shuffled order with no
+    # iterator state to save.
+    steps_per_epoch = epoch_steps(train_ds, t.batch_size)
+    epoch_cache: dict[int, np.ndarray] = {}
+
+    def indices_for_step(s: int) -> np.ndarray:
+        epoch, pos = divmod(s, steps_per_epoch)
+        order = epoch_cache.get(epoch)
+        if order is None:
+            order = epoch_order(train_ds.size, t.batch_size, np.random.default_rng(t.seed + epoch))
+            epoch_cache.clear()  # only the current epoch is ever needed
+            epoch_cache[epoch] = order
+        lo = pos * t.batch_size
+        return order[lo : lo + t.batch_size]
+
+    # Before the MRF has its prior init its uniform kernels box-blur the
+    # unaries into a near-uniform field: evaluating through it says nothing
+    # about the detector.  The detector head is scored until the joint
+    # stage begins.
+    eval_steps = {
+        "detector": make_eval_step(config, functools.partial(model, detector_only=True)),
+        "joint": make_eval_step(config, model),
+    }
+
+    def run_eval(step: int) -> dict:
+        stage_now = "detector" if step <= det_steps else "joint"
+        ev = evaluate(model, test_ds, config, max_batches=eval_max_batches,
+                      eval_step=eval_steps[stage_now])
+        # Which graph produced the score: a detector-stage PDJ says nothing
+        # about the full CNN+MRF model.
+        ev["eval_stage"] = stage_now
+        logger.log(
+            step, eval_stage=stage_now, pdj_at_05_wrist_elbow=ev["pdj_at_05_wrist_elbow"],
+            **{f"pdj05/{k}": v for k, v in ev["pdj_at_05"].items()},
+        )
+        return ev
+
+    def now() -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.time()
+
+    step = start_step
+    t_last, n_last = now(), step
+    final_eval: dict = {}
+    while step < total_steps:
+        stage = "detector" if step < det_steps else "joint"
+        if stage == "joint" and config.mrf is not None and not mrf_initialized:
+            print("estimating pairwise priors for MRF init ...")
+            priors = estimate_priors(train_ds, config, max_examples=2048)
+            state = init_mrf_from_priors(state, priors)
+            mrf_initialized = True
+        state, metrics = step_fns[stage](state, train_ds.get_batch(indices_for_step(step)))
+        step += 1
+
+        if step % t.log_every == 0 or step == total_steps:
+            t_now = now()
+            ips = (step - n_last) * t.batch_size / max(t_now - t_last, 1e-9)
+            logger.log(step, stage=stage, images_per_sec=ips,
+                       **{k: float(v) for k, v in metrics.items()})
+            t_last, n_last = t_now, step
+        if step % t.eval_every == 0 or step == total_steps:
+            final_eval = run_eval(step)
+            # Only full-model scores may rank the kept-best checkpoint: a
+            # detector-stage PDJ attached to a checkpoint that holds an
+            # uninitialized MRF would let serving pick near-uniform MRF
+            # output under a high recorded score.  Without an MRF the
+            # detector head is the full model, so every eval qualifies.
+            is_full_model = config.mrf is None or final_eval["eval_stage"] == "joint"
+            ckpt.save(step, state, metrics=final_eval if is_full_model else None)
+            t_last = now()  # evals and saves stay out of the logged rate
+
+    logger.close()
+    ckpt.close()
+    return FitResult(state=state, metrics=final_eval, workdir=workdir)
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(description="jointpose_torch staged training")
+    parser.add_argument("--config", default="joint", help="preset name")
+    parser.add_argument("--workdir", required=True)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--detector-steps", type=int, default=None)
+    parser.add_argument("--joint-steps", type=int, default=None)
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--learning-rate", type=float, default=None)
+    parser.add_argument("--lr-schedule", choices=["constant", "cosine"], default=None)
+    parser.add_argument("--steps-per-dispatch", type=int, default=None,
+                        help="accepted for the reference's command lines; one step per call here")
+    parser.add_argument("--mrf-lr-mult", type=float, default=None,
+                        help="LR multiplier for the spatial model's parameters")
+    parser.add_argument("--mrf-loss", choices=["mse", "ce"], default=None,
+                        help="loss on the MRF output heatmaps (per-pixel MSE, or the spatial "
+                             "softmax cross-entropy)")
+    parser.add_argument("--pool-mode", choices=["max", "stride"], default=None,
+                        help="trunk downsampling: maxpool or stride-2 conv (same param shapes)")
+    parser.add_argument("--warp-impl", choices=["gather", "shear"], default=None,
+                        help="augmentation image resample: bilinear gather, or the two-pass "
+                             "shear resample (the CUDA kernel; another augmentation stream)")
+    parser.add_argument("--source", choices=["synthetic", "flic"], default=None)
+    parser.add_argument("--flic-dir", default=None,
+                        help="FLIC root (examples.mat + images/); defaults to the config's")
+    parser.add_argument("--device-cache-gb", type=float, default=None,
+                        help="device-memory budget for caching host splits (0 = stream)")
+    parser.add_argument("--eval-max-batches", type=int, default=None)
+    parser.add_argument("--eval-every", type=int, default=None,
+                        help="eval + checkpoint cadence in steps")
+    parser.add_argument("--log-every", type=int, default=None)
+    parser.add_argument("--figures", action="store_true", help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--profile-steps", type=int, default=0,
+                        help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--check-numerics", action="store_true",
+                        help="torch.autograd.set_detect_anomaly: fail at the op that made a NaN")
+    parser.add_argument("--mesh-data", type=int, default=None, help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--mesh-model", type=int, default=None, help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--mesh-spatial", action="store_true", help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--device", default=None,
+                        help="'cpu' runs the kernels' plain versions; default: the CUDA device")
+    args = parser.parse_args(argv)
+    unported = [flag for flag, on in (
+        ("--figures", args.figures), ("--mesh-data", args.mesh_data not in (None, 1)),
+        ("--mesh-model", args.mesh_model not in (None, 1)), ("--mesh-spatial", args.mesh_spatial),
+    ) if on]
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)}: not ported yet; see ROADMAP.md")
+    if args.check_numerics:
+        torch.autograd.set_detect_anomaly(True)
+
+    config = get_config(args.config)
+    tr: dict[str, Any] = {
+        name: getattr(args, name) for name in (
+            "detector_steps", "joint_steps", "batch_size", "learning_rate", "lr_schedule",
+            "mrf_lr_mult", "steps_per_dispatch", "mrf_loss", "eval_every", "log_every",
+        ) if getattr(args, name) is not None
+    }
+    if tr:
+        config = config.replace(train=dataclasses.replace(config.train, **tr))
+    if args.pool_mode is not None:
+        from jointpose_torch.configs import with_pool_mode
+
+        config = with_pool_mode(config, args.pool_mode)
+    if args.warp_impl is not None:
+        config = config.replace(
+            augment=dataclasses.replace(config.augment, warp_impl=args.warp_impl)
+        )
+    dd = {name: getattr(args, name) for name in ("source", "flic_dir", "device_cache_gb")
+          if getattr(args, name) is not None}
+    if dd:
+        config = config.replace(data=dataclasses.replace(config.data, **dd))
+
+    result = fit(config, args.workdir, eval_max_batches=args.eval_max_batches,
+                 resume=args.resume, profile_steps=args.profile_steps, device=args.device)
+    print("final:", {k: v for k, v in result.metrics.items() if k != "pdj_curves"})
+
+
+if __name__ == "__main__":
+    main()

@@ -24,8 +24,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "jointpose"}
 
 
 def _port_sources() -> list[Path]:
-    scripts = [ROOT / "chip_smoke.py", ROOT / "profile_serve.py", ROOT / "profile_tail_stages.py",
-               ROOT / "profile_mrf_tail_stages.py"]
+    scripts = [ROOT / "chip_smoke.py", *sorted(ROOT.glob("profile_*.py"))]
     return sorted((ROOT / "jointpose_torch").rglob("*.py")) + scripts
 
 
@@ -64,6 +63,38 @@ def test_skeleton_equals_reference():
     for attr in ("JOINTS", "NUM_JOINTS", "JOINT_INDEX", "FLIP_PERM", "LIMBS", "TORSO_PAIR",
                  "HEADLINE_JOINTS"):
         assert getattr(skeleton, attr) == getattr(jax_skeleton, attr), attr
+
+
+def test_flic_columns_equal_reference():
+    from jointpose.data import flic as jax_flic
+    from jointpose_torch.data import flic
+
+    assert flic._FLIC_COLUMNS == jax_flic._FLIC_COLUMNS
+
+
+def test_fit_modules_are_among_the_guarded_sources():
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"jointpose_torch/train.py", "jointpose_torch/evaluate.py", "jointpose_torch/priors.py",
+            "jointpose_torch/checkpoint.py", "jointpose_torch/metrics.py",
+            "jointpose_torch/data/flic.py", "jointpose_torch/data/synthetic.py",
+            "jointpose_torch/data/pipeline.py", "profile_epilogue_fwd.py"} <= names
+
+
+def test_synthetic_source_and_evaluation_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    from jointpose_torch import evaluate
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.train import fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_config("tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_dataset(cfg.data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit(cfg, str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--config", "tiny", "--checkpoint", str(tmp_path)])
+    train, _ = make_dataset(cfg.data, "cpu")
+    assert train.get_batch([0])["image"].device.type == "cpu"
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

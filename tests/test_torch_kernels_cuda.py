@@ -70,6 +70,68 @@ def test_epilogue_kernel_matches_plain(cuda, dtype, hw, win):
     assert _rel(got, tme.mrf_epilogue_plain(resp, biases)) <= KERNEL_RTOL
 
 
+# (B, H, W, Kv, Ka) with B*H*W no multiple of 8 or 4, Kv*Ka other than 81,
+# Kv above one chunk of the product (16), and a single row.
+EPILOGUE_FWD_SHAPES = [(1, 7, 11, 9, 9), (3, 5, 7, 9, 9), (2, 13, 3, 4, 5), (1, 1, 1, 9, 9),
+                       (2, 9, 10, 14, 14), (1, 3, 3, 40, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", EPILOGUE_FWD_SHAPES)
+def test_epilogue_fwd_kernel_on_ragged_rows(cuda, dtype, shape):
+    g = torch.Generator().manual_seed(sum(shape))
+    resp = (torch.rand(shape, generator=g) * 0.02).to(cuda, dtype)
+    biases = (torch.rand(shape[-2:], generator=g) * 1e-3).to(cuda)
+    resp.view(-1)[::7] = -1.0  # clamped at eps
+    got = tme.mrf_epilogue_fwd(resp, biases)
+    assert got.shape == shape[:3] + shape[-1:] and got.dtype == torch.float32
+    assert _rel(got, tme.mrf_epilogue_plain(resp, biases)) <= KERNEL_RTOL
+    # One log of a product per chunk against the logs added one by one: a
+    # rounding apart (1e-6 of the result), and the same on a second run.
+    first = tme.mrf_epilogue_fwd_pervalue(resp, biases)
+    assert _rel(got, first) <= 1e-6
+    assert torch.equal(tme.mrf_epilogue_fwd_tiled(resp, biases), first)
+    assert torch.equal(tme.mrf_epilogue_fwd(resp, biases), got)
+
+
+def test_epilogue_fwd_kernel_passes_on_non_finite_responses(cuda):
+    resp = torch.rand(1, 4, 8, K, K, device=cuda) * 0.02
+    resp[0, 0, 0, 0, 0], resp[0, 0, 1, 2, 3], resp[0, 2, 2, 4, 4] = float("inf"), float("nan"), 3e38
+    biases = torch.zeros(K, K, device=cuda)
+    got, first = tme.mrf_epilogue_fwd(resp, biases), tme.mrf_epilogue_fwd_pervalue(resp, biases)
+    assert torch.isinf(got[0, 0, 0, 0]) and torch.equal(torch.isfinite(got), torch.isfinite(first))
+    finite = torch.isfinite(first)
+    assert _rel(got[finite], first[finite]) <= 1e-6
+
+
+def test_fit_tiny_on_the_card(cuda, tmp_path):
+    import dataclasses
+
+    from jointpose_torch import get_config
+    from jointpose_torch.predict import build_predictor, restore_params
+    from jointpose_torch.train import fit
+
+    cfg = get_config("tiny")
+    cfg = cfg.replace(
+        mrf=dataclasses.replace(cfg.mrf, impl="pallas", stride=2),
+        augment=dataclasses.replace(cfg.augment, warp_impl="shear"),
+        train=dataclasses.replace(cfg.train, detector_steps=3, joint_steps=3, eval_every=3,
+                                  log_every=3),
+    )
+    counters = (tw.shear_warp, tme.mrf_epilogue, tme.mrf_epilogue_bwd)
+    before = [fn.launches for fn in counters]
+    result = fit(cfg, str(tmp_path), eval_max_batches=1)
+    # 2 warps a step; the epilogue in 3 joint steps and the joint-stage eval; its backward in 3.
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 4, 3]
+    assert result.state.step == 6 and result.metrics["eval_stage"] == "joint"
+    assert all(p.device.type == "cuda" for p in result.state.model.parameters())
+    state_dict, step = restore_params(cfg, str(tmp_path / "checkpoints"))
+    images = torch.randint(0, 256, (2, 48, 64, 3), dtype=torch.uint8)
+    want = build_predictor(cfg, result.state.model.state_dict())(images)
+    got = build_predictor(cfg, state_dict)(images)
+    assert step == 6 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # max|kernel - plain| / max|plain| of the fused Fourier tail: its 3xTF32
 # products must stay near fp32 where the log amplifies small responses
 # (the reference's on-chip MRF parity is 1.4e-5, BENCH_r05.json).

@@ -108,10 +108,29 @@ def test_state_dict_matches_reference_layout():
         )
 
 
+@pytest.mark.parametrize("path", ["fft_fused", "coarse_epilogue"])
+def test_flip_tta_predictor_matches_reference(path):
+    from jointpose.predict import build_predictor as jax_build_predictor
+
+    jcfg, tcfg = (c.replace(eval_flip_tta=True) for c in _configs(path, True))
+    rs = np.random.RandomState(3)
+    images = rs.randint(0, 256, size=(2, *jcfg.data.image_hw, 3)).astype(np.uint8)
+    variables = JaxPoseModel(jcfg).init(jax.random.PRNGKey(1), jnp.asarray(images))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    sm = variables["params"]["spatial_model"]
+    sm["raw_kernels"] = sm["raw_kernels"] + 0.5 * rs.randn(*sm["raw_kernels"].shape).astype(np.float32)
+    coords_j, probs_j = jax_build_predictor(jcfg, variables)(jnp.asarray(images))
+    state = params_from_flax(variables)
+    coords_t, probs_t = build_predictor(tcfg, state, device="cpu")(torch.from_numpy(images))
+    assert _rel(probs_t, probs_j) <= MRF_RTOL
+    np.testing.assert_allclose(coords_t.numpy(), np.asarray(coords_j), rtol=0, atol=COORD_ATOL)
+    # The average is not the plain forward's heatmap.
+    plain = build_predictor(tcfg.replace(eval_flip_tta=False), state, device="cpu")(
+        torch.from_numpy(images))[1]
+    assert _rel(plain, probs_j) > MRF_RTOL
+
+
 def test_unported_options_raise():
     cfg = get_config("tiny")
-    state = init_state_dict(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="flip"):
-        build_predictor(cfg.replace(eval_flip_tta=True), state, device="cpu")
     with pytest.raises(NotImplementedError, match="precision"):
         PoseModel(cfg.replace(mrf=dataclasses.replace(cfg.mrf, precision="default")))
