@@ -18,11 +18,13 @@ the package is missing.  Phases, each fatal on failure:
    training batch, bf16 and f32; also against its first design, which
    adds the logs one by one, and that design's tiled layout, which must
    be bit-identical to it) and backward (twice, bit-identical), the
-   fused Fourier MRF tail (on
+   fused Fourier MRF tail in both forms, 3xTF32 and one TF32 pass (on
    dense unaries and on unaries concentrated on a few pixels), both
    shear-warp entries on a random full augmentation draw, and the three
    Fourier head-conv tails at the paper head (bf16 and f32, and against
    each other); then ``fft_conv2d`` against cuDNN's direct conv in f32;
+   and the Fourier MRF pass at 'high' with TF32 switched on globally
+   against the same with it off (bit-equal: precision is the call's);
 3. serve the paper ``joint`` preset at full width (bf16, direct head
    conv, seeded random weights): 4 requests of 8 uint8 240×360 images,
    through the fused Fourier MRF tail kernel;
@@ -38,11 +40,21 @@ the package is missing.  Phases, each fatal on failure:
    source generated on the card, 6 detector + 6 joint steps at batch 32,
    priors, evals of both stages, checkpoints; then serve the restored
    checkpoint (bit-equal to the fitted model) and resume for 2 more steps;
-8. check the MRF paths and the Fourier head on the card against the CPU
+8. serve through ``jointpose_torch.serve`` at the serving default, MRF
+   precision 'default': a full-width ``joint`` checkpoint written from
+   seeded weights behind ``PoseService(batch_size=16, batch_buckets=[1,
+   8])`` and its HTTP handler, 64 npy requests of 1-8 uint8 images from 8
+   client threads and one JSON request, through the single-pass tail;
+   one batch at 'high' against 'default'; ``flagship`` at 'default'
+   (bit-equal to 'high': its direct conv ignores the flag); then ``python
+   -m jointpose_torch.serve`` as a process: /healthz, /predict, SIGTERM;
+9. check the MRF paths and the Fourier head on the card against the CPU
    at the ``tiny`` preset (fp32): the forward, one training step's
-   gradients, a whole ``fit`` of 4 + 4 steps, and the synthetic source;
-9. time each kernel and its plain version at the main-path shape, the
-   epilogue forward also against its first design and an empty launch.
+   gradients (the fused Fourier path also at precision 'default'), a
+   whole ``fit`` of 4 + 4 steps, and the synthetic source;
+10. time each kernel and its plain version at the main-path shape, the
+   epilogue forward also against its first design and an empty launch,
+   the two forms of the Fourier MRF tail in turns.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -57,10 +69,16 @@ import io
 import json
 import math
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -77,6 +95,14 @@ KERNEL_RTOL = 1e-3
 # fp32 where the log amplifies small responses (the reference's on-chip MRF
 # parity is 1.4e-5, BENCH_r05.json).
 MRF_TAIL_RTOL = 2e-5
+# Its single-pass form (MRF precision 'default') against fp32: the
+# reference's bar for single-pass precision, 0.4% max relative output
+# error (jointpose/evaluate.py --mrf-precision).  Against its own
+# arithmetic in plain PyTorch (fused_tail_emulated(passes=1)) it differs by
+# summation order only, which can move a TF32 rounding of T by one step:
+# KERNEL_RTOL (2.2e-4 measured on the CPU between two summation orders of
+# the emulation, on small responses).
+SINGLE_PASS_RTOL = 4e-3
 # max|kernel - plain| on pixels in [0, 1]: the reference's tolerance for
 # its shear-warp kernel against its oracle (tests/test_warp_pallas.py).
 WARP_ATOL = 2e-5
@@ -193,6 +219,22 @@ def mrf_params(gen: torch.Generator, window, k: int):
     kernels = torch.nn.functional.softplus(raw)
     biases = torch.nn.functional.softplus(inverse_softplus(1e-4) + torch.randn(k, k, generator=gen))
     return kernels.cuda(), biases.cuda()
+
+
+class Count:
+    """A launch counter kept on another attribute of a wrapper, read and
+    reset as ``launches`` like the others."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
 
 
 def reset(counters: dict) -> None:
@@ -496,6 +538,198 @@ def tiny_fit_cpu_vs_card() -> tuple[float, str, float, float]:
     return errs[worst], worst, rel_err(outs["cuda"][1].cpu(), outs["cpu"][1])[0], same
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(port: int, path: str, body: bytes | None = None, ctype: str = "application/json"):
+    """(status, JSON reply) of one request to the server on ``port``."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": ctype},
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _npy(images: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, images)
+    return buf.getvalue()
+
+
+def _pred_coords(preds: list[dict]) -> np.ndarray:
+    return np.array([[p["joints"][name] for name in p["joints"]] for p in preds], np.float32)
+
+
+def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:
+    """``jointpose_torch.serve`` at the serving default, MRF precision
+    'default', on full-width checkpoints written from seeded weights.
+    Returns the HTTP run's launch counts and batcher metrics."""
+    from jointpose_torch.checkpoint import reconcile_config
+    from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.convert import write_initial_checkpoint
+    from jointpose_torch.models.pose import PoseModel
+    from jointpose_torch.ops.heatmaps import decode_probs, model_probs
+    from jointpose_torch.predict import build_predictor, init_state_dict
+    from jointpose_torch.serve import PoseService, make_handler
+
+    h, w = joint.data.image_hw
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        joint_dir = os.path.join(tmp, "joint")
+        state = init_state_dict(joint, torch.Generator().manual_seed(6))
+        write_initial_checkpoint(joint, joint_dir, state)
+        cfg = with_mrf_precision(reconcile_config(joint, joint_dir), "default")
+        check(cfg.mrf.precision == "default" and cfg.mrf.use_pallas, "serve: not the fused tail")
+        t0 = time.perf_counter()
+        service = PoseService(cfg, joint_dir, batch_size=16, step=0, batch_buckets=[1, 8])
+        start_s = time.perf_counter() - t0
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+        port = server.server_address[1]
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        sizes = [int(n) for n in rng.integers(1, 9, 64)]
+        bodies = [_npy(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)) for n in sizes]
+        replies: list = [None] * len(sizes)
+
+        def client(first: int) -> None:
+            for i in range(first, len(sizes), 8):
+                replies[i] = _http(port, "/predict", bodies[i], "application/x-npy")
+
+        try:
+            reset(counters)
+            base = dict(service.stats)
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+            for t in clients:
+                t.start()
+            for t in clients:
+                t.join(timeout=600)
+            wall_s = time.perf_counter() - t0
+            check(not any(t.is_alive() for t in clients), "serve: a client thread hangs")
+            json_image = rng.random((1, h, w, 3), dtype=np.float32)
+            json_reply = _http(port, "/predict", json.dumps({"images": json_image.tolist()}).encode())
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            health = _http(port, "/healthz")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+        dispatches = service.stats["dispatches"] - base["dispatches"]
+        for (status, body), n in zip(replies, sizes):
+            check(status == 200 and len(body["predictions"]) == n, f"serve: a reply {status}")
+            xy = _pred_coords(body["predictions"])
+            check(bool(np.isfinite(xy).all() and (xy[..., 0] >= 0).all() and (xy[..., 0] <= w - 1).all()
+                       and (xy[..., 1] >= 0).all() and (xy[..., 1] <= h - 1).all()),
+                  "serve: coordinates outside the frame")
+        check(json_reply[0] == 200 and len(json_reply[1]["predictions"]) == 1, "serve: the JSON request")
+        check(health[0] == 200 and health[1]["step"] == 0, "serve: /healthz")
+        m = health[1]["batcher"]
+        check(launches["mrf_fft_tail_1pass"] == dispatches and launches["mrf_fft_tail"] == 0,
+              f"serve 'default': the single-pass tail launched {launches['mrf_fft_tail_1pass']} "
+              f"times and the 3xTF32 tail {launches['mrf_fft_tail']} times in {dispatches} dispatches")
+        check(m["shed_requests"] == 0, "serve: requests were shed")
+        print(f"serve joint through jointpose_torch.serve (bf16, MRF precision 'default', "
+              f"PoseService(batch_size=16, batch_buckets=[1, 8]), ThreadingHTTPServer, started in "
+              f"{start_s:.1f} s): {len(sizes)} npy requests of 1-8 uint8 240x360 images "
+              f"({sum(sizes)} images) from 8 client threads plus one JSON request in {wall_s:.2f} s; "
+              f"request latency p50 {m['request_latency_ms']['p50']} ms, p95 "
+              f"{m['request_latency_ms']['p95']} ms, max {m['request_latency_ms']['max']} ms; "
+              f"mean batch fill {m['mean_batch_fill']}; {dispatches} dispatches, "
+              f"{m['coalesced_batches']} coalesced batches, {m['shed_requests']} shed; launches "
+              f"{launches}; on {smi}")
+
+        # One batch at 'high' against 'default', same weights and images.
+        images = torch.from_numpy(rng.integers(0, 256, (8, h, w, 3), dtype=np.uint8)).cuda()
+        outs = {}
+        for prec in ("high", "default"):
+            model = PoseModel(with_mrf_precision(cfg, prec))
+            model.load_state_dict(state)
+            model = model.cuda().eval()
+            reset(counters)
+            with torch.inference_mode():
+                out = model(images)
+                coords = decode_probs(model_probs(out), cfg.data.heatmap_stride,
+                                      refine=cfg.decode_refine)
+            torch.cuda.synchronize()
+            outs[prec] = (out["mrf_log_heatmaps"].float(), coords.float())
+            want = {"high": ("mrf_fft_tail", "mrf_fft_tail_1pass"),
+                    "default": ("mrf_fft_tail_1pass", "mrf_fft_tail")}[prec]
+            check(counters[want[0]].launches == 1 and counters[want[1]].launches == 0,
+                  f"joint at {prec!r} did not go through its form of the tail")
+        lh_err = rel_err(outs["default"][0], outs["high"][0])
+        d = (outs["default"][1] - outs["high"][1]).abs()
+        print(f"serve joint, one batch of 8 at 'default' against 'high': MRF log-heatmaps rel err "
+              f"{lh_err[0]:.3e} (limit {SINGLE_PASS_RTOL:g}), max abs {lh_err[1]:.3e}; decoded "
+              f"coordinates differ by max {d.max().item():.4f} px, median {d.median().item():.4f} px")
+        check(lh_err[0] <= SINGLE_PASS_RTOL, "joint at 'default' strays from 'high'")
+
+        # flagship at 'default': its direct conv ignores the flag.
+        flag_dir = os.path.join(tmp, "flagship")
+        flag_state = init_state_dict(flag_cfg, torch.Generator().manual_seed(8))
+        write_initial_checkpoint(flag_cfg, flag_dir, flag_state)
+        fcfg = with_mrf_precision(reconcile_config(flag_cfg, flag_dir), "default")
+        fservice = PoseService(fcfg, flag_dir, batch_size=8, step=0)
+        fh, fw = fcfg.data.image_hw
+        batches = [rng.integers(0, 256, (8, fh, fw, 3), dtype=np.uint8) for _ in range(3)]
+        try:
+            reset(counters)
+            base = fservice.stats["dispatches"]
+            served = [_pred_coords(fservice.predict(b)) for b in batches]
+            torch.cuda.synchronize()
+            epi = counters["mrf_epilogue"].launches
+            fdispatches = fservice.stats["dispatches"] - base
+        finally:
+            fservice.close()
+        high = build_predictor(with_mrf_precision(fcfg, "high"), flag_state)
+        same = all(np.array_equal(got, high(torch.from_numpy(b))[0].cpu().numpy())
+                   for got, b in zip(served, batches))
+        print(f"serve flagship (mrf.impl='pallas') at 'default': {len(batches)} requests of 8, "
+              f"{fdispatches} dispatches, epilogue launches {epi}; coordinates "
+              f"{'bit-equal to' if same else 'DIFFERENT from'} 'high'")
+        check(epi == fdispatches == len(batches), "flagship: the epilogue did not launch once per dispatch")
+        check(same, "flagship at 'default' differs from 'high'")
+
+        # The entry point as a process: up, one request, SIGTERM drains.
+        port = _free_port()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jointpose_torch.serve", "--config", joint.name, "--checkpoint",
+             joint_dir, "--port", str(port), "--step", "0", "--batch-size", "8"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        try:
+            t0 = time.perf_counter()
+            up = False
+            while not up and time.perf_counter() - t0 < 300 and proc.poll() is None:
+                try:
+                    up = _http(port, "/healthz")[0] == 200
+                except OSError:
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            check(up, f"python -m jointpose_torch.serve did not come up: "
+                      f"{proc.communicate(timeout=60)[0][-2000:] if proc.poll() is not None else ''}")
+            two = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+            status, body = _http(port, "/predict", _npy(two), "application/x-npy")
+            check(status == 200 and len(body["predictions"]) == 2, f"the server process answered {status}")
+            proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 0 and "shut down cleanly" in out,
+              f"the server process did not drain on SIGTERM (exit {proc.returncode}): {out[-2000:]}")
+        print(f"python -m jointpose_torch.serve --config {joint.name} (MRF precision 'default'): up in "
+              f"{up_s:.1f} s, answered /healthz and /predict, drained on SIGTERM and exited 0")
+    return {"launches": launches, "metrics": m, "dispatches": dispatches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save-joint", default=None,
@@ -513,8 +747,10 @@ def main() -> int:
         mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_fwd_empty,
         mrf_epilogue_fwd_pervalue, mrf_epilogue_fwd_tiled, mrf_epilogue_plain,
     )
-    from jointpose_torch.ops.mrf_fft import fft_pairwise_conv, forward_ffts
-    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_plain
+    from jointpose_torch.ops.mrf_fft import (
+        fft_pairwise_conv, forward_ffts, matmul_precision, mrf_message_pass_fft,
+    )
+    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_emulated, fused_tail_plain
     from jointpose_torch.ops.mrf_xla import pairwise_conv
     from jointpose_torch.ops.warp import shear_warp, shear_warp_reference, shear_warp_rowmajor
 
@@ -606,6 +842,28 @@ def main() -> int:
           f"(limit {MRF_TAIL_RTOL:g}), max abs err {tail_err[1]:.3e}")
     check(tail_err[0] <= KERNEL_RTOL, "mrf_fft_tail disagrees with its plain version")
     check(tail_err[0] <= MRF_TAIL_RTOL, "mrf_fft_tail: 3xTF32 strays from the fp32 plain version")
+
+    def single_pass_parity(pf_, kf_, bias_, what: str) -> tuple[float, float]:
+        """The single-pass form against its own arithmetic and against fp32;
+        returns (rel, max abs) against fp32."""
+        before = fused_tail.launches_1pass
+        got1 = fused_tail(pf_, kf_, tables, bias_, joint.mrf.eps, precision="default")
+        torch.cuda.synchronize()
+        check(fused_tail.launches_1pass == before + 1, "the single-pass tail did not count its launch")
+        emu = rel_err(got1, fused_tail_emulated(pf_, kf_, tables, bias_, joint.mrf.eps, passes=1))
+        fp32 = rel_err(got1, fused_tail_plain(pf_, kf_, tables, bias_, joint.mrf.eps))
+        again1 = fused_tail(pf_, kf_, tables, bias_, joint.mrf.eps, precision="default")
+        print(f"kernel mrf_fft_tail_1pass{what} {tuple(got1.shape)}: against its arithmetic in plain "
+              f"PyTorch (one TF32 pass) rel err {emu[0]:.3e} (limit {KERNEL_RTOL:g}), max abs "
+              f"{emu[1]:.3e}; against fp32 rel err {fp32[0]:.3e} (limit {SINGLE_PASS_RTOL:g}), max "
+              f"abs {fp32[1]:.3e}; a second run is "
+              f"{'bit-identical' if torch.equal(again1, got1) else 'DIFFERENT'}")
+        check(emu[0] <= KERNEL_RTOL, f"mrf_fft_tail_1pass{what} disagrees with its plain version")
+        check(fp32[0] <= SINGLE_PASS_RTOL, f"mrf_fft_tail_1pass{what} strays from fp32")
+        check(torch.equal(again1, got1), "mrf_fft_tail_1pass: a second run is not bit-identical")
+        return fp32
+
+    tail1_err = single_pass_parity(pf, kf, bias2, "")
     # Small responses: unaries concentrated on a few pixels, half of the
     # kernels' taps zero and half of the biases below eps, so that most
     # responses lie below the biases and many below eps.
@@ -631,6 +889,7 @@ def main() -> int:
     check(below_bias > 0.4 and below_eps > 0.1, "the small-response operands are not small")
     check(small_err[0] <= MRF_TAIL_RTOL, "mrf_fft_tail strays on small responses")
     check(torch.equal(again, got), "mrf_fft_tail: a second run is not bit-identical")
+    single_pass_parity(pf_s, kf_s, bias_small, ", small responses")
     del pf_s, kf_s, p_small, kern_small, got, want, again
 
     # --- kernel 3: the shear warp, both entries, on a random full draw
@@ -701,9 +960,29 @@ def main() -> int:
     check(conv_err <= CONV_RTOL, "fft_conv2d disagrees with the direct conv in f32")
     del got, want
 
+    # Precision is the call's: TF32 switched on for the whole process leaves
+    # 'high' bit-equal to fp32, and the flag as it was.
+    torch.backends.cuda.matmul.allow_tf32 = True
+    flagged = mrf_message_pass_fft(p2, kern2, bias2, precision="high")
+    pf_flagged = forward_ffts(p2, kern2, precision="high")[0][0]
+    check(torch.backends.cuda.matmul.allow_tf32, "the Fourier MRF pass did not put the TF32 flag back")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32_pass = mrf_message_pass_fft(p2, kern2, bias2, precision="high")
+    one_pass = mrf_message_pass_fft(p2, kern2, bias2, precision="default")
+    torch.cuda.synchronize()
+    flag_same = torch.equal(flagged, fp32_pass) and torch.equal(pf_flagged, pf[0])
+    one_err = rel_err(one_pass, fp32_pass)
+    print(f"precision is the call's: the plain Fourier MRF pass at 'high' with TF32 on globally is "
+          f"{'bit-equal to' if flag_same else 'DIFFERENT from'} the pass with it off (forward DFTs "
+          f"too); at 'default' (TF32) it differs by rel {one_err[0]:.3e} (limit {SINGLE_PASS_RTOL:g})")
+    check(flag_same, "'high' follows the global TF32 flag")
+    check(0 < one_err[0] <= SINGLE_PASS_RTOL, "'default' is not one TF32 pass within the bar")
+    del flagged, fp32_pass, one_pass
+
     # --- the main paths.
     counters = {"mrf_epilogue": mrf_epilogue, "mrf_epilogue_bwd": mrf_epilogue_bwd,
-                "mrf_fft_tail": fused_tail, "shear_warp": shear_warp,
+                "mrf_fft_tail": fused_tail,
+                "mrf_fft_tail_1pass": Count(fused_tail, "launches_1pass"), "shear_warp": shear_warp,
                 "shear_warp_rowmajor": shear_warp_rowmajor, **tails}
     torch.backends.cudnn.allow_tf32 = True  # serving and training run with PyTorch's defaults
     joint_cfg = joint.replace(
@@ -712,8 +991,9 @@ def main() -> int:
     print(f"serve joint (bf16, direct head, fused Fourier MRF tail): {REQUESTS} requests x "
           f"{BATCH} images, p50 {served_joint['p50_ms']:.3f} ms/request, "
           f"latencies {served_joint['latencies_ms']}, launches {served_joint['launches']}")
-    check(served_joint["launches"]["mrf_fft_tail"] == REQUESTS,
-          "joint: the fused Fourier tail did not launch once per request")
+    check(served_joint["launches"]["mrf_fft_tail"] == REQUESTS
+          and served_joint["launches"]["mrf_fft_tail_1pass"] == 0,
+          "joint at 'high': the 3xTF32 Fourier tail did not launch once per request")
     check(not any(served_joint["launches"][n] for n in tails),
           "joint with the direct head launched a head-conv tail")
     if opts.save_joint:
@@ -785,12 +1065,15 @@ def main() -> int:
         check(trained["launches"][name] == n,
               f"flagship training: {name} launched {trained['launches'][name]} times, not {n}")
     fit_phase(flag_cfg, counters, smi)
+    served_default = serve_phase(joint, flag_cfg, counters, smi)
     torch.backends.cudnn.allow_tf32 = False
 
     # --- the card against the CPU on a small input.
     tiny_paths = (("fft fused", {"impl": "fft", "use_pallas": True}, "direct"),
                   ("coarse + epilogue", {"impl": "pallas", "stride": 2}, "direct"),
                   ("fft fused, Fourier head", {"impl": "fft", "use_pallas": True}, "fft"))
+    default_path = ("fft fused at precision 'default'",
+                    {"impl": "fft", "use_pallas": True, "precision": "default"}, "direct")
     reset(counters)
     for name, overrides, head in tiny_paths:
         err = tiny_cpu_vs_card(overrides, head)
@@ -803,6 +1086,15 @@ def main() -> int:
         check(err <= KERNEL_RTOL, f"tiny {name}: the card's gradient of {worst} disagrees with the CPU")
     check(fc.tail_kdft_resident.launches >= 2,
           "tiny Fourier head: the card's forward and training step did not launch the resident tail")
+    # The autograd guard of the single-pass form: one TF32 pass in the
+    # forward and in the backward's recompute, against fp32 on the CPU.
+    name, overrides, head = default_path
+    before = fused_tail.launches_1pass
+    err, worst = tiny_grads_cpu_vs_card(overrides, head)
+    print(f"tiny {name}, one training step (stride trunk, shear warp): card vs CPU gradients, "
+          f"worst tensor {worst} rel err {err:.3e} (limit {SINGLE_PASS_RTOL:g})")
+    check(fused_tail.launches_1pass > before, "tiny at 'default' did not launch the single-pass tail")
+    check(err <= SINGLE_PASS_RTOL, f"tiny {name}: the card's gradient of {worst} disagrees with the CPU")
     err, worst, prob_err, same = tiny_fit_cpu_vs_card()
     print(f"tiny coarse + epilogue, fit of 4 + 4 steps (synthetic source, augmentation off): card "
           f"vs CPU parameters, worst tensor {worst} rel err {err:.3e}; the fitted models' heatmaps "
@@ -840,6 +1132,14 @@ def main() -> int:
     t_bytes2 = nbytes(*pf, *kf, tables["ir"], tables["ict_re"], tables["ict_im"], bias2,
                       out2) / HBM_BYTES_PER_S * 1e3
     b2, by2 = (t_bytes2, "bytes") if t_bytes2 >= t_ops2 else (t_ops2, "operations")
+    # The single-pass form: the same work, one pass at the TF32 peak.
+    t_ops2_1 = min(flops2 / FP32_FLOPS_PER_S, flops2 / TF32_FLOPS_PER_S) * 1e3
+    b2_1, by2_1 = (t_bytes2, "bytes") if t_bytes2 >= t_ops2_1 else (t_ops2_1, "operations")
+    # The two forms in turns in this one process: 3xTF32, one pass, one pass, 3xTF32.
+    tail_turns = [time_ms(lambda prec=prec: fused_tail(pf, kf, tables, bias2, precision=prec))
+                  for prec in ("high", "default", "default", "high")]
+    with matmul_precision("default", pf[0].device):
+        plain_tf32_ms = time_ms(lambda: fused_tail_plain(pf, kf, tables, bias2))
     # The warp's function reads the images and the (B, 2, 2) and (B, 2)
     # maps and writes the images; per output value and pass: the position
     # (4), the two tap weights (4) and the two products and their sum (3).
@@ -894,9 +1194,21 @@ def main() -> int:
             "replaces": "jointpose/ops/mrf_fft_pallas.py:50",
             "launches": served_joint["launches"]["mrf_fft_tail"],
             "max_abs_err": tail_err[1],
-            "ms": time_ms(lambda: fused_tail(pf, kf, tables, bias2)),
+            "ms": min(tail_turns[0], tail_turns[3]),
             "plain_ms": time_ms(lambda: fused_tail_plain(pf, kf, tables, bias2)),
             "bound_ms": b2, "bound_by": by2, "library_ms": None,
+        },
+        {
+            # The same TPU kernel compiled at Precision.DEFAULT; its plain
+            # version here is the plain tail with TF32 products (cuBLAS).
+            "name": "mrf_fft_tail_1pass", "route": "cuda",
+            "source": "jointpose_torch/csrc/mrf_fft_tail.cu",
+            "replaces": "jointpose/ops/mrf_fft_pallas.py:50",
+            "launches": served_default["launches"]["mrf_fft_tail_1pass"],
+            "max_abs_err": tail1_err[1],
+            "ms": min(tail_turns[1], tail_turns[2]),
+            "plain_ms": plain_tf32_ms,
+            "bound_ms": b2_1, "bound_by": by2_1, "library_ms": None,
         },
     ]
     plain_warp_ms = time_ms(lambda: shear_warp_reference(images, a_inv, b_inv), runs=5, per_graph=1)
@@ -964,10 +1276,13 @@ def main() -> int:
         "mrf_epilogue": call_ms(lambda: mrf_epilogue(resp1, bias1)),
         "mrf_epilogue_bwd": call_ms(lambda: mrf_epilogue_bwd(resp3, bias1, g3)),
         "mrf_fft_tail": call_ms(lambda: fused_tail(pf, kf, tables, bias2)),
+        "mrf_fft_tail_1pass": call_ms(lambda: fused_tail(pf, kf, tables, bias2, precision="default")),
         "shear_warp": call_ms(lambda: shear_warp(images, a_inv, b_inv)),
         "shear_warp_rowmajor": call_ms(lambda: shear_warp_rowmajor(images, a_inv, b_inv)),
     }
     per = {"mrf_fft_tail": (REQUESTS, "request (joint serving)"),
+           "mrf_fft_tail_1pass": (served_default["dispatches"],
+                                  "dispatch (joint serving at 'default')"),
            "fft_conv_tail_kdft_resident": (REQUESTS, "request (joint serving, 'fft' head)"),
            "fft_conv_tail_kdft": (1, "request (joint serving, 'fft' head, steered)"),
            "fft_conv_tail_kf": (1, "request (joint serving, 'fft' head, steered)")}
@@ -984,6 +1299,13 @@ def main() -> int:
           f"{flops2 / FP32_FLOPS_PER_S * 1e3:.4f} ms, 3xTF32 {3 * flops2 / TF32_FLOPS_PER_S * 1e3:.4f} "
           f"ms), mrf_epilogue_bwd at {b3 / kernels[1]['ms']:.1%} of its")
     check(tail_row["bound_ms"] <= tail_row["ms"], "mrf_fft_tail beats its bound: the bound is wrong")
+    one_row = next(kn for kn in kernels if kn["name"] == "mrf_fft_tail_1pass")
+    print(f"mrf_fft_tail in turns, 3xTF32 / one pass / one pass / 3xTF32: "
+          f"{' / '.join(f'{t:.6f}' for t in tail_turns)} ms; the single pass runs at "
+          f"{one_row['bound_ms'] / one_row['ms']:.1%} of its bound (TF32 "
+          f"{flops2 / TF32_FLOPS_PER_S * 1e3:.4f} ms, bytes {t_bytes2:.4f} ms); its plain version "
+          f"with TF32 products {plain_tf32_ms:.4f} ms; on {smi}")
+    check(one_row["bound_ms"] <= one_row["ms"], "mrf_fft_tail_1pass beats its bound: the bound is wrong")
     print("shear_warp_rowmajor is the reference's cross-orientation oracle: no preset's path "
           "launches it, so its main-path count is 0; it ran in its parity phase above")
     print("the plain head-conv tails were timed over 5 replays of 1 call (f32 products on the "
@@ -991,7 +1313,8 @@ def main() -> int:
     print(f"bounds: HBM {HBM_BYTES_PER_S / 1e12} TB/s, fp32 CUDA-core peak "
           f"{FP32_FLOPS_PER_S / 1e12} TFLOP/s, bf16 tensor-core peak {BF16_FLOPS_PER_S / 1e12} "
           f"TFLOP/s for the bf16 head-conv tails, TF32 tensor-core peak "
-          f"{TF32_FLOPS_PER_S / 1e12} TFLOP/s at a third for the 3xTF32 MRF tail (H100 SXM data sheet)")
+          f"{TF32_FLOPS_PER_S / 1e12} TFLOP/s at a third for the 3xTF32 MRF tail and in full for "
+          f"its single pass (H100 SXM data sheet)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

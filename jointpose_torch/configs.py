@@ -444,11 +444,10 @@ def with_pool_mode(config: Config, pool_mode: str) -> Config:
 def with_mrf_precision(config: Config, precision: str) -> Config:
     """Config with the MRF message-pass matmul precision replaced.
 
-    'default' (single-pass bf16, fp32 accumulation) measured 3.7x
-    faster than 'high' on the fused Fourier kernel at the paper
-    geometry with 0.4% max rel output error (round 3,
-    results/kernels/); inference surfaces flip to it behind a PDJ-parity
-    gate, training keeps 'high'.  No-op for MRF-less configs.
+    'default' is one reduced-precision pass with fp32 accumulation in the
+    Fourier paths (on the card one TF32 pass; the reference's bar for it
+    is 0.4% max relative output error); serving defaults to it, training
+    keeps 'high'.  No-op for MRF-less configs.
     """
     assert precision in ("high", "default"), precision
     if config.mrf is None:

@@ -17,13 +17,21 @@
 // Bound on an H100: operations.  Rows first (T = Ir @ R, then
 // o = Re{T @ Ic}) a (b, v, a) pair costs 6*Ph*G + 8*H*Ph*G + 4*H*G*W + 4*H*W
 // flops (5.7 MFLOP at the paper geometry Ph=104, G=79, H=60, W=90; columns
-// first would cost 8.2) against 0.13 MB of Pf and Kf.  The log amplifies the
-// absolute error of small responses, so plain TF32 is out; the products run
-// on the tensor cores as 3xTF32: each operand x is split into hi = x rounded
-// to TF32 and lo = x - hi (exact; the tensor core reads its upper 19 bits),
-// and lo*hi + hi*lo are added before hi*hi into an fp32 accumulator.  lo*lo,
-// 2^-22 of a product, is dropped.  That is three mma per product: a third
-// of the TF32 rate, 2.5 times the fp32 CUDA cores.
+// first would cost 8.2) against 0.13 MB of Pf and Kf.  The kernel comes in
+// two forms, the template parameter P (passes):
+//   P = 3, precision HIGH/HIGHEST (TPU row 3).  The log amplifies the
+//     absolute error of small responses, so plain TF32 is out; the products
+//     run on the tensor cores as 3xTF32: each operand x is split into hi = x
+//     rounded to TF32 and lo = x - hi (exact; the tensor core reads its upper
+//     19 bits), and lo*hi + hi*lo are added before hi*hi into an fp32
+//     accumulator.  lo*lo, 2^-22 of a product, is dropped.  That is three mma
+//     per product: a third of the TF32 rate, 2.5 times the fp32 CUDA cores.
+//   P = 1, precision DEFAULT (the same TPU kernel compiled at
+//     lax.Precision.DEFAULT: one reduced-precision pass, fp32 accumulation).
+//     Each operand is rounded once to TF32 (hi alone) and each product is one
+//     mma: the full TF32 rate.  The TPU's pass is bf16; TF32 keeps three more
+//     mantissa bits and is the instruction the 3-pass form already issues.
+// Everything else (layout, roles, grid, combine pass) is shared.
 //
 // Design.  mma.sync.m16n8k8 TF32, 384 threads a block in two roles.
 //   Consumers (warps 0-7) do all the arithmetic on the tensor cores, 8 output
@@ -51,8 +59,8 @@
 //   flight per thread, also across steps, while the consumers multiply the
 //   current stage.  Named barriers (a full/empty pair per stage) hand the
 //   stages over.
-// Hi/lo splitting happens at fragment load (three instructions a value):
-// shared memory has no room for split copies.
+// Hi/lo splitting (or, for P = 1, the rounding) happens at fragment load
+// (three instructions a value, two): shared memory has no room for split copies.
 //
 // Grid.  The work is B*Ka tiles x Kv source joints (648 units at the paper
 // geometry, batch 8), and a tile is indivisible only up to the log: the sum
@@ -134,12 +142,16 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// x = hi + lo exactly.  hi is x rounded to TF32, to nearest with ties away
-// from zero: what cvt.rna.tf32.f32 gives for finite x, in two integer
-// instructions instead of the four the compiler emits for it.  lo goes to
-// the tensor core as it is.
+// x rounded to TF32, to nearest with ties away from zero: what
+// cvt.rna.tf32.f32 gives for finite x, in two integer instructions instead
+// of the four the compiler emits for it.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo exactly, hi = to_tf32(x).  lo goes to the tensor core as it is.
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = to_tf32(x);
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
@@ -151,22 +163,46 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-struct Frag {  // an A fragment, split
-  uint32_t hi[4], lo[4];
+// An mma fragment of N values: split (hi and lo) for P = 3, hi alone for P = 1.
+template <int P, int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ void set(int e, float x) { split(x, hi[e], lo[e]); }
+  // -x at e from the value at f (both parts)
+  __device__ __forceinline__ void set_neg(int e, const Frag& o, int f) {
+    hi[e] = o.hi[f] ^ 0x80000000u;
+    lo[e] = o.lo[f] ^ 0x80000000u;
+  }
+  __device__ __forceinline__ void copy(int e, const Frag& o, int f) {
+    hi[e] = o.hi[f];
+    lo[e] = o.lo[f];
+  }
 };
-struct BFrag {  // a B fragment, split
-  uint32_t hi[2], lo[2];
+template <int N>
+struct Frag<1, N> {
+  uint32_t hi[N];
+  __device__ __forceinline__ void set(int e, float x) { hi[e] = to_tf32(x); }
+  __device__ __forceinline__ void set_neg(int e, const Frag& o, int f) {
+    hi[e] = o.hi[f] ^ 0x80000000u;
+  }
+  __device__ __forceinline__ void copy(int e, const Frag& o, int f) { hi[e] = o.hi[f]; }
 };
-// c += a * b is three mma: a.lo*b.hi and a.hi*b.lo (the small terms, first),
-// then a.hi*b.hi.  The callers give one term to all their accumulators
-// before the next term, so that an mma does not wait for the one before it.
-__device__ __forceinline__ void mma_lh(float (&c)[4], const Frag& a, const BFrag& b) {
+template <int P>
+using AFrag = Frag<P, 4>;
+template <int P>
+using BFrag = Frag<P, 2>;
+// For P = 3, c += a * b is three mma: a.lo*b.hi and a.hi*b.lo (the small
+// terms, first), then a.hi*b.hi; for P = 1 the last alone.  The callers give
+// one term to all their accumulators before the next term, so that an mma
+// does not wait for the one before it.
+__device__ __forceinline__ void mma_lh(float (&c)[4], const AFrag<3>& a, const BFrag<3>& b) {
   mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
 }
-__device__ __forceinline__ void mma_hl(float (&c)[4], const Frag& a, const BFrag& b) {
+__device__ __forceinline__ void mma_hl(float (&c)[4], const AFrag<3>& a, const BFrag<3>& b) {
   mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
 }
-__device__ __forceinline__ void mma_hh(float (&c)[4], const Frag& a, const BFrag& b) {
+template <int P>
+__device__ __forceinline__ void mma_hh(float (&c)[4], const AFrag<P>& a, const BFrag<P>& b) {
   mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
@@ -206,6 +242,7 @@ __device__ __forceinline__ Tile tile_of(const Args& p, int tile) {
   return t;
 }
 
+template <int P>
 __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* ir_s = reinterpret_cast<float2*>(smem_raw);                       // (kRows, irs)
@@ -337,39 +374,39 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) tt[j][e] = 0.f;
       for (int ks = 0; ks < nks; ++ks) {
-        Frag a1, a2;  // [Ir_re; Ir_im] and [-Ir_im; Ir_re]
+        AFrag<P> a1, a2;  // [Ir_re; Ir_im] and [-Ir_im; Ir_re]
         {
           const float2 lo = ir_w[ks * 8], hi = ir_w[ks * 8 + 4];
-          split(lo.x, a1.hi[0], a1.lo[0]);
-          split(lo.y, a1.hi[1], a1.lo[1]);
-          split(hi.x, a1.hi[2], a1.lo[2]);
-          split(hi.y, a1.hi[3], a1.lo[3]);
+          a1.set(0, lo.x);
+          a1.set(1, lo.y);
+          a1.set(2, hi.x);
+          a1.set(3, hi.y);
 #pragma unroll
           for (int e = 0; e < 4; e += 2) {
-            a2.hi[e] = a1.hi[e + 1] ^ 0x80000000u;
-            a2.lo[e] = a1.lo[e + 1] ^ 0x80000000u;
-            a2.hi[e + 1] = a1.hi[e];
-            a2.lo[e + 1] = a1.lo[e];
+            a2.set_neg(e, a1, e + 1);
+            a2.copy(e + 1, a1, e);
           }
         }
-        BFrag bre[kNJ], bim[kNJ];
+        BFrag<P> bre[kNJ], bim[kNJ];
         const float2* bp = r_w + ks * 8 * kRStride;
 #pragma unroll
         for (int j = 0; j < kNJ; ++j) {
           const float2 b0 = bp[8 * j], b1 = bp[4 * kRStride + 8 * j];
-          split(b0.x, bre[j].hi[0], bre[j].lo[0]);
-          split(b1.x, bre[j].hi[1], bre[j].lo[1]);
-          split(b0.y, bim[j].hi[0], bim[j].lo[0]);
-          split(b1.y, bim[j].hi[1], bim[j].lo[1]);
+          bre[j].set(0, b0.x);
+          bre[j].set(1, b1.x);
+          bim[j].set(0, b0.y);
+          bim[j].set(1, b1.y);
         }
 #define JP_ROW_TERM(MMA, A, B) \
   _Pragma("unroll") for (int j = 0; j < kNJ; ++j) MMA(tt[j], A, B[j]);
-        JP_ROW_TERM(mma_lh, a1, bre)
-        JP_ROW_TERM(mma_hl, a1, bre)
-        JP_ROW_TERM(mma_lh, a2, bim)
-        JP_ROW_TERM(mma_hl, a2, bim)
-        JP_ROW_TERM(mma_hh, a1, bre)
-        JP_ROW_TERM(mma_hh, a2, bim)
+        if constexpr (P == 3) {
+          JP_ROW_TERM(mma_lh, a1, bre)
+          JP_ROW_TERM(mma_hl, a1, bre)
+          JP_ROW_TERM(mma_lh, a2, bim)
+          JP_ROW_TERM(mma_hl, a2, bim)
+        }
+        JP_ROW_TERM(mma_hh<P>, a1, bre)
+        JP_ROW_TERM(mma_hh<P>, a2, bim)
 #undef JP_ROW_TERM
       }
       // The stage is consumed; the last stages of the run are not refilled.
@@ -380,34 +417,36 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
       // the accumulators (depth t is bin 2t of the tile, depth t + 4 bin 2t + 1).
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
-        BFrag tr, ti;
-        split(tt[j][0], tr.hi[0], tr.lo[0]);
-        split(tt[j][1], tr.hi[1], tr.lo[1]);
-        split(tt[j][2], ti.hi[0], ti.lo[0]);
-        split(tt[j][3], ti.hi[1], ti.lo[1]);
+        BFrag<P> tr, ti;
+        tr.set(0, tt[j][0]);
+        tr.set(1, tt[j][1]);
+        ti.set(0, tt[j][2]);
+        ti.set(1, tt[j][3]);
         const float4* icp = ic_s + (c * (kGC / 2) + 4 * j + tq) * kIcStride + gq;
         {
-          Frag cre[kMW], cim[kMW];
+          AFrag<P> cre[kMW], cim[kMW];
 #pragma unroll
           for (int m = 0; m < kMW; ++m) {
             const float4 lo = icp[16 * m], hi = icp[16 * m + 8];
-            split(lo.x, cre[m].hi[0], cre[m].lo[0]);
-            split(hi.x, cre[m].hi[1], cre[m].lo[1]);
-            split(lo.y, cre[m].hi[2], cre[m].lo[2]);
-            split(hi.y, cre[m].hi[3], cre[m].lo[3]);
-            split(lo.z, cim[m].hi[0], cim[m].lo[0]);
-            split(hi.z, cim[m].hi[1], cim[m].lo[1]);
-            split(lo.w, cim[m].hi[2], cim[m].lo[2]);
-            split(hi.w, cim[m].hi[3], cim[m].lo[3]);
+            cre[m].set(0, lo.x);
+            cre[m].set(1, hi.x);
+            cre[m].set(2, lo.y);
+            cre[m].set(3, hi.y);
+            cim[m].set(0, lo.z);
+            cim[m].set(1, hi.z);
+            cim[m].set(2, lo.w);
+            cim[m].set(3, hi.w);
           }
 #define JP_COL_TERM(MMA, A, B) \
   _Pragma("unroll") for (int m = 0; m < kMW; ++m) MMA(o[m], A[m], B);
-          JP_COL_TERM(mma_lh, cre, tr)
-          JP_COL_TERM(mma_hl, cre, tr)
-          JP_COL_TERM(mma_lh, cim, ti)
-          JP_COL_TERM(mma_hl, cim, ti)
-          JP_COL_TERM(mma_hh, cre, tr)
-          JP_COL_TERM(mma_hh, cim, ti)
+          if constexpr (P == 3) {
+            JP_COL_TERM(mma_lh, cre, tr)
+            JP_COL_TERM(mma_hl, cre, tr)
+            JP_COL_TERM(mma_lh, cim, ti)
+            JP_COL_TERM(mma_hl, cim, ti)
+          }
+          JP_COL_TERM(mma_hh<P>, cre, tr)
+          JP_COL_TERM(mma_hh<P>, cim, ti)
 #undef JP_COL_TERM
         }
       }
@@ -480,17 +519,20 @@ extern "C" long long mrf_fft_tail_smem_bytes(int ph, int g_bins) {
 // Copies of the output the scratch must hold.
 extern "C" int mrf_fft_tail_scratch_parts() { return kMaxParts - 1; }
 
+// passes: 3 (3xTF32, precision HIGH/HIGHEST) or 1 (one TF32 pass, DEFAULT).
 extern "C" int mrf_fft_tail(const void* pf_re, const void* pf_im, const void* kf_re,
                             const void* kf_im, const void* ir, const void* ict_re,
                             const void* ict_im, const void* bias, void* out, void* scratch,
                             int batch, int kv, int ka, int ph, int g_bins, int h, int w,
-                            float eps, void* stream) {
+                            float eps, int passes, void* stream) {
+  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
   if (batch == 0 || ka == 0 || h == 0 || w == 0) return 0;
   const Plan plan = make_plan(ph, g_bins);
   if (plan.stages == 0 || kv < 1) return (int)cudaErrorInvalidValue;
   const long long smem = plan.smem(plan.stages);
-  cudaError_t err = cudaFuncSetAttribute(
-      mrf_fft_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  void (*kernel)(Args) = passes == 1 ? mrf_fft_tail_kernel<1> : mrf_fft_tail_kernel<3>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // The (tile, v) units are dealt out in consecutive runs, one per block and
   // as many blocks as SMs; a run of at least Kv/2 units keeps a tile within
@@ -513,7 +555,7 @@ extern "C" int mrf_fft_tail(const void* pf_re, const void* pf_im, const void* kf
                   kv, ka, ph, g_bins, h, w,
                   plan.php, plan.irs, plan.nchunks, plan.stages, (int)units, per, n_out, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mrf_fft_tail_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(args);
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess || per % kv == 0) return (int)err;  // whole tiles: nothing to add
   mrf_fft_tail_combine_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(

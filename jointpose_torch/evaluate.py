@@ -183,6 +183,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--pool-mode", choices=["max", "stride"], default=None,
                         help="override the trunk downsampling mode (normally adopted from the "
                              "checkpoint's run_config.json; contradicting it is an error)")
+    parser.add_argument("--mrf-precision", choices=["high", "default"], default=None,
+                        help="matmul precision inside the MRF message pass (the preset's "
+                             "unless given; 'default' is one TF32 pass on the card)")
     parser.add_argument("--uint8-ingest", action="store_true",
                         help="feed the split as raw uint8 RGB (the serving input contract)")
     parser.add_argument("--source", choices=["synthetic", "flic"], default=None)
@@ -194,7 +197,7 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
 
     from jointpose_torch.checkpoint import reconcile_config
-    from jointpose_torch.configs import get_config
+    from jointpose_torch.configs import get_config, with_mrf_precision
     from jointpose_torch.data.pipeline import device_cache, make_dataset
     from jointpose_torch.models.pose import PoseModel
     from jointpose_torch.predict import resolve_device, restore_params
@@ -205,6 +208,8 @@ def main(argv: list[str] | None = None) -> None:
         config = config.replace(eval_flip_tta=args.tta)
     if args.refine is not None:
         config = config.replace(decode_refine=args.refine)
+    if args.mrf_precision is not None:
+        config = with_mrf_precision(config, args.mrf_precision)
     dd = {k: v for k, v in (("source", args.source), ("flic_dir", args.flic_dir)) if v is not None}
     if dd:
         config = config.replace(data=dataclasses.replace(config.data, **dd))

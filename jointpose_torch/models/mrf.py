@@ -88,11 +88,8 @@ class SpatialModel(nn.Module):
 
     def __init__(self, config: MRFConfig, num_joints: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.precision != "high":
-            raise NotImplementedError(
-                "MRFConfig.precision='default' (single-pass bf16 message pass) "
-                "is not ported yet; see ROADMAP.md"
-            )
+        if config.precision not in ("high", "default"):
+            raise ValueError(f"unknown MRF precision {config.precision!r}")
         self.config = config
         self.dtype = dtype
         self.pass_fn = message_pass_fn(config)
@@ -109,9 +106,13 @@ class SpatialModel(nn.Module):
         kernels = F.softplus(self.raw_kernels.float()).to(self.dtype)
         biases = F.softplus(self.raw_bias.float())
         p = p.to(self.dtype)
+        # The reference's mapping: 'high' passes None (each pass's own
+        # default, HIGH on the Fourier paths), 'default' one reduced-precision
+        # pass where a pass has one (the Fourier paths on the card).
+        prec = {"high": None, "default": "default"}[self.config.precision]
         if self.config.stride > 1:
             return mrf_message_pass_coarse(
                 p, kernels, biases, eps=self.config.eps,
-                stride=self.config.stride, message_pass=self.pass_fn,
+                stride=self.config.stride, message_pass=self.pass_fn, precision=prec,
             )
-        return self.pass_fn(p, kernels, biases, eps=self.config.eps)
+        return self.pass_fn(p, kernels, biases, eps=self.config.eps, precision=prec)

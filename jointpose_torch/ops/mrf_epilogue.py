@@ -199,11 +199,13 @@ mrf_epilogue.launches = 0
 
 
 def mrf_message_pass_pallas(
-    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
+    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """Pairwise conv in the compute dtype, then the fused epilogue.
 
-    Same signature and semantics as ``mrf_message_pass_xla``.
+    Same signature and semantics as ``mrf_message_pass_xla`` (``precision``
+    changes nothing on the direct conv, as there).
     """
-    resp = pairwise_conv(p, kernels)  # (B, H, W, Kv, Ka) in p's dtype
+    resp = pairwise_conv(p, kernels, precision=precision)  # (B, H, W, Kv, Ka) in p's dtype
     return mrf_epilogue(resp, biases.float().contiguous(), eps)

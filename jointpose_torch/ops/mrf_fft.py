@@ -5,12 +5,18 @@ Linear correlation of H×W unaries with wh×ww kernels uses circular
 transforms of size Ph = H+wh-1 by Pw = W+ww-1, keeping only the
 G = Pw//2+1 independent column bins of the real inputs.  The forward
 transforms contract over the unpadded rows/cols only; the inverse
-operators evaluate exactly the SAME-crop output positions.  All
-arithmetic is fp32; on the card the caller keeps TF32 off.
+operators evaluate exactly the SAME-crop output positions.
+
+Every matmul runs at the precision its caller asks for, whatever the
+process-wide TF32 flags say: ``precision`` None or ``'high'`` is fp32,
+``'default'`` on a CUDA device one TF32 pass with fp32 accumulation
+(the reference's ``Precision.DEFAULT``, one reduced-precision pass).  On
+the CPU both are fp32, as JAX computes ``DEFAULT`` there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -102,6 +108,40 @@ def dft_tables(
     return t
 
 
+PRECISIONS = (None, "high", "default")
+
+
+def single_pass(precision: str | None) -> bool:
+    """Whether ``precision`` asks for one reduced-precision pass."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"MRF precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision == "default"
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str | None, device: torch.device):
+    """Run the enclosed CUDA fp32 matmuls at ``precision``: TF32 for
+    ``'default'``, full fp32 for None and ``'high'``; the flag is put back
+    on exit.  The flag is process-global, so a matmul another thread
+    issues meanwhile sees it too: serving is safe, because one dispatcher
+    thread owns the model.  CPU matmuls are fp32 either way."""
+    tf32 = single_pass(precision)
+    if device.type != "cuda":
+        yield
+        return
+    flags = torch.backends.cuda.matmul
+    # The newer per-backend setting where this PyTorch has it: mixing it
+    # with the legacy allow_tf32 makes the legacy getter raise.
+    attr, value = (("fp32_precision", "tf32" if tf32 else "ieee")
+                   if hasattr(flags, "fp32_precision") else ("allow_tf32", tf32))
+    prev = getattr(flags, attr)
+    setattr(flags, attr, value)
+    try:
+        yield
+    finally:
+        setattr(flags, attr, prev)
+
+
 def _transform2d(x, row_re, row_im, col_re, col_im):
     """Complex 2-D DFT of real planes x (..., n_rows, n_cols) -> (re, im)."""
     a_re = torch.matmul(row_re, x)
@@ -111,8 +151,8 @@ def _transform2d(x, row_re, row_im, col_re, col_im):
     return re, im
 
 
-def forward_ffts(p: torch.Tensor, kernels: torch.Tensor):
-    """Forward DFTs of unaries and kernels.
+def forward_ffts(p: torch.Tensor, kernels: torch.Tensor, precision: str | None = None):
+    """Forward DFTs of unaries and kernels, at ``precision``.
 
     Returns ((pf_re, pf_im) (B, K, Ph, G), (kf_re, kf_im) (Kv, Ka, Ph, G),
     tables dict).
@@ -123,33 +163,38 @@ def forward_ffts(p: torch.Tensor, kernels: torch.Tensor):
         raise ValueError(f"p {tuple(p.shape)} does not match kernels {tuple(kernels.shape)}")
     t = dft_tables((h, w), (wh, ww), p.device)
     planes = p.float().permute(0, 3, 1, 2)  # (B, K, H, W)
-    pf = _transform2d(planes, t["fr_re"], t["fr_im"], t["fc_re"], t["fc_im"])
     kplanes = kernels.float().permute(2, 3, 0, 1)  # (Kv, Ka, wh, ww)
-    kf = _transform2d(kplanes, t["gr_re"], t["gr_im"], t["gc_re"], t["gc_im"])
+    with matmul_precision(precision, p.device):
+        pf = _transform2d(planes, t["fr_re"], t["fr_im"], t["fc_re"], t["fc_im"])
+        kf = _transform2d(kplanes, t["gr_re"], t["gr_im"], t["gc_re"], t["gc_im"])
     return pf, kf, t
 
 
-def fft_pairwise_conv(p: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+def fft_pairwise_conv(
+    p: torch.Tensor, kernels: torch.Tensor, precision: str | None = None
+) -> torch.Tensor:
     """All K^2 SAME pairwise correlations via Fourier-space matmuls.
 
     Drop-in for ``pairwise_conv``: (B, H, W, K), (wh, ww, K, K) ->
     (B, H, W, Kv, Ka) fp32.
     """
-    (pf_re, pf_im), (kf_re, kf_im), t = forward_ffts(p, kernels)
+    (pf_re, pf_im), (kf_re, kf_im), t = forward_ffts(p, kernels, precision)
     # R = conj(K_f) ⊙ P_f: P_f[b, v] against K_f[v, a] -> (B, Kv, Ka, Ph, G).
     r_re = kf_re[None] * pf_re[:, :, None] + kf_im[None] * pf_im[:, :, None]
     r_im = kf_re[None] * pf_im[:, :, None] - kf_im[None] * pf_re[:, :, None]
-    t_re = torch.matmul(t["ir_re"], r_re) - torch.matmul(t["ir_im"], r_im)
-    t_im = torch.matmul(t["ir_re"], r_im) + torch.matmul(t["ir_im"], r_re)
-    resp = torch.matmul(t_re, t["ic_re"].T) - torch.matmul(t_im, t["ic_im"].T)
+    with matmul_precision(precision, p.device):
+        t_re = torch.matmul(t["ir_re"], r_re) - torch.matmul(t["ir_im"], r_im)
+        t_im = torch.matmul(t["ir_re"], r_im) + torch.matmul(t["ir_im"], r_re)
+        resp = torch.matmul(t_re, t["ic_re"].T) - torch.matmul(t_im, t["ic_im"].T)
     return resp.permute(0, 3, 4, 1, 2)  # (B, H, W, Kv, Ka)
 
 
 def mrf_message_pass_fft(
-    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
+    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """Log-space message pass with the Fourier-space pairwise conv and the
     plain bias+log+Σ_v tail: the reference's ``use_pallas_epilogue=False``."""
-    resp = fft_pairwise_conv(p, kernels)
+    resp = fft_pairwise_conv(p, kernels, precision)
     resp = resp + biases.float()
     return torch.log(resp.clamp_min(eps)).sum(dim=-2)

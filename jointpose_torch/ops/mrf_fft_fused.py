@@ -7,14 +7,19 @@
 
 ``fused_tail`` is the wrapper: on CUDA tensors it launches the kernel of
 ``csrc/mrf_fft_tail.cu`` (or raises), on CPU tensors it runs the plain
-version ``fused_tail_plain``.  Only the forward DFTs' outputs cross
+version ``fused_tail_plain``.  The kernel has two forms: at precision
+None or ``'high'`` every product is 3xTF32 (near fp32), at ``'default'``
+one TF32 pass (the reference's ``Precision.DEFAULT``); their launches are
+counted apart, in ``fused_tail.launches`` and
+``fused_tail.launches_1pass``.  Only the forward DFTs' outputs cross
 device memory; the (B, Kv, Ka, H, W) responses never exist (where the
 kernel splits an output tile's source joints over blocks, up to three
 partial log-sums of that tile do, in a scratch of two output-sized
 planes).  ``fused_tail_emulated`` repeats the kernel's arithmetic (rows
-first, 3xTF32 products) in plain PyTorch, to size its error on the CPU.
-``mrf_message_pass_fft_fused`` wraps it in a ``torch.autograd.Function``
-whose backward recomputes the plain Fourier pass.
+first, 3xTF32 or one TF32 pass) in plain PyTorch, to size its error on
+the CPU.  ``mrf_message_pass_fft_fused`` wraps it in a
+``torch.autograd.Function`` whose backward recomputes the plain Fourier
+pass at the same precision.
 """
 
 from __future__ import annotations
@@ -24,12 +29,14 @@ import ctypes
 import torch
 
 from jointpose_torch import _build
-from jointpose_torch.ops.mrf_fft import forward_ffts, mrf_message_pass_fft
+from jointpose_torch.ops.mrf_fft import (
+    forward_ffts, matmul_precision, mrf_message_pass_fft, single_pass,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mrf_fft_tail": ([_P] * 10 + [_I] * 7 + [ctypes.c_float, _P], _I),
+    "mrf_fft_tail": ([_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P], _I),
     "mrf_fft_tail_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "mrf_fft_tail_scratch_parts": ([], _I),
 }
@@ -73,18 +80,29 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
 
 
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the single-pass kernel forms it: both operands rounded to
+    TF32 (``tf32_split``'s hi), their products exact, the sums in fp32."""
+    return torch.matmul(tf32_split(a)[0], tf32_split(b)[0])
+
+
 def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """Zero-pad the last two dimensions up to multiples of (rows, cols)."""
     r, c = x.shape[-2:]
     return torch.nn.functional.pad(x, (0, -c % cols, 0, -r % rows))
 
 
-def fused_tail_emulated(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
+def fused_tail_emulated(pf, kf, tables, biases, eps: float = 1e-6,
+                        passes: int = 3) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch, for sizing its error on
     the CPU: rows first, both inverse transforms as real block-matrix
     products on operands zero-padded to the tensor cores' tiles (16 rows,
-    depth 8, 8 columns), every product 3xTF32 (``matmul_3xtf32``).  The
-    summation order inside a product is PyTorch's, not the kernel's."""
+    depth 8, 8 columns), every product 3xTF32 (``matmul_3xtf32``) or, with
+    ``passes=1``, one TF32 pass (``matmul_tf32``).  The summation order
+    inside a product is PyTorch's, not the kernel's."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    product = matmul_tf32 if passes == 1 else matmul_3xtf32
     pf_re, pf_im = pf
     kf_re, kf_im = kf
     h, w = tables["ir_re"].shape[0], tables["ict_re"].shape[1]
@@ -95,18 +113,22 @@ def fused_tail_emulated(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tens
     ir = torch.cat([_pad_to(ir[:h], 16, 8), _pad_to(ir[h:], 16, 8)], dim=0)
     hp = ir.shape[0] // 2
     r = _pad_to(torch.cat([r_re, r_im], dim=-2), 8, 8)  # (B, Kv, Ka, 2Ph, Gp)
-    t = matmul_3xtf32(ir, r)  # (..., 2Hp, Gp): T_re over T_im
+    t = product(ir, r)  # (..., 2Hp, Gp): T_re over T_im
     ic = tables["ic_stack"]  # (2G, W)
     ic = torch.cat([_pad_to(ic[:g], 8, 8), _pad_to(ic[g:], 8, 8)], dim=0)
-    o = matmul_3xtf32(torch.cat([t[..., :hp, :], t[..., hp:, :]], dim=-1), ic)
+    o = product(torch.cat([t[..., :hp, :], t[..., hp:, :]], dim=-1), ic)
     o = o[..., :h, :w] + biases.float()[None, :, :, None, None]  # (B, Kv, Ka, H, W)
     return torch.log(o.clamp_min(eps)).sum(dim=1)
 
 
-def fused_tail(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
-    """The fused tail: (B, Ka, H, W) fp32 log-messages summed over v."""
+def fused_tail(pf, kf, tables, biases, eps: float = 1e-6,
+               precision: str | None = None) -> torch.Tensor:
+    """The fused tail: (B, Ka, H, W) fp32 log-messages summed over v; on
+    CUDA tensors 3xTF32 at precision None or ``'high'``, one TF32 pass at
+    ``'default'``, on CPU tensors fp32 at every precision."""
     pf_re, pf_im = pf
     kf_re, kf_im = kf
+    passes = 1 if single_pass(precision) else 3
     if pf_re.device.type == "cpu":
         return fused_tail_plain(pf, kf, tables, biases, eps)
     b, kv, ph, g = pf_re.shape
@@ -144,14 +166,18 @@ def fused_tail(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
             pf_re.data_ptr(), pf_im.data_ptr(), kf_re.data_ptr(), kf_im.data_ptr(),
             tables["ir"].data_ptr(), tables["ict_re"].data_ptr(),
             tables["ict_im"].data_ptr(), biases.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), b, kv, ka, ph, g, h, w, eps, stream,
+            scratch.data_ptr(), b, kv, ka, ph, g, h, w, eps, passes, stream,
         )
     _build.check(err, "mrf_fft_tail")
-    fused_tail.launches += 1
+    if passes == 1:
+        fused_tail.launches_1pass += 1
+    else:
+        fused_tail.launches += 1
     return out
 
 
-fused_tail.launches = 0
+fused_tail.launches = 0  # 3xTF32 launches
+fused_tail.launches_1pass = 0  # single-pass TF32 launches
 
 
 class _FusedPass(torch.autograd.Function):
@@ -162,32 +188,35 @@ class _FusedPass(torch.autograd.Function):
     are kept for the backward."""
 
     @staticmethod
-    def forward(ctx, p, kernels, biases, eps):
-        ctx.eps = eps
+    def forward(ctx, p, kernels, biases, eps, precision):
+        ctx.eps, ctx.precision = eps, precision
         ctx.save_for_backward(p, kernels, biases)
-        pf, kf, tables = forward_ffts(p, kernels)
+        pf, kf, tables = forward_ffts(p, kernels, precision)
         pf = tuple(t.contiguous() for t in pf)
         kf = tuple(t.contiguous() for t in kf)
-        out = fused_tail(pf, kf, tables, biases.float().contiguous(), eps)
+        out = fused_tail(pf, kf, tables, biases.float().contiguous(), eps, precision)
         return out.permute(0, 2, 3, 1)
 
     @staticmethod
     def backward(ctx, g):
         inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
         with torch.enable_grad():
-            out = mrf_message_pass_fft(*inputs, eps=ctx.eps)
+            out = mrf_message_pass_fft(*inputs, eps=ctx.eps, precision=ctx.precision)
         wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+        # The recompute's own backward matmuls run at the pass's precision too.
+        with matmul_precision(ctx.precision, g.device):
+            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
 
 
 def mrf_message_pass_fft_fused(
-    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
+    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """Full log-space message pass: torch forward DFTs + the fused tail.
 
     Same signature and semantics as ``mrf_message_pass_xla``; returns
     (B, H, W, Ka) fp32, differentiable in all three inputs.
     """
-    return _FusedPass.apply(p, kernels, biases, eps)
+    return _FusedPass.apply(p, kernels, biases, eps, precision)

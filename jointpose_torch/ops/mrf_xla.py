@@ -6,12 +6,20 @@ All K^2 pairwise correlations run as one grouped ``F.conv2d``
 (``groups=Kv``); output channel v*Ka + a is k_{a|v} ⊛ p_v.  The
 correlation is the reference's SAME cross-correlation: a window of
 extent k is padded (k-1)//2 before and k//2 after.
+
+``precision`` is taken and passed down as the reference does, and
+changes nothing here: the reference's None and ``Precision.DEFAULT``
+both leave its direct conv at the backend's default
+(``jointpose/ops/mrf_xla.py:196-197``), and the port's conv runs at
+PyTorch's (cuDNN's TF32 flag) for either value.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from jointpose_torch.ops.mrf_fft import single_pass
 
 
 def same_pad(n: int, k: int, s: int = 1) -> tuple[int, int]:
@@ -22,7 +30,8 @@ def same_pad(n: int, k: int, s: int = 1) -> tuple[int, int]:
 
 
 def pairwise_conv(
-    p: torch.Tensor, kernels: torch.Tensor, out_dtype: torch.dtype | None = None
+    p: torch.Tensor, kernels: torch.Tensor, out_dtype: torch.dtype | None = None,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """All Kv*Ka pairwise correlations as one grouped conv.
 
@@ -31,11 +40,13 @@ def pairwise_conv(
       kernels: (wh, ww, Kv, Ka); kernels[:, :, v, a] is k_{a|v}.
       out_dtype: float32 computes in fp32 whatever p's dtype (the
         reference's fp32-accumulator output); None keeps p's dtype.
+      precision: None, 'high' or 'default', all the backend's default.
     Returns:
       (B, H, W, Kv, Ka) responses, contiguous (one row of Kv*Ka per pixel).
     """
     wh, ww, kv, ka = kernels.shape
     b, h, w, _ = p.shape
+    single_pass(precision)  # validates the value
     if p.shape[-1] != kv:
         raise ValueError(f"p {tuple(p.shape)} does not match kernels {tuple(kernels.shape)}")
     dtype = torch.float32 if out_dtype == torch.float32 else p.dtype
@@ -53,10 +64,11 @@ def pairwise_conv(
 
 
 def mrf_message_pass_xla(
-    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
+    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """Log-space message pass; returns unnormalized log p̄ (B, H, W, K) fp32."""
-    resp = pairwise_conv(p, kernels, out_dtype=torch.float32)
+    resp = pairwise_conv(p, kernels, out_dtype=torch.float32, precision=precision)
     resp = resp + biases.float()
     return torch.log(resp.clamp_min(eps)).sum(dim=-2)
 
@@ -68,6 +80,7 @@ def mrf_message_pass_coarse(
     eps: float = 1e-6,
     stride: int = 2,
     message_pass=None,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """Coarse message pass (MRFConfig.stride > 1):
 
@@ -81,7 +94,7 @@ def mrf_message_pass_coarse(
         raise ValueError(f"p {tuple(p.shape)} is not divisible by stride {stride}")
     pc = p.reshape(b, h // stride, stride, w // stride, stride, k).sum(dim=(2, 4))
     pass_fn = message_pass or mrf_message_pass_xla
-    coarse = pass_fn(pc, kernels, biases, eps=eps)
+    coarse = pass_fn(pc, kernels, biases, eps=eps, precision=precision)
     up = F.interpolate(
         coarse.permute(0, 3, 1, 2), size=(h, w), mode="bilinear", align_corners=False
     ).permute(0, 2, 3, 1)

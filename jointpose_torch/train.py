@@ -32,8 +32,9 @@ the loss does not reach it.
 Not carried over from the reference's ``fit`` (ROADMAP.md names each):
 the mesh and multi-process branches, the K-step scan
 (``steps_per_dispatch`` is read and ignored: one step per call), the
-per-stage roofline log, heartbeat, preemption and fault injection,
-figures and the profiler hook.
+per-stage roofline log, heartbeat and fault injection, figures and the
+profiler hook.  Preemption is carried over: SIGTERM checkpoints at the
+next step boundary and exits ``resilience.EXIT_PREEMPTED``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose_torch.models.mrf import priors_to_raw_kernels
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.predict import init_state_dict, resolve_device
+from jointpose_torch.resilience import PreemptionHandler
 
 
 @dataclasses.dataclass
@@ -342,32 +344,46 @@ def fit(
     step = start_step
     t_last, n_last = now(), step
     final_eval: dict = {}
-    while step < total_steps:
-        stage = "detector" if step < det_steps else "joint"
-        if stage == "joint" and config.mrf is not None and not mrf_initialized:
-            print("estimating pairwise priors for MRF init ...")
-            priors = estimate_priors(train_ds, config, max_examples=2048)
-            state = init_mrf_from_priors(state, priors)
-            mrf_initialized = True
-        state, metrics = step_fns[stage](state, train_ds.get_batch(indices_for_step(step)))
-        step += 1
+    # SIGTERM -> checkpoint at the next step boundary and exit EXIT_PREEMPTED,
+    # from which --resume goes on (jointpose_torch/resilience.py).
+    preemption = PreemptionHandler().install()
+    try:
+        while step < total_steps:
+            stage = "detector" if step < det_steps else "joint"
+            if stage == "joint" and config.mrf is not None and not mrf_initialized:
+                print("estimating pairwise priors for MRF init ...")
+                priors = estimate_priors(train_ds, config, max_examples=2048)
+                state = init_mrf_from_priors(state, priors)
+                mrf_initialized = True
+            state, metrics = step_fns[stage](state, train_ds.get_batch(indices_for_step(step)))
+            step += 1
+            if preemption.preempted:
+                if ckpt.latest_step() != step:  # an eval may have saved this step
+                    ckpt.save(step, state)
+                logger.log(step, preempted=True)
+                logger.close()
+                ckpt.close()
+                print(f"preempted: checkpointed at step {step}", flush=True)
+                preemption.exit_preempted()
 
-        if step % t.log_every == 0 or step == total_steps:
-            t_now = now()
-            ips = (step - n_last) * t.batch_size / max(t_now - t_last, 1e-9)
-            logger.log(step, stage=stage, images_per_sec=ips,
-                       **{k: float(v) for k, v in metrics.items()})
-            t_last, n_last = t_now, step
-        if step % t.eval_every == 0 or step == total_steps:
-            final_eval = run_eval(step)
-            # Only full-model scores may rank the kept-best checkpoint: a
-            # detector-stage PDJ attached to a checkpoint that holds an
-            # uninitialized MRF would let serving pick near-uniform MRF
-            # output under a high recorded score.  Without an MRF the
-            # detector head is the full model, so every eval qualifies.
-            is_full_model = config.mrf is None or final_eval["eval_stage"] == "joint"
-            ckpt.save(step, state, metrics=final_eval if is_full_model else None)
-            t_last = now()  # evals and saves stay out of the logged rate
+            if step % t.log_every == 0 or step == total_steps:
+                t_now = now()
+                ips = (step - n_last) * t.batch_size / max(t_now - t_last, 1e-9)
+                logger.log(step, stage=stage, images_per_sec=ips,
+                           **{k: float(v) for k, v in metrics.items()})
+                t_last, n_last = t_now, step
+            if step % t.eval_every == 0 or step == total_steps:
+                final_eval = run_eval(step)
+                # Only full-model scores may rank the kept-best checkpoint: a
+                # detector-stage PDJ attached to a checkpoint that holds an
+                # uninitialized MRF would let serving pick near-uniform MRF
+                # output under a high recorded score.  Without an MRF the
+                # detector head is the full model, so every eval qualifies.
+                is_full_model = config.mrf is None or final_eval["eval_stage"] == "joint"
+                ckpt.save(step, state, metrics=final_eval if is_full_model else None)
+                t_last = now()  # evals and saves stay out of the logged rate
+    finally:
+        preemption.uninstall()
 
     logger.close()
     ckpt.close()
@@ -410,14 +426,17 @@ def main(argv: list[str] | None = None) -> None:
                         help="not ported yet (ROADMAP.md)")
     parser.add_argument("--check-numerics", action="store_true",
                         help="torch.autograd.set_detect_anomaly: fail at the op that made a NaN")
-    parser.add_argument("--mesh-data", type=int, default=None, help="not ported yet (ROADMAP.md)")
-    parser.add_argument("--mesh-model", type=int, default=None, help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--mesh-data", type=int, default=None,
+                        help="data-parallel devices; -1 (all), 0 and 1 mean the one device, "
+                             "larger meshes are not ported yet (ROADMAP.md)")
+    parser.add_argument("--mesh-model", type=int, default=None,
+                        help="model-axis devices; only 1 (ROADMAP.md)")
     parser.add_argument("--mesh-spatial", action="store_true", help="not ported yet (ROADMAP.md)")
     parser.add_argument("--device", default=None,
                         help="'cpu' runs the kernels' plain versions; default: the CUDA device")
     args = parser.parse_args(argv)
     unported = [flag for flag, on in (
-        ("--figures", args.figures), ("--mesh-data", args.mesh_data not in (None, 1)),
+        ("--figures", args.figures), ("--mesh-data", args.mesh_data not in (None, -1, 0, 1)),
         ("--mesh-model", args.mesh_model not in (None, 1)), ("--mesh-spatial", args.mesh_spatial),
     ) if on]
     if unported:

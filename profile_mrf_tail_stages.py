@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What each stage of the fused Fourier MRF tail costs on the card.
 
-    python3 profile_mrf_tail_stages.py [--source PATH] [--batch 8]
+    python3 profile_mrf_tail_stages.py [--source PATH] [--batch 8] [--passes 3]
 
 Builds ``jointpose_torch/csrc/mrf_fft_tail.cu`` (or ``--source``: any
 version of that file with the same C entry) as it is and copies with one
@@ -14,8 +14,9 @@ times are read.  Each cut is one or more textual replacements that must
 each match the source exactly once, so an edit of the kernel that moves an anchor fails
 here loudly.  Two anchor sets: the tensor-core kernel (the source holds
 ``mma.sync``), and the earlier CUDA-core kernel, so that a checkout of an
-older commit's source can be profiled by the same script.  Needs a CUDA
-card and ``nvcc``.
+older commit's source can be profiled by the same script.  ``--passes 1``
+times the single-pass TF32 form (MRF precision 'default') of a source
+whose entry takes the number of passes.  Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -38,13 +39,14 @@ TENSOR_CORE_ANCHORS = {
         "for (int ks = 0; ks < nks; ++ks) {",
         "for (int ks = 0; ks < (p.ph < 0 ? nks : 0); ++ks) {"),
     "without the column transform": (
-        "      for (int j = 0; j < kNJ; ++j) {\n        BFrag tr, ti;",
-        "      for (int j = 0; j < (p.ph < 0 ? kNJ : 0); ++j) {\n        BFrag tr, ti;"),
+        "      for (int j = 0; j < kNJ; ++j) {\n        BFrag",
+        "      for (int j = 0; j < (p.ph < 0 ? kNJ : 0); ++j) {\n        BFrag"),
     "without the log epilogue": (
         "ls[m][e] += logf(fmaxf(o[m][e] + bv, p.eps));",
         "ls[m][e] += o[m][e] + bv;"),
     # Plain TF32: a third of the mma, all of the loads and splits.  The
-    # difference from the whole kernel is what two thirds of the mma cost.
+    # difference from the whole kernel is what two thirds of the mma cost
+    # (nothing for --passes 1, which issues the hi*hi term alone).
     "with the hi*hi term only": [
         ("  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);\n", ""),
         ("  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);\n", "")],
@@ -70,6 +72,8 @@ def main() -> int:
     parser.add_argument("--source", type=Path, default=None,
                         help="a version of mrf_fft_tail.cu (default: the package's)")
     parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--passes", type=int, choices=[1, 3], default=3,
+                        help="3xTF32 (3) or the single TF32 pass (1), where the source has both")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_mrf_tail_stages: no CUDA device", file=sys.stderr)
@@ -84,6 +88,9 @@ def main() -> int:
     path = args.source or _build.CSRC / "mrf_fft_tail.cu"
     src = path.read_text()
     anchors = TENSOR_CORE_ANCHORS if "mma.sync" in src else CUDA_CORE_ANCHORS
+    takes_passes = "int passes" in src  # the entry's argument since the single-pass form
+    if args.passes != 3 and not takes_passes:
+        raise SystemExit(f"{path} has only the 3xTF32 form")
     b, k, (h, w), window = args.batch, 9, (60, 90), (45, 67)
     t = dft_tables((h, w), window, torch.device("cuda"))
     ph, g = t["ir_re"].shape[1], t["ict_re"].shape[0]
@@ -97,7 +104,8 @@ def main() -> int:
         operands.append(torch.empty(2, *out.shape, device="cuda"))
     pointers = [v.data_ptr() for v in operands]
     print(f"{path}: {'tensor-core' if anchors is TENSOR_CORE_ANCHORS else 'CUDA-core'} kernel, "
-          f"B={b}, Kv=Ka={k}, H={h}, W={w}, Ph={ph}, G={g}")
+          f"{args.passes} pass(es), B={b}, Kv=Ka={k}, H={h}, W={w}, Ph={ph}, G={g}")
+    extra = [args.passes] if takes_passes else []
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         for i, (name, cut) in enumerate(anchors.items()):
@@ -118,12 +126,12 @@ def main() -> int:
                 raise SystemExit(f"nvcc failed for '{name}':\n{log}")
             fn = ctypes.CDLL(proc.args[proc.args.index("-o") + 1]).mrf_fft_tail
             fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 7
-                           + [ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.c_float] + [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
 
             def run():
                 stream = torch.cuda.current_stream().cuda_stream
-                _build.check(fn(*pointers, b, k, k, ph, g, h, w, 1e-6, stream), name)
+                _build.check(fn(*pointers, b, k, k, ph, g, h, w, 1e-6, *extra, stream), name)
 
             ms = time_ms(run, runs=30)  # median of 30 CUDA-graph replays of 10 calls
             base = ms if base is None else base

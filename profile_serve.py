@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a served request's or a training step's time goes on the card, by kernel.
 
-    python3 profile_serve.py [--preset joint|joint_fft|flagship_pallas] [--batch 8] [--requests 4]
+    python3 profile_serve.py [--preset joint|joint_default|joint_fft|flagship_pallas] [--batch 8]
+                             [--requests 4]
     python3 profile_serve.py --train [--batch 32] [--requests 4]
     python3 profile_serve.py --head-stages [--batch 8]
 
@@ -12,7 +13,8 @@ training steps of ``flagship`` with ``mrf.impl='pallas'`` instead, after
 two warm-up steps.  Prints, per preset: the wall time per request or
 step, the device's busy time (the sum of kernel times) and its idle
 share, and the kernels by total device time.  ``joint_fft`` is ``joint``
-with ``head_conv_impl='fft'``.  With ``--head-stages`` it times the stages
+with ``head_conv_impl='fft'``, ``joint_default`` is ``joint`` at MRF
+precision 'default' (the serving default: the single-pass Fourier tail).  With ``--head-stages`` it times the stages
 of the Fourier head conv at the paper head instead (bf16): the input's
 forward transforms, the kernel's column DFT, the fused tail and the
 inverse column product, beside cuDNN's direct conv.  Needs a CUDA card.
@@ -29,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-PRESETS = ("joint", "joint_fft", "flagship_pallas")
+PRESETS = ("joint", "joint_default", "joint_fft", "flagship_pallas")
 # The port's own kernels (jointpose_torch/csrc/), listed whatever their rank.
 PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
                 "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel",
@@ -39,11 +41,13 @@ PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
 
 def _config(preset: str):
     from jointpose_torch import get_config
+    from jointpose_torch.configs import with_mrf_precision
 
-    if preset in ("joint", "joint_fft"):
+    if preset in ("joint", "joint_default", "joint_fft"):
         cfg = get_config("joint")
         head = "fft" if preset == "joint_fft" else "direct"
-        return cfg.replace(detector=dataclasses.replace(cfg.detector, head_conv_impl=head))
+        cfg = cfg.replace(detector=dataclasses.replace(cfg.detector, head_conv_impl=head))
+        return with_mrf_precision(cfg, "default" if preset == "joint_default" else "high")
     cfg = get_config("flagship")
     return cfg.replace(mrf=dataclasses.replace(cfg.mrf, impl="pallas"))
 

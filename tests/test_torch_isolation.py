@@ -77,7 +77,8 @@ def test_fit_modules_are_among_the_guarded_sources():
     assert {"jointpose_torch/train.py", "jointpose_torch/evaluate.py", "jointpose_torch/priors.py",
             "jointpose_torch/checkpoint.py", "jointpose_torch/metrics.py",
             "jointpose_torch/data/flic.py", "jointpose_torch/data/synthetic.py",
-            "jointpose_torch/data/pipeline.py", "profile_epilogue_fwd.py"} <= names
+            "jointpose_torch/data/pipeline.py", "profile_epilogue_fwd.py",
+            "jointpose_torch/serve.py", "jointpose_torch/resilience.py"} <= names
 
 
 def test_synthetic_source_and_evaluation_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
@@ -120,3 +121,15 @@ def test_trainer_needs_cuda_unless_asked_for_cpu(monkeypatch):
     state = create_state(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert {p.device.type for p in state.model.parameters()} == {"cpu"}
     assert state.generator.device.type == "cpu" and state.step == 0
+
+
+def test_server_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    from jointpose_torch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_config("tiny")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.PoseService(cfg, str(tmp_path), batch_size=2, device=device)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--config", "tiny", "--checkpoint", str(tmp_path)])

@@ -148,8 +148,7 @@ FFT_TAIL_CASES = [((60, 90), (45, 67), 2, K, K, False), ((12, 16), (11, 15), 2, 
                   ((100, 40), (37, 21), 1, K, K, False), ((12, 16), (11, 15), 32, K, K, False)]
 
 
-@pytest.mark.parametrize("hw,win,batch,kv,ka,peaked", FFT_TAIL_CASES)
-def test_fft_tail_kernel_matches_plain(cuda, hw, win, batch, kv, ka, peaked):
+def _fft_tail_operands(cuda, hw, win, batch, kv, ka, peaked):
     g = torch.Generator().manual_seed(0)
     logits = (40.0 if peaked else 1.0) * torch.randn(batch, hw[0] * hw[1], kv, generator=g)
     p = logits.softmax(dim=1).reshape(batch, *hw, kv).to(cuda)
@@ -163,8 +162,12 @@ def test_fft_tail_kernel_matches_plain(cuda, hw, win, batch, kv, ka, peaked):
         kernels = kernels * (torch.rand(kernels.shape, generator=g) < 0.5).to(cuda)
         biases = torch.nn.functional.softplus(torch.randn(kv, ka, generator=g) - 9).to(cuda)
     pf, kf, tables = forward_ffts(p, kernels)
-    pf = tuple(t.contiguous() for t in pf)
-    kf = tuple(t.contiguous() for t in kf)
+    return tuple(t.contiguous() for t in pf), tuple(t.contiguous() for t in kf), tables, biases
+
+
+@pytest.mark.parametrize("hw,win,batch,kv,ka,peaked", FFT_TAIL_CASES)
+def test_fft_tail_kernel_matches_plain(cuda, hw, win, batch, kv, ka, peaked):
+    pf, kf, tables, biases = _fft_tail_operands(cuda, hw, win, batch, kv, ka, peaked)
     before = tmff.fused_tail.launches
     got = tmff.fused_tail(pf, kf, tables, biases)
     assert tmff.fused_tail.launches == before + 1
@@ -313,3 +316,67 @@ def test_fft_conv_tail_wrappers_raise(cuda):
     big = _tail_operands((17, 13, 10, 5, 8, 32), torch.float32, cuda)
     with pytest.raises(ValueError, match="tail_fits"):
         tfc.tail_kdft_resident(*big[1:], big[0])  # more than 16 images in one block
+
+
+# The single-pass form (MRF precision 'default'): against fp32 the
+# reference's bar for single-pass precision, 0.4% max relative output
+# error (jointpose/evaluate.py --mrf-precision); against its own arithmetic
+# in plain PyTorch the summation order alone differs, which can move a
+# TF32 rounding of T by one step.
+SINGLE_PASS_RTOL = 4e-3
+
+
+@pytest.mark.parametrize("hw,win,batch,kv,ka,peaked", FFT_TAIL_CASES)
+def test_fft_tail_single_pass_kernel_matches_plain(cuda, hw, win, batch, kv, ka, peaked):
+    pf, kf, tables, biases = _fft_tail_operands(cuda, hw, win, batch, kv, ka, peaked)
+    before = (tmff.fused_tail.launches, tmff.fused_tail.launches_1pass)
+    got = tmff.fused_tail(pf, kf, tables, biases, precision="default")
+    assert (tmff.fused_tail.launches, tmff.fused_tail.launches_1pass) == (before[0], before[1] + 1)
+    emulated = tmff.fused_tail_emulated(pf, kf, tables, biases, passes=1)
+    assert got.shape == emulated.shape == (batch, ka, *hw)
+    assert _rel(got, emulated) <= KERNEL_RTOL
+    if not peaked:  # responses far below the biases are where one pass errs most
+        assert _rel(got, tmff.fused_tail_plain(pf, kf, tables, biases)) <= SINGLE_PASS_RTOL
+    assert torch.equal(tmff.fused_tail(pf, kf, tables, biases, precision="default"), got)
+
+
+def test_spatial_model_gradients_at_default_precision_on_card_match_cpu(cuda):
+    """The autograd guard of the single-pass form: its forward and the
+    backward's recompute at one TF32 pass, against fp32 on the CPU."""
+    mrf = MRFConfig(window=(5, 7), impl="fft", use_pallas=True, precision="default")
+    p, _, _ = _inputs((12, 16), (5, 7), 2, torch.float32, "cpu", seed=4)
+    cot = torch.randn(p.shape, generator=torch.Generator().manual_seed(5))
+    before = tmff.fused_tail.launches_1pass
+    grads = {}
+    for device in ("cpu", cuda):
+        model = SpatialModel(mrf, K).to(device)
+        with torch.no_grad():
+            model.raw_kernels += 0.5 * torch.randn(
+                model.raw_kernels.shape, generator=torch.Generator().manual_seed(6)).to(device)
+        (model(p.to(device)) * cot.to(device)).sum().backward()
+        grads[torch.device(device).type] = (model.raw_kernels.grad, model.raw_bias.grad)
+    assert tmff.fused_tail.launches_1pass == before + 1
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert got is not None and got.abs().max() > 0
+        assert _rel(got.cpu(), want) <= SINGLE_PASS_RTOL
+
+
+def test_high_precision_ignores_the_global_tf32_flag(cuda):
+    """'high' is fp32 whatever the process-wide flag says, and the flag is
+    put back; 'default' is one TF32 pass whatever it says."""
+    from jointpose_torch.ops.mrf_fft import mrf_message_pass_fft
+
+    p, kernels, biases = _inputs((30, 40), (21, 31), 2, torch.float32, cuda, seed=7)
+    fns = (mrf_message_pass_fft, tmff.mrf_message_pass_fft_fused)
+    want = {(fn, prec): fn(p, kernels, biases, precision=prec)
+            for fn in fns for prec in ("high", "default")}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for (fn, prec), out in want.items():
+            assert torch.equal(fn(p, kernels, biases, precision=prec), out)
+            assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for fn in fns:
+        one, fp32 = want[fn, "default"], want[fn, "high"]
+        assert not torch.equal(one, fp32) and _rel(one, fp32) <= SINGLE_PASS_RTOL

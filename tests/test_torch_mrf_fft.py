@@ -208,3 +208,110 @@ def test_stacked_inverse_tables_match_reference(hw, win):
     np.testing.assert_array_equal(ir[h:, ph:], want["ir_re"])
     np.testing.assert_array_equal(ic[:g], want["ic_re"].T)
     np.testing.assert_array_equal(ic[g:], -want["ic_im"].T)
+
+
+# One TF32 pass (the kernel at precision 'default') against fp32 products:
+# the reference's bar for its single-pass precision, 0.4% max relative
+# output error (jointpose/evaluate.py --mrf-precision).
+SINGLE_PASS_RTOL = 4e-3
+
+
+def _sparse_kernel_inputs(hw, win, batch=2, seed=10):
+    """chip_smoke.py's small-response operands: unaries concentrated on a
+    few pixels, kernels near the spatial model's uniform init with half of
+    their taps zero, half of the biases 1e-8."""
+    rs = np.random.RandomState(seed)
+    logits = 40.0 * rs.randn(batch, hw[0] * hw[1], K)
+    logits -= logits.max(axis=1, keepdims=True)
+    p = np.exp(logits) / np.exp(logits).sum(axis=1, keepdims=True)
+    p = p.reshape(batch, *hw, K).astype(np.float32)
+    raw = np.log(np.expm1(1.0 / (win[0] * win[1]))) + 0.5 * rs.randn(*win, K, K)
+    kernels = np.log1p(np.exp(raw)) * (rs.rand(*win, K, K) < 0.5)
+    biases = np.log1p(np.exp(np.log(np.expm1(1e-4)) + rs.randn(K, K)))
+    biases[rs.rand(K, K) < 0.5] = 1e-8
+    return p, kernels.astype(np.float32), biases.astype(np.float32)
+
+
+SINGLE_PASS_CASES = {
+    "12x18_7x11": EMULATED_CASES["12x18_7x11"],
+    "15x22_29x43": EMULATED_CASES["15x22_29x43"],
+    "sparse_kernels": lambda: _sparse_kernel_inputs((15, 22), (29, 43)),
+}
+
+
+@pytest.mark.parametrize("case", list(SINGLE_PASS_CASES))
+def test_fused_tail_emulated_single_pass_stays_within_the_reference_bar(case):
+    p, kernels, biases = SINGLE_PASS_CASES[case]()
+    pf, kf, tables = tmf.forward_ffts(torch.from_numpy(p), torch.from_numpy(kernels))
+    b = torch.from_numpy(biases)
+    one = tmff.fused_tail_emulated(pf, kf, tables, b, passes=1)
+    three = tmff.fused_tail_emulated(pf, kf, tables, b, passes=3)
+    want = tmff.fused_tail_plain(pf, kf, tables, b)
+    assert _rel(one, want) <= SINGLE_PASS_RTOL
+    # One pass really is coarser than three: it is not the 3xTF32 arithmetic.
+    assert _rel(one, want) > _rel(three, want)
+    with pytest.raises(ValueError, match="passes"):
+        tmff.fused_tail_emulated(pf, kf, tables, b, passes=2)
+
+
+def test_matmul_tf32_is_the_product_of_rounded_operands():
+    rs = np.random.RandomState(8)
+    a = torch.from_numpy(rs.randn(3, 16, 24).astype(np.float32))
+    b = torch.from_numpy(rs.randn(24, 8).astype(np.float32))
+    a_hi, b_hi = tmff.tf32_split(a)[0], tmff.tf32_split(b)[0]
+    assert torch.equal(tmff.matmul_tf32(a, b), torch.matmul(a_hi, b_hi))
+    # Each product of two TF32 values is exact in fp64, so the fp32 sums
+    # are the only rounding: within a few fp32 steps of the fp64 product.
+    exact = torch.matmul(a_hi.double(), b_hi.double())
+    assert (tmff.matmul_tf32(a, b).double() - exact).abs().max() <= 1e-5
+    # And the rounding is visible against the fp32 product.
+    assert not torch.equal(tmff.matmul_tf32(a, b), torch.matmul(a, b))
+
+
+def _mrf_functions():
+    from jointpose_torch.ops.mrf_epilogue import mrf_message_pass_pallas
+    from jointpose_torch.ops.mrf_xla import mrf_message_pass_coarse, mrf_message_pass_xla
+
+    return {
+        "xla": mrf_message_pass_xla,
+        "coarse": lambda *a, **kw: mrf_message_pass_coarse(*a, stride=2, **kw),
+        "pallas": mrf_message_pass_pallas,
+        "fft": tmf.mrf_message_pass_fft,
+        "fft_fused": tmff.mrf_message_pass_fft_fused,
+    }
+
+
+@pytest.mark.parametrize("name", ["xla", "coarse", "pallas", "fft", "fft_fused"])
+def test_default_precision_equals_high_on_the_cpu(name):
+    fn = _mrf_functions()[name]
+    p, kernels, biases = map(torch.from_numpy, _inputs((12, 18), (7, 11), seed=9))
+    high = fn(p, kernels, biases, eps=1e-6, precision="high")
+    assert torch.equal(fn(p, kernels, biases, eps=1e-6, precision="default"), high)
+    assert torch.equal(fn(p, kernels, biases, eps=1e-6), high)
+    with pytest.raises(ValueError, match="precision"):
+        fn(p, kernels, biases, eps=1e-6, precision="bf16")
+
+
+def test_matmul_precision_leaves_the_flags_as_it_found_them():
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    for precision in (None, "high", "default"):
+        # On the CPU the helper changes nothing.
+        with tmf.matmul_precision(precision, torch.device("cpu")):
+            assert flags.allow_tf32 == before
+    def tf32_now():
+        # Inside the helper only the newer per-backend setting may be read,
+        # where this PyTorch has it (it and the legacy flag do not mix).
+        if hasattr(flags, "fp32_precision"):
+            return flags.fp32_precision == "tf32"
+        return flags.allow_tf32
+
+    try:
+        for outer in (False, True):
+            flags.allow_tf32 = outer
+            for precision, tf32 in ((None, False), ("high", False), ("default", True)):
+                with tmf.matmul_precision(precision, torch.device("cuda")):
+                    assert tf32_now() == tf32
+                assert flags.allow_tf32 == outer
+    finally:
+        flags.allow_tf32 = before

@@ -6,7 +6,9 @@ Two MRF paths: the Fourier pass through the fused tail (`impl='fft'`,
 `use_pallas=True`; the reference's Pallas kernel in interpret mode), and
 the coarse stride-2 pass through the fused epilogue (`impl='pallas'`).
 The first also runs with the Fourier head conv (`head_conv_impl='fft'`,
-the reference's fused tail in interpret mode) in place of the direct one."""
+the reference's fused tail in interpret mode) in place of the direct one.
+Each path also runs at MRF precision 'default', the serving default, with
+the JAX side built by with_mrf_precision (on the CPU both are fp32)."""
 
 import dataclasses
 
@@ -17,9 +19,11 @@ import pytest
 import torch
 
 from jointpose.configs import get_config as jax_get_config
+from jointpose.configs import with_mrf_precision as jax_with_mrf_precision
 from jointpose.models.pose import PoseModel as JaxPoseModel
 from jointpose.ops.heatmaps import decode_probs, model_probs
 from jointpose_torch import get_config
+from jointpose_torch.configs import with_mrf_precision
 from jointpose_torch.convert import params_from_flax
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.predict import build_predictor, init_state_dict
@@ -40,15 +44,16 @@ PATHS = {
 HEADS = {"fft_fused_fft_head": "fft"}
 
 
-def _configs(path: str, normalize_input: bool):
+def _configs(path: str, normalize_input: bool, precision: str = "high"):
     out = []
-    for get in (jax_get_config, get_config):
+    for get, with_precision in ((jax_get_config, jax_with_mrf_precision),
+                                (get_config, with_mrf_precision)):
         cfg = get("tiny")
-        out.append(cfg.replace(
+        out.append(with_precision(cfg.replace(
             detector=dataclasses.replace(cfg.detector, head_conv_impl=HEADS.get(path, "direct")),
             mrf=dataclasses.replace(cfg.mrf, normalize_input=normalize_input, **PATHS[path]),
             decode_refine=True,
-        ))
+        ), precision))
     return out
 
 
@@ -60,7 +65,18 @@ def _rel(got, want):
 @pytest.mark.parametrize("path", sorted(PATHS))
 @pytest.mark.parametrize("normalize_input", [True, False])
 def test_served_slice_matches_reference(path, normalize_input):
-    jcfg, tcfg = _configs(path, normalize_input)
+    _check_served_slice(path, normalize_input, "high")
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("normalize_input", [True, False])
+def test_served_slice_matches_reference_at_default_precision(path, normalize_input):
+    _check_served_slice(path, normalize_input, "default")
+
+
+def _check_served_slice(path, normalize_input, precision):
+    jcfg, tcfg = _configs(path, normalize_input, precision)
+    assert jcfg.mrf.precision == tcfg.mrf.precision == precision
     rs = np.random.RandomState(0)
     images = rs.randint(0, 256, size=(2, *jcfg.data.image_hw, 3)).astype(np.uint8)
     jmodel = JaxPoseModel(jcfg)
@@ -130,7 +146,21 @@ def test_flip_tta_predictor_matches_reference(path):
     assert _rel(plain, probs_j) > MRF_RTOL
 
 
-def test_unported_options_raise():
-    cfg = get_config("tiny")
-    with pytest.raises(NotImplementedError, match="precision"):
-        PoseModel(cfg.replace(mrf=dataclasses.replace(cfg.mrf, precision="default")))
+def test_unported_options_raise(tmp_path):
+    """MRF precision 'default' is ported: the model builds and serves.
+    What is not ported yet raises, naming ROADMAP.md."""
+    from jointpose_torch import serve
+
+    cfg = with_mrf_precision(get_config("tiny"), "default")
+    model = PoseModel(cfg)
+    assert model.spatial_model.config.precision == "default"
+    coords, _ = build_predictor(cfg, init_state_dict(cfg, torch.Generator().manual_seed(0)),
+                                device="cpu")(torch.zeros(1, *cfg.data.image_hw, 3, dtype=torch.uint8))
+    assert coords.shape == (1, cfg.num_joints, 2)
+    with pytest.raises(ValueError, match="precision"):
+        PoseModel(cfg.replace(mrf=dataclasses.replace(cfg.mrf, precision="bf16")))
+    for flags in (["--quantize", "1"], ["--quantize-artifact", "q.npz"], ["--mesh-data", "2"],
+                  ["--mesh-model", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.main(["--config", "tiny", "--checkpoint", str(tmp_path), "--device", "cpu",
+                        *flags])
