@@ -20,11 +20,15 @@ the package is missing.  Phases, each fatal on failure:
    be bit-identical to it) and backward (twice, bit-identical), the
    fused Fourier MRF tail in both forms, 3xTF32 and one TF32 pass (on
    dense unaries and on unaries concentrated on a few pixels), both
-   shear-warp entries on a random full augmentation draw, and the three
-   Fourier head-conv tails at the paper head (bf16 and f32, and against
-   each other); then ``fft_conv2d`` against cuDNN's direct conv in f32;
-   and the Fourier MRF pass at 'high' with TF32 switched on globally
-   against the same with it off (bit-equal: precision is the call's);
+   shear-warp entries on a random full augmentation draw and the fused
+   one on extreme maps (bit-equal to its two-pass form, which stays as a
+   timed entry), and the three Fourier head-conv tails at the paper head
+   (bf16 and f32, and against each other; the build form's ring version
+   also against its register-staged version, and at training batch 32);
+   then ``fft_conv2d`` against cuDNN's direct conv in f32; and the
+   Fourier MRF pass at 'high' with TF32 switched on globally against the
+   same with it off, forward and gradients (bit-equal: precision is the
+   call's);
 3. serve the paper ``joint`` preset at full width (bf16, direct head
    conv, seeded random weights): 4 requests of 8 uint8 240×360 images,
    through the fused Fourier MRF tail kernel;
@@ -54,7 +58,11 @@ the package is missing.  Phases, each fatal on failure:
    whole ``fit`` of 4 + 4 steps, and the synthetic source;
 10. time each kernel and its plain version at the main-path shape, the
    epilogue forward also against its first design and an empty launch,
-   the two forms of the Fourier MRF tail in turns.
+   in turns: the two forms of the Fourier MRF tail, the fused shear warp
+   and its two-pass form (and the fused kernel's strip widths), the
+   head-conv tail's ring and register-staged versions at batch 8 and 32;
+   then the Fourier head against cuDNN and served ``joint`` with either
+   head at batch 1, 8, 16 and 32.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -202,6 +210,25 @@ def bound(n_bytes: int, n_flops: int, peak: float = FP32_FLOPS_PER_S) -> tuple[f
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def extreme_affines(batch: int, h: int, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a_inv, b_inv) on the card for ``batch`` images, cycling through maps
+    beyond the augmentation preset's ranges: rotations of ±60° and ±45°,
+    scales 0.5 and 2, flips, shifts about the centre, and a map whose a11
+    is small but nonzero."""
+    maps = []
+    for angle, scale, flip in ((60.0, 0.5, 1.0), (-60.0, 2.0, -1.0), (45.0, 2.0, 1.0),
+                               (-45.0, 0.5, -1.0)):
+        t = math.radians(angle)
+        rot = torch.tensor([[math.cos(t), -math.sin(t)], [math.sin(t), math.cos(t)]])
+        maps.append(rot @ torch.diag(torch.tensor([flip, 1.0])) / scale)
+    maps.append(torch.tensor([[0.3, 1.1], [-0.9, 1e-3]]))
+    a_inv = torch.stack([maps[i % len(maps)] for i in range(batch)]).float()
+    centre = torch.tensor([(w - 1) / 2, (h - 1) / 2])
+    shift = torch.tensor([[3.0 * (i % 3) - 3.0, 2.0 - i % 5] for i in range(batch)])
+    b_inv = centre - torch.einsum("bij,j->bi", a_inv, centre) + shift
+    return a_inv.cuda(), b_inv.float().cuda()
+
+
 def unaries(gen: torch.Generator, b: int, h: int, w: int, k: int, dtype,
             sharpness: float = 1.0) -> torch.Tensor:
     """Spatially softmaxed random heatmaps (B, H, W, K) on the card; a large
@@ -242,8 +269,8 @@ def reset(counters: dict) -> None:
         fn.launches = 0
 
 
-def serve(config, seed: int, counters: dict, requests: int = REQUESTS) -> dict:
-    """Serve ``requests`` requests of ``BATCH`` uint8 images; return timings,
+def serve(config, seed: int, counters: dict, requests: int = REQUESTS, batch: int = BATCH) -> dict:
+    """Serve ``requests`` requests of ``batch`` uint8 images; return timings,
     launch counts, the decoded coordinates and the heatmaps."""
     from jointpose_torch.predict import build_predictor, init_state_dict
 
@@ -251,7 +278,7 @@ def serve(config, seed: int, counters: dict, requests: int = REQUESTS) -> dict:
     predict = build_predictor(config, state)
     h, w = config.data.image_hw
     rng = np.random.default_rng(seed)
-    images = torch.from_numpy(rng.integers(0, 256, (requests, BATCH, h, w, 3), dtype=np.uint8))
+    images = torch.from_numpy(rng.integers(0, 256, (requests, batch, h, w, 3), dtype=np.uint8))
     images = images.cuda()
     predict(images[0])  # warm-up: cuDNN algorithm choice, DFT tables
     torch.cuda.synchronize()
@@ -268,8 +295,8 @@ def serve(config, seed: int, counters: dict, requests: int = REQUESTS) -> dict:
         all_coords.append(coords.cpu())
         all_probs.append(probs.cpu())
         hm = config.heatmap_hw
-        check(tuple(coords.shape) == (BATCH, config.num_joints, 2), f"coords shape {tuple(coords.shape)}")
-        check(tuple(probs.shape) == (BATCH, *hm, config.num_joints), f"probs shape {tuple(probs.shape)}")
+        check(tuple(coords.shape) == (batch, config.num_joints, 2), f"coords shape {tuple(coords.shape)}")
+        check(tuple(probs.shape) == (batch, *hm, config.num_joints), f"probs shape {tuple(probs.shape)}")
         check(bool(torch.isfinite(coords).all()) and bool(torch.isfinite(probs).all()),
               "non-finite output")
         check(bool(((coords[..., 0] >= 0) & (coords[..., 0] <= w - 1)).all()
@@ -426,7 +453,7 @@ def fit_phase(config, counters: dict, smi: str) -> None:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
-        want = {"shear_warp": 2 * (det + joint), "mrf_epilogue_bwd": joint,
+        want = {"shear_warp": det + joint, "mrf_epilogue_bwd": joint,
                 "mrf_epilogue": joint + evals}
         for name, n in want.items():
             check(launches[name] == n, f"fit: {name} launched {launches[name]} times, not {n}")
@@ -486,7 +513,7 @@ def fit_phase(config, counters: dict, smi: str) -> None:
               "fit(resume=True) did not resume after the prior init")
         check(resumed.state.step == det + joint + 2
               and counters["mrf_epilogue_bwd"].launches == 2
-              and counters["shear_warp"].launches == 4,
+              and counters["shear_warp"].launches == 2,
               f"fit(resume=True) did not take exactly 2 steps: step {resumed.state.step}, "
               f"{counters['mrf_epilogue_bwd'].launches} backward launches")
         moved = (resumed.state.model.spatial_model.raw_kernels - kernels_before).abs().max().item()
@@ -752,7 +779,10 @@ def main() -> int:
     )
     from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_emulated, fused_tail_plain
     from jointpose_torch.ops.mrf_xla import pairwise_conv
-    from jointpose_torch.ops.warp import shear_warp, shear_warp_reference, shear_warp_rowmajor
+    from jointpose_torch.ops import warp as warp_ops
+    from jointpose_torch.ops.warp import (
+        shear_warp, shear_warp_reference, shear_warp_rowmajor, shear_warp_two_pass,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -909,6 +939,21 @@ def main() -> int:
         print(f"kernel {fn.__name__} {tuple(images.shape)}: max abs err "
               f"{warp_err[fn.__name__]:.3e} (limit {WARP_ATOL:g})")
         check(warp_err[fn.__name__] <= WARP_ATOL, f"{fn.__name__} disagrees with its plain version")
+    # The fused kernel goes through the two-pass kernel's fp32 operations in
+    # the same order: bit-equal to it, on the draw and on extreme maps.
+    for what, (ai_, bi_) in (("the random full draw", (a_inv, b_inv)),
+                             ("extreme maps", extreme_affines(tb, h, w))):
+        fused = shear_warp(images, ai_, bi_)
+        two = shear_warp_two_pass(images, ai_, bi_)
+        err = (fused - shear_warp_reference(images, ai_, bi_)).abs().max().item()
+        torch.cuda.synchronize()
+        same = torch.equal(fused, two)
+        print(f"kernel shear_warp (fused, strips of {warp_ops.strip_width(h, 3)} columns) on {what}: "
+              f"{'bit-equal to' if same else 'DIFFERENT from'} its two-pass form; max abs err "
+              f"{err:.3e} from the plain version (limit {WARP_ATOL:g})")
+        check(same, f"the fused shear warp differs from its two-pass form on {what}")
+        check(err <= WARP_ATOL, f"the fused shear warp disagrees with its plain version on {what}")
+    del fused, two
 
     # --- kernels 4-6: the three Fourier head-conv tails at the paper head
     # (60x90, 9x9, 128 -> 512, serving batch), on the spectra the conv's own
@@ -939,6 +984,24 @@ def main() -> int:
                   f"{conv_tail_err[name, dtype][1]:.3e}")
             check(conv_tail_err[name, dtype][0] <= TAIL_RTOL[dtype],
                   f"{name} {dtype} disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            # The build form's path runs the ring version; its register-staged
+            # version, the timed entry it replaced, against both.
+            nph = ops[0].shape[1]
+            bodies = {name: fc.tail_body(name.removeprefix("fft_conv_tail_"), nph, BATCH, ci, co,
+                                         kk, jh, 2) for name in tails}
+            check(bodies == {"fft_conv_tail_kdft_resident": "ring", "fft_conv_tail_kdft": "ring",
+                             "fft_conv_tail_kf": "regstaged"}, f"head-conv tail bodies {bodies}")
+            reg = fc.tail_kdft_regstaged(*ops, ct)
+            torch.cuda.synchronize()
+            reg_err = rel_err(reg, want)
+            ring_reg = rel_err(outs["fft_conv_tail_kdft_resident"], reg)
+            print(f"kernel bodies {bodies}; the register-staged version against the plain version: "
+                  f"rel err {reg_err[0]:.3e}; the ring version against it: rel err {ring_reg[0]:.3e}, "
+                  f"max abs {ring_reg[1]:.3e} (limit {TAIL_RTOL[dtype]:g})")
+            check(reg_err[0] <= TAIL_RTOL[dtype] and ring_reg[0] <= TAIL_RTOL[dtype],
+                  "the ring and register-staged head-conv tails disagree")
+            del reg
         if dtype == torch.float32:
             names = list(tails)
             for i, a in enumerate(names):
@@ -947,6 +1010,23 @@ def main() -> int:
                     print(f"kernels {a} vs {b} (f32): rel err {err:.3e}")
                     check(err <= TAIL_RTOL[dtype], f"{a} and {b} disagree in f32")
         del want, outs
+    # The batch-tiled entry at training batch 32: four batch tiles, the ring.
+    feats32 = torch.randn(tb, jh, jw, ci, generator=gen).relu().cuda().bfloat16()
+    (xr, xi), (a_re, a_im), ct = fc.forward_spectra(feats32, hkernel)
+    tail32_args = (xr, xi, a_re, a_im, ct)
+    check(fc.select_tail(xr.shape[1], tb, kk, 2) == "kdft"
+          and fc.tail_body("kdft", xr.shape[1], tb, ci, co, kk, jh, 2) == "ring",
+          "batch 32 does not take the batch-tiled ring version")
+    got32, reg32 = fc.tail_kdft(*tail32_args), fc.tail_kdft_regstaged(*tail32_args)
+    want32 = fc.tail_kdft_plain(*tail32_args)
+    torch.cuda.synchronize()
+    err32, reg_err32 = rel_err(got32, want32), rel_err(got32, reg32)
+    print(f"kernel fft_conv_tail_kdft bf16 at batch {tb} (ring): rel err {err32[0]:.3e} (limit "
+          f"{TAIL_RTOL[torch.bfloat16]:g}), max abs {err32[1]:.3e}; against the register-staged "
+          f"version rel {reg_err32[0]:.3e}")
+    check(err32[0] <= TAIL_RTOL[torch.bfloat16] and reg_err32[0] <= TAIL_RTOL[torch.bfloat16],
+          "fft_conv_tail_kdft at batch 32 disagrees")
+    del got32, reg32, want32, feats32
     # The whole function in f32 against cuDNN's direct conv (TF32 off).
     with torch.no_grad():
         got = fc.fft_conv2d(feats[:2], hkernel)
@@ -977,7 +1057,29 @@ def main() -> int:
           f"too); at 'default' (TF32) it differs by rel {one_err[0]:.3e} (limit {SINGLE_PASS_RTOL:g})")
     check(flag_same, "'high' follows the global TF32 flag")
     check(0 < one_err[0] <= SINGLE_PASS_RTOL, "'default' is not one TF32 pass within the bar")
-    del flagged, fp32_pass, one_pass
+    # The gradients too: the backward's products run at the call's precision,
+    # whatever the flag says when the caller's backward runs.
+    cot = torch.randn(flagged.shape, generator=gen).cuda()
+
+    def plain_pass_grads(precision: str) -> tuple[torch.Tensor, ...]:
+        inputs = [t.detach().clone().requires_grad_(True) for t in (p2, kern2, bias2)]
+        out = mrf_message_pass_fft(*inputs, precision=precision)
+        return torch.autograd.grad((out * cot).sum(), inputs)
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    grads_flagged = plain_pass_grads("high")
+    check(torch.backends.cuda.matmul.allow_tf32, "the Fourier MRF backward did not put the TF32 flag back")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grads_fp32, grads_one = plain_pass_grads("high"), plain_pass_grads("default")
+    torch.cuda.synchronize()
+    grads_same = all(torch.equal(a, b) for a, b in zip(grads_flagged, grads_fp32))
+    grads_err = max(rel_err(a, b)[0] for a, b in zip(grads_one, grads_fp32))
+    print(f"precision is the call's in the backward: the plain Fourier MRF pass's gradients at 'high' "
+          f"with TF32 on globally are {'bit-equal to' if grads_same else 'DIFFERENT from'} those with it "
+          f"off; at 'default' they differ by rel {grads_err:.3e} (worst of p, kernels, biases)")
+    check(grads_same, "the plain pass's gradients at 'high' follow the global TF32 flag")
+    check(grads_err > 0, "the plain pass's gradients at 'default' are not one TF32 pass")
+    del flagged, fp32_pass, one_pass, grads_flagged, grads_fp32, grads_one
 
     # --- the main paths.
     counters = {"mrf_epilogue": mrf_epilogue, "mrf_epilogue_bwd": mrf_epilogue_bwd,
@@ -1059,7 +1161,7 @@ def main() -> int:
           f"{tb / trained['p50_ms'] * 1e3:.1f} images/s, step times {trained['step_ms']}, "
           f"launches {trained['launches']}, on {smi}")
     print(f"train flagship metrics per step: {trained['metrics']}")
-    want_launches = {"shear_warp": 2 * TRAIN_STEPS, "mrf_epilogue": TRAIN_STEPS,
+    want_launches = {"shear_warp": TRAIN_STEPS, "mrf_epilogue": TRAIN_STEPS,
                      "mrf_epilogue_bwd": TRAIN_STEPS}
     for name, n in want_launches.items():
         check(trained["launches"][name] == n,
@@ -1212,6 +1314,18 @@ def main() -> int:
         },
     ]
     plain_warp_ms = time_ms(lambda: shear_warp_reference(images, a_inv, b_inv), runs=5, per_graph=1)
+    # The fused warp and its two-pass form in turns: two-pass, fused, fused, two-pass.
+    warp_turns = [time_ms(lambda fn=fn: fn(images, a_inv, b_inv))
+                  for fn in (shear_warp_two_pass, shear_warp, shear_warp, shear_warp_two_pass)]
+    strips = {tw: time_ms(lambda tw=tw: warp_ops._fused(images, a_inv, b_inv, tw))
+              for tw in (4, 8, 16, 32, 64)}
+    warp_ms = {"shear_warp": min(warp_turns[1], warp_turns[2]),
+               "shear_warp_rowmajor": time_ms(lambda: shear_warp_rowmajor(images, a_inv, b_inv))}
+    print(f"time shear_warp in turns, two-pass / fused / fused / two-pass: "
+          f"{' / '.join(f'{t:.6f}' for t in warp_turns)} ms; the fused kernel by strip width "
+          f"{ {tw: round(t, 6) for tw, t in strips.items()} } ms (the shape rule picks "
+          f"{warp_ops.strip_width(h, 3)}); byte bound {b4:.6f} ms, {b4 / warp_ms['shear_warp']:.1%} of "
+          f"the fused kernel's time; on {smi}")
     for fn, line in ((shear_warp, 155), (shear_warp_rowmajor, 52)):
         kernels.append({
             "name": fn.__name__, "route": "cuda",
@@ -1219,7 +1333,7 @@ def main() -> int:
             "replaces": f"jointpose/ops/warp_pallas.py:{line}",
             "launches": trained["launches"][fn.__name__],
             "max_abs_err": warp_err[fn.__name__],
-            "ms": time_ms(lambda fn=fn: fn(images, a_inv, b_inv)),
+            "ms": warp_ms[fn.__name__],
             "plain_ms": plain_warp_ms,
             "bound_ms": b4, "bound_by": by4, "library_ms": None,
         })
@@ -1237,6 +1351,32 @@ def main() -> int:
         for fn, a in ((fc.tail_kdft_plain, x_ops),
                       (fc.tail_kf_plain, tail_args["fft_conv_tail_kf", torch.bfloat16]))
     }
+    # The build form's ring version and its register-staged version in turns
+    # (register-staged, ring, ring, register-staged) at serving batch 8
+    # through the resident entry and at training batch 32 through the
+    # batch-tiled one; the K_f-from-memory entry, whose kernel this change
+    # leaves as it was, beside them.
+    x8 = tail_args["fft_conv_tail_kdft_resident", torch.bfloat16]
+    ring_turns = {
+        8: [time_ms(lambda f=f: f(*x8)) for f in (fc.tail_kdft_regstaged, fc.tail_kdft_resident,
+                                                  fc.tail_kdft_resident, fc.tail_kdft_regstaged)],
+        tb: [time_ms(lambda f=f: f(*tail32_args)) for f in (fc.tail_kdft_regstaged, fc.tail_kdft,
+                                                             fc.tail_kdft, fc.tail_kdft_regstaged)],
+    }
+    kf_ms = time_ms(lambda: fc.tail_kf(*tail_args["fft_conv_tail_kf", torch.bfloat16]))
+    ng32, nph32 = tail32_args[0].shape[:2]
+    bound32 = bound(nbytes(*tail32_args[:4], tail32_args[4]["gr"], tail32_args[4]["ir_t"])
+                    + 2 * jh * ng32 * tb * co * 2,
+                    8 * nph32 * ci * co * ng32 * tb + 8 * jh * nph32 * co * ng32 * tb + kf_build,
+                    BF16_FLOPS_PER_S)
+    for batch, turns in ring_turns.items():
+        ring_ms, reg_ms = min(turns[1], turns[2]), min(turns[0], turns[3])
+        bt = bound32[0] if batch == tb else None
+        print(f"time the build form at batch {batch} in turns, register-staged / ring / ring / "
+              f"register-staged: {' / '.join(f'{t:.6f}' for t in turns)} ms; ring {ring_ms:.6f} ms "
+              f"against {reg_ms:.6f} ({ring_ms / reg_ms:.3f} of it)"
+              + (f"; byte bound at batch {tb} {bt:.6f} ms ({bt / ring_ms:.1%})" if bt else "")
+              + f"; fft_conv_tail_kf {kf_ms:.6f} ms; on {smi}")
     for (name, fn), line in zip(tails.items(), (478, 307, 284)):
         args = tail_args[name, torch.bfloat16]
         built = fn is not fc.tail_kf
@@ -1250,26 +1390,43 @@ def main() -> int:
             "replaces": f"jointpose/ops/fft_conv.py:{line}",
             "launches": tail_launches[name],
             "max_abs_err": conv_tail_err[name, torch.bfloat16][1],
-            "ms": time_ms(lambda fn=fn, args=args: fn(*args)),
+            "ms": (min(ring_turns[8][1], ring_turns[8][2]) if fn is fc.tail_kdft_resident
+                   else kf_ms if fn is fc.tail_kf else time_ms(lambda fn=fn, args=args: fn(*args))),
             "plain_ms": plain_tail_ms[fc.tail_kdft_plain if built else fc.tail_kf_plain],
             "bound_ms": bt, "bound_by": bby, "library_ms": None,
         })
         f32_ms = time_ms(lambda fn=fn, a=tail_args[name, torch.float32]: fn(*a), runs=10, per_graph=2)
         print(f"time {name} in f32 (not the served type): {f32_ms:.4f} ms on the device, on {smi}")
     # The path's yardstick: the whole Fourier conv beside cuDNN's direct one
-    # for the same head, bf16, serving batch (TF32 plays no part in bf16).
-    feats16 = feats.bfloat16()
-    nchw16 = feats16.permute(0, 3, 1, 2).contiguous()
+    # for the same head (one PyTorch call), bf16 (TF32 plays no part), and
+    # served joint with either head, at batch 1, 8, 16 and 32.
     oihw16 = hkernel.permute(3, 2, 0, 1).bfloat16().contiguous()
-    with torch.no_grad():
-        fft_ms = time_ms(lambda: fc.fft_conv2d(feats16, hkernel))
-        direct_ms = time_ms(lambda: torch.nn.functional.conv2d(nchw16, oihw16, padding=kk // 2))
     flops_direct, flops_fourier = fc.fourier_conv_flops((jh, jw), (kk, kk), ci, co)
-    print(f"yardstick, paper head {kk}x{kk}x{ci}->{co} at {jh}x{jw}, bf16, batch {BATCH}: fft_conv2d "
-          f"{fft_ms:.4f} ms, F.conv2d (cuDNN) {direct_ms:.4f} ms, ratio {fft_ms / direct_ms:.2f}; "
-          f"per image {flops_fourier / 1e9:.2f} GFLOP Fourier against {flops_direct / 1e9:.2f} direct; "
-          f"served joint p50 {served_fft['p50_ms']:.3f} ms/request with 'fft' against "
-          f"{served_joint['p50_ms']:.3f} with 'direct', on {smi}")
+    nph = tail_args["fft_conv_tail_kdft", torch.bfloat16][0].shape[1]
+    yardstick = {}
+    for batch in (1, BATCH, 16, tb):
+        fb = torch.randn(batch, jh, jw, ci, generator=gen).relu().cuda().bfloat16()
+        nchw = fb.permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            fft_ms = time_ms(lambda fb=fb: fc.fft_conv2d(fb, hkernel))
+            direct_ms = time_ms(lambda nchw=nchw: torch.nn.functional.conv2d(nchw, oihw16,
+                                                                             padding=kk // 2))
+        route = fc.select_tail(nph, batch, kk, 2)
+        body = fc.tail_body(route, nph, batch, ci, co, kk, jh, 2)
+        p50 = {head: serve(joint.replace(detector=dataclasses.replace(joint.detector,
+                                                                      head_conv_impl=head)),
+                           seed=1, counters=counters, batch=batch)["p50_ms"]
+               for head in ("fft", "direct")}
+        yardstick[batch] = {"fft_conv2d_ms": fft_ms, "cudnn_ms": direct_ms, "tail": route,
+                            "body": body, "served_p50_ms": p50}
+        print(f"yardstick, paper head {kk}x{kk}x{ci}->{co} at {jh}x{jw}, bf16, batch {batch}: "
+              f"fft_conv2d {fft_ms:.4f} ms (tail {route}, {body}), F.conv2d (cuDNN) "
+              f"{direct_ms:.4f} ms, ratio {fft_ms / direct_ms:.3f}; per image "
+              f"{flops_fourier / 1e9:.2f} GFLOP Fourier against {flops_direct / 1e9:.2f} direct; "
+              f"served joint p50 {p50['fft']:.3f} ms/request with 'fft' against "
+              f"{p50['direct']:.3f} with 'direct', on {smi}")
+        del fb, nchw
+    print(f"yardstick {json.dumps(yardstick)}")
     eager = {
         **{name: call_ms(lambda fn=fn, a=tail_args[name, torch.bfloat16]: fn(*a))
            for name, fn in tails.items()},

@@ -30,12 +30,16 @@
 // Bound on an H100: bytes for the function as counted (x, a and the output
 // once: 0.05 ms at the paper head, batch 8).  The work is 8*Ph*Kh*Ci*Co*G
 // flops for the build, 8*Ph*Ci*Co*G*B pointwise and 8*H*Ph*Co*G*B for the
-// inverse.  Two versions share the entries: scalar f32 FMAs on the CUDA
-// cores (f32 operands, which must keep full f32 products, and bf16 shapes
-// the other does not take), bound by those operations; and bf16 mma.sync
-// on the tensor cores (further down), where the loads of the operands from
-// L2 (`a` is re-read per row-bin chunk), shared-memory traffic and the
-// barriers between the stages take over from the arithmetic.
+// inverse.  Three versions share the entries, chosen in the entry by a
+// rule on the shapes (ops/fft_conv.tail_body repeats it): scalar f32 FMAs
+// on the CUDA cores (f32 operands, which must keep full f32 products, and
+// bf16 shapes the others do not take), bound by those operations; bf16
+// mma.sync on the tensor cores with operands staged through registers
+// (further down; the kf entry, and the build form's shapes the ring does
+// not take), and the ring version of the build form (last), where the
+// loads of the operands from L2 (`a` is re-read per row-bin chunk), the
+// barriers of the walk and the waves of one-per-SM blocks take over from
+// the arithmetic.
 //
 // Design of the CUDA-core version.  The TPU keeps a (Ph, Ci, CoT) K_f block
 // in VMEM across a sequential batch axis; a block here has 227 KB, and K_f[f,i,o] depends
@@ -640,6 +644,321 @@ __global__ void __launch_bounds__(kThreads) tail_mma_kernel(MmaArgs p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The ring version of the build form (the two kdft entries, bf16), taken
+// ahead of tail_mma_kernel<true> on the shapes it takes.  Cut out one stage
+// at a time (profile_tail_stages.py --version regstaged), the
+// register-staged version spends its time on the loads of the next step's
+// operands, the K_f build and the inverse row DFT: one step's loads go
+// global -> registers -> shared behind three block-wide barriers at 8 warps
+// an SM, the build pads its 18 taps to 32, and the inverse reads its table
+// from global memory per k-step.  Here:
+//   - every thread issues cp.async copies into a 3-stage shared-memory ring
+//     (the a' chunk and the X tiles of one step, zero-filled where ragged),
+//     two steps ahead, so a step's loads are in flight for two steps; two
+//     barriers a step;
+//   - 16 warps (one block of 512 threads an SM): warp w builds input
+//     channel w of the step and spends row bin w of the chunk, so a step
+//     has exactly one build tile column and one pointwise row bin per warp;
+//   - the build's taps are 16 + 8 (m16n8k16 and m16n8k8), not 32;
+//   - X reaches the pointwise product through ldmatrix from a swizzled tile;
+//   - the inverse row table is staged once per block into the ring, which
+//     is free after the walk.
+// The order of the walk stays row-bin chunk outer: R for all row bins of a
+// (g, 32-channel) tile is 160 KB in f32, more than registers or shared
+// memory hold beside the ring, so the a' chunk is still read once per
+// row-bin chunk (from L2).  Rounding points and the f32 sums are those of
+// the register-staged version; the sums run in another order.
+constexpr int kRingWarps = 16;
+constexpr int kRingThreads = kRingWarps * 32;
+constexpr int kRingStages = 3;
+constexpr int kRingTaps = 24;                         // a' rows: re 0..8, im 9..17, zero 18..23
+constexpr int kXTile = 16 * 32;                        // one row bin's X: 16 rows x 16 ci
+constexpr int kAStage = kRingTaps * kARow;
+constexpr int kRingStage = kAStage + kMmaF * kXTile;
+constexpr int kRRowRing = kTB * kCoT * 2 + 16;         // bytes per row of R (8 images x 32 co)
+static_assert(kMmaF * 16 * 2 == kRingThreads, "one 16-byte X copy a thread and step");
+static_assert(kMmaCi == kRingWarps && kMmaF == kRingWarps, "a warp per channel and row bin");
+
+__host__ __device__ constexpr long long ring_region_bytes(int ph, int h) {
+  const long long ring = (long long)kRingStages * kRingStage;
+  const long long table = (long long)round_up(2 * h, 32) * (round_up(2 * ph, 16) * 2 + 16);
+  return ring > table ? ring : table;
+}
+__host__ __device__ constexpr long long ring_smem_bytes(int ph, int h) {
+  return ring_region_bytes(ph, h) + 2LL * kKPart + (long long)round_up(2 * ph, 16) * kRRowRing +
+         (long long)round_up(ph, 16) * 2 * kMmaKp * 2;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const unsigned char* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__global__ void __launch_bounds__(kRingThreads, 1) tail_ring_kernel(MmaArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ph = p.ph, ci = p.ci, n_co = p.co, kh = p.kh, h = p.h;
+  const int kp = round_up(2 * ph, 16);
+  unsigned char* ring = smem_raw;  // the ring; after the walk, the inverse table
+  unsigned char* k_s = ring + ring_region_bytes(ph, h);  // (2, 16 f, 16 ci, 32 co)
+  unsigned char* r_s = k_s + 2 * kKPart;                  // (kp rows, 8 b, 32 co)
+  unsigned char* g_s = r_s + kp * kRRowRing;              // Gpack (Ph up to 16, 2, 32 taps)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int co0 = blockIdx.x * kCoT;
+  const int g = blockIdx.y;
+  const int b0 = blockIdx.z * p.tb;
+  const int nimg = min(p.tb, p.b - b0);
+
+  // R's padded rows are read by the inverse (against zero table columns),
+  // and the a' rows of taps past kh and rows 18..23 of every stage by the
+  // build (against zero Gpack columns): all zero once, never written.
+  for (int i = tid; i < kp * kRRowRing / 16; i += kRingThreads)
+    reinterpret_cast<uint4*>(r_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = tid; i < kRingStages * kRingTaps * (kARow / 16); i += kRingThreads) {
+    const int stage = i / (kRingTaps * (kARow / 16));
+    const int rem = i - stage * (kRingTaps * (kARow / 16));
+    const int row = rem / (kARow / 16);
+    if (row >= 18 || row - 9 * (row >= 9) >= kh)
+      reinterpret_cast<uint4*>(ring + stage * kRingStage + row * kARow)[rem - row * (kARow / 16)] =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  const int nc = ci / kMmaCi;
+  const int nsteps = (ph + kMmaF - 1) / kMmaF * nc;
+  // Copies of one step, fixed per thread up to the step's (f0, c0): up to
+  // three 16-byte pieces of the a' chunk (rows re 0..kh-1 and im 9..8+kh of
+  // 16 ci x 32 co) and one of the X tiles of 16 row bins (rows 0..7 xr of
+  // the block's images, 8..15 xi; the two 16-byte halves of a row swapped
+  // on rows 4..7 and 12..15, so that ldmatrix meets no bank twice).  Ragged
+  // row bins and images are zero-filled.
+  constexpr int kACopies = (18 * kMmaCi * 4 + kRingThreads - 1) / kRingThreads;
+  const __nv_bfloat16* a_src[kACopies];
+  int a_dst[kACopies];
+#pragma unroll
+  for (int k = 0; k < kACopies; ++k) {
+    const int u = tid + k * kRingThreads;
+    const int q = u & 3, c = (u >> 2) & 15, row = u >> 6;
+    const int part = row >= 9, y = row - 9 * part;
+    a_dst[k] = row < 18 && y < kh ? row * kARow + c * (kCoT * 2) + q * 16 : -1;
+    a_src[k] = (part ? p.ki : p.kr) + ((size_t)(g * kh + (a_dst[k] < 0 ? 0 : y)) * ci + c) * n_co +
+               co0 + q * 8;
+  }
+  const int x_half = tid & 1, x_r = (tid >> 1) & 15, x_fl = tid >> 5;
+  const bool x_img = (x_r & 7) < nimg;
+  const __nv_bfloat16* x_src =
+      (x_r >> 3 ? p.xi : p.xr) + ((size_t)(g * ph + x_fl) * p.b + b0 + (x_img ? x_r & 7 : 0)) * ci +
+      x_half * 8;
+  const int x_dst = kAStage + x_fl * kXTile + x_r * 32 + (x_half ^ ((x_r >> 2) & 1)) * 16;
+  auto issue = [&](int step) {
+    unsigned char* st = ring + (step % kRingStages) * kRingStage;
+    const int f0 = step / nc * kMmaF, c0 = step % nc * kMmaCi;
+#pragma unroll
+    for (int k = 0; k < kACopies; ++k)
+      if (a_dst[k] >= 0) cp_async16(st + a_dst[k], a_src[k] + (size_t)c0 * n_co, true);
+    const bool valid = x_img && f0 + x_fl < ph;
+    cp_async16(st + x_dst, valid ? x_src + ((size_t)f0 * p.b * ci + c0) : p.xr, valid);
+  };
+
+  // Gpack rides with the first step's copies, read from shared memory at
+  // the start of each row-bin chunk.
+  for (int u = tid; u < round_up(ph, 16) * 2 * kMmaKp * 2 / 16; u += kRingThreads)
+    cp_async16(g_s + u * 16, p.gpack + u * 8, true);
+  for (int s = 0; s < kRingStages - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+  uint32_t ga[2][4], gb[2][2];  // Gpack rows of the chunk: taps 0..15, taps 16..23
+  float acc_r[4][4], acc_i[4][4];
+  for (int step = 0; step < nsteps; ++step) {
+    const int f0 = step / nc * kMmaF;
+    const bool first = step % nc == 0, last = step % nc == nc - 1;
+    cp_async_wait<kRingStages - 2>();
+    __syncthreads();  // this step's operands have landed; the last step's K_f is spent
+    if (step + kRingStages - 1 < nsteps) issue(step + kRingStages - 1);
+    cp_async_commit();
+    if (first) {
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        const uint32_t* lo = reinterpret_cast<const uint32_t*>(
+            g_s + (((f0 + gq) * 2 + part) * kMmaKp + 2 * tq) * 2);
+        const uint32_t* hi = lo + 8 * 2 * kMmaKp / 2;
+        ga[part][0] = lo[0];
+        ga[part][1] = hi[0];
+        ga[part][2] = lo[4];
+        ga[part][3] = hi[4];
+        gb[part][0] = lo[8];
+        gb[part][1] = hi[8];
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_r[n][e] = acc_i[n][e] = 0.f;
+    }
+    const unsigned char* a_st = ring + (step % kRingStages) * kRingStage;
+    const unsigned char* x_st = a_st + kAStage;
+
+    // Build: input channel `warp` of the step, four 8-channel tiles.
+    const int trow = lane < 24 ? lane : lane - 8;  // lanes 24..31 repeat taps 16..23
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, a_st + trow * kARow + warp * (kCoT * 2) + n * 16);
+      float k_re[4] = {0.f, 0.f, 0.f, 0.f}, k_im[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(k_re, ga[0], bf[0], bf[1]);
+      mma_bf16_k8(k_re, gb[0][0], gb[0][1], bf[2]);
+      mma_bf16(k_im, ga[1], bf[0], bf[1]);
+      mma_bf16_k8(k_im, gb[1][0], gb[1][1], bf[2]);
+      unsigned char* dst = k_s + gq * kKF + warp * kKCi + (n * 8 + 2 * tq) * 2;
+      *reinterpret_cast<uint32_t*>(dst) = pack_bf16(k_re[0], k_re[1]);
+      *reinterpret_cast<uint32_t*>(dst + 8 * kKF) = pack_bf16(k_re[2], k_re[3]);
+      *reinterpret_cast<uint32_t*>(dst + kKPart) = pack_bf16(k_im[0], k_im[1]);
+      *reinterpret_cast<uint32_t*>(dst + kKPart + 8 * kKF) = pack_bf16(k_im[2], k_im[3]);
+    }
+    __syncthreads();  // K_f of the step is complete
+
+    // Pointwise: row bin `warp` of the chunk against K_re and K_im.
+    {
+      uint32_t xa[4];
+      const int r = (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
+      ldsm_x4(xa, x_st + warp * kXTile + r * 32 + (half ^ ((r >> 2) & 1)) * 16);
+      const unsigned char* kf_base = k_s + warp * kKF +
+                                   (((lane >> 3) & 1) * 8 + (lane & 7)) * kKCi + (lane >> 4) * 16;
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, kf_base + np * 32);
+        mma_bf16(acc_r[2 * np], xa, bf[0], bf[1]);
+        mma_bf16(acc_r[2 * np + 1], xa, bf[2], bf[3]);
+        ldsm_x4_trans(bf, kf_base + kKPart + np * 32);
+        mma_bf16(acc_i[2 * np], xa, bf[0], bf[1]);
+        mma_bf16(acc_i[2 * np + 1], xa, bf[2], bf[3]);
+      }
+    }
+    if (last) {
+      // R = conj(K_f) . X, rounded to bf16: rows f (re) and Ph + f (im).
+      const int f = f0 + warp;
+      if (f < ph) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          unsigned char* dst = r_s + f * kRRowRing + (gq * kCoT + n * 8 + 2 * tq) * 2;
+          *reinterpret_cast<uint32_t*>(dst) =
+              pack_bf16(acc_r[n][0] + acc_i[n][2], acc_r[n][1] + acc_i[n][3]);
+          *reinterpret_cast<uint32_t*>(dst + ph * kRRowRing) =
+              pack_bf16(acc_r[n][2] - acc_i[n][0], acc_r[n][3] - acc_i[n][1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // R is complete and the ring is free
+
+  // The inverse table into the ring, rows padded by 16 bytes.
+  const int ir_rows = round_up(2 * h, 32), ir_row = kp * 2 + 16, chunks = kp / 8;
+  for (int u = tid; u < ir_rows * chunks; u += kRingThreads) {
+    const int r = u / chunks, q = u - r * chunks;
+    cp_async16(ring + r * ir_row + q * 16, p.irpack + (size_t)r * kp + q * 8, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Inverse row DFT: warp = (image, half of the 32-row pairs of 2H).
+  const int bimg = warp & 7, mh = warp >> 3;
+  const unsigned char* rbase = r_s + (((lane >> 3) & 1) * 8 + (lane & 7)) * kRRowRing +
+                               (bimg * kCoT + (lane >> 4) * 8) * 2;
+  const unsigned char* ibase =
+      ring + ((lane & 7) + ((lane >> 3) & 1) * 8) * ir_row + (lane >> 4) * 16;
+  for (int pair = mh; pair < ir_rows / 32; pair += 2) {
+    const int mt = 2 * pair;
+    float acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+    for (int ks = 0; ks < kp / 16; ++ks) {
+      uint32_t ia[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ldsm_x4(ia[i], ibase + (mt + i) * 16 * ir_row + ks * 32);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, rbase + ks * 16 * kRRowRing + np * 32);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * np], ia[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * np + 1], ia[i], bf[2], bf[3]);
+        }
+      }
+    }
+    if (bimg < nimg) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = (mt + i) * 16 + gq + 8 * half;
+          if (m < 2 * h) {
+            const int part = m >= h, y = m - part * h;
+            __nv_bfloat16* dst = p.out + ((((size_t)y * 2 + part) * p.g + g) * p.b + (b0 + bimg)) * n_co +
+                                 co0 + 2 * tq;
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              *reinterpret_cast<uint32_t*>(dst + n * 8) =
+                  pack_bf16(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
+          }
+        }
+    }
+  }
+}
+
+// Whether the ring version takes the call: the tensor-core version's
+// shapes whose ring, K_f chunk and R tile fit one block.
+bool ring_takes(const TailArgs& p, int itemsize) {
+  return itemsize == 2 && p.gpack != nullptr && p.ci % kMmaCi == 0 && p.co % kCoT == 0 &&
+         p.tb <= kTB && p.kh <= 9 && ring_smem_bytes(p.ph, p.h) <= kSmemLimit;
+}
+
+int launch_ring(const TailArgs& p, cudaStream_t stream) {
+  if (p.g == 0 || p.b == 0 || p.co == 0 || p.h == 0) return 0;
+  using B = __nv_bfloat16;
+  const MmaArgs m{static_cast<const B*>(p.xr), static_cast<const B*>(p.xi),
+                  static_cast<const B*>(p.kr), static_cast<const B*>(p.ki),
+                  static_cast<const B*>(p.gpack), static_cast<const B*>(p.irpack),
+                  static_cast<B*>(p.out), p.g, p.ph, p.b, p.ci, p.co, p.kh, p.h, p.tb};
+  const long long smem = ring_smem_bytes(p.ph, p.h);
+  cudaError_t err = cudaFuncSetAttribute(tail_ring_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.co / kCoT, p.g, (p.b + p.tb - 1) / p.tb);
+  tail_ring_kernel<<<grid, kRingThreads, smem, stream>>>(m);
+  return (int)cudaGetLastError();
+}
+
 // Whether the tensor-core version takes the call.
 bool mma_takes(const TailArgs& p, int itemsize, bool build) {
   return itemsize == 2 && p.gpack != nullptr && p.ci % kMmaCi == 0 && p.co % kCoT == 0 &&
@@ -691,6 +1010,7 @@ int dispatch(const TailArgs& p, cudaStream_t stream) {
 template <bool BUILD>
 int by_dtype(const TailArgs& p, int itemsize, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (BUILD && ring_takes(p, itemsize)) return launch_ring(p, s);
   if (mma_takes(p, itemsize, BUILD)) return launch_mma<BUILD>(p, s);
   if (itemsize == 2) return dispatch<__nv_bfloat16, BUILD>(p, s);
   if (itemsize == 4) return dispatch<float, BUILD>(p, s);
@@ -700,14 +1020,22 @@ int by_dtype(const TailArgs& p, int itemsize, void* stream) {
 }  // namespace
 
 // Row 6: the whole batch (b <= 16) in one block, K_f built once per (g, Co tile).
+// The ring version holds at most 8 images a block: 9 to 16 images go to it
+// as two batch tiles (K_f built by each) where it takes the shapes, ahead
+// of the CUDA-core version that holds them in one block.
 extern "C" int fft_conv_tail_kdft_resident(const void* xr, const void* xi, const void* ar,
                                            const void* ai, const void* gr, const void* irt,
                                            const void* gpack, const void* irpack, void* out,
                                            int g, int ph, int b, int ci, int co, int kh, int h,
                                            int itemsize, void* stream) {
-  const TailArgs p{xr, xi, ar, ai, static_cast<const float2*>(gr),
-                   static_cast<const float2*>(irt), gpack, irpack, out,
-                   g, ph, b, ci, co, kh, h, b};
+  TailArgs p{xr, xi, ar, ai, static_cast<const float2*>(gr),
+             static_cast<const float2*>(irt), gpack, irpack, out,
+             g, ph, b, ci, co, kh, h, b};
+  if (b > kTB) {
+    TailArgs tiled = p;
+    tiled.tb = kTB;
+    if (ring_takes(tiled, itemsize)) return launch_ring(tiled, static_cast<cudaStream_t>(stream));
+  }
   return by_dtype<true>(p, itemsize, stream);
 }
 
@@ -722,6 +1050,25 @@ extern "C" int fft_conv_tail_kdft(const void* xr, const void* xi, const void* ar
                    g, ph, b, ci, co, kh, h, tb};
   return by_dtype<true>(p, itemsize, stream);
 }
+
+// The register-staged tensor-core version of the build form, which the ring
+// version replaced on the rows 6 and 7 path, kept as a timed entry: the
+// kdft entry's arguments, and only the shapes that version takes.
+extern "C" int fft_conv_tail_kdft_regstaged(const void* xr, const void* xi, const void* ar,
+                                            const void* ai, const void* gr, const void* irt,
+                                            const void* gpack, const void* irpack, void* out,
+                                            int g, int ph, int b, int ci, int co, int kh, int h,
+                                            int tb, int itemsize, void* stream) {
+  const TailArgs p{xr, xi, ar, ai, static_cast<const float2*>(gr),
+                   static_cast<const float2*>(irt), gpack, irpack, out,
+                   g, ph, b, ci, co, kh, h, tb};
+  if (!mma_takes(p, itemsize, true)) return (int)cudaErrorInvalidValue;
+  return launch_mma<true>(p, static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory of one block of the ring version; the wrapper's shape rule
+// reads it from here.
+extern "C" long long fft_conv_tail_ring_smem_bytes(int ph, int h) { return ring_smem_bytes(ph, h); }
 
 // Row 8: K_f (G, Ph, Ci, Co) read from device memory.
 extern "C" int fft_conv_tail_kf(const void* xr, const void* xi, const void* kr, const void* ki,

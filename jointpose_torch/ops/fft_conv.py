@@ -22,7 +22,11 @@ version beside it on CPU tensors:
 - ``tail_kf``: K_f read from device memory.
 
 ``select_tail`` picks among them by a rule on the shapes alone.  K_f and
-R never reach device memory on the first two.
+R never reach device memory on the first two.  Inside an entry the kernel
+body is a rule on the shapes too (``tail_body``): the build form runs the
+ring version where it fits, the register-staged tensor-core version or
+the CUDA-core version elsewhere; ``tail_kdft_regstaged`` runs the
+register-staged version on its own, as a timed entry.
 
 Numerics: every contraction accumulates fp32; intermediates round to the
 input's compute dtype (bf16 for bf16 inputs, else fp32).  The kernels and
@@ -52,6 +56,7 @@ _SIGNATURES = {
     "fft_conv_tail_kdft_resident": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "fft_conv_tail_kdft": ([_P] * 9 + [_I] * 9 + [_P], _I),
     "fft_conv_tail_kf": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "fft_conv_tail_kdft_regstaged": ([_P] * 9 + [_I] * 9 + [_P], _I),
 }
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # Tile constants of csrc/fft_conv_tail.cu.
@@ -61,6 +66,11 @@ _CI_CHUNK = 8
 _WARPS = 8
 _ROWS_PER_PASS = 10
 _KH_UNROLLS = (5, 9)  # kernel heights the in-kernel K_f build is compiled for
+# Byte sizes of the tensor-core versions' shared memory (csrc/fft_conv_tail.cu).
+_A_ROW = 16 * 32 * 2 + 16      # one tap row of the a' chunk
+_K_PART = 16 * (16 * 80 + 16)  # K_re (or K_im) of one step: 16 row bins x 16 ci x 32 co
+_RING_STAGE = 24 * _A_ROW + 16 * 16 * 32  # one stage of the ring: a' chunk and 16 X tiles
+_RING_STAGES = 3
 
 # Order in which ``select_tail`` tries the tails: the reference's
 # (``_pallas_tail_kdft`` then ``_pallas_tail``).
@@ -170,6 +180,70 @@ def _tail_smem_bytes(ph: int, images: int, khp: int, itemsize: int) -> int:
         + ph * _ROWS_PER_PASS * 8
         + ph * images * _CO_TILE * 2 * itemsize
     )
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _ring_smem_bytes(ph: int, h: int) -> int:
+    """Shared memory of one block of the ring version: the ring (after the
+    walk, the inverse row table), the K_f of one step, the bf16 R tile and
+    the build's Gpack table."""
+    kp = _round_up(2 * ph, 16)
+    region = max(_RING_STAGES * _RING_STAGE, _round_up(2 * h, 32) * (2 * kp + 16))
+    return (region + 2 * _K_PART + kp * (_BATCH_TILE * _CO_TILE * 2 + 16)
+            + _round_up(ph, 16) * 2 * 32 * 2)
+
+
+def _mma_smem_bytes(ph: int, build: bool) -> int:
+    """Shared memory of one block of the register-staged tensor-core version."""
+    return (32 * _A_ROW if build else 0) + 2 * _K_PART + _round_up(2 * ph, 16) * (
+        _BATCH_TILE * (_CO_TILE + 8) * 2 + 16)
+
+
+def _entry_tile(name: str, ph: int, b: int, kh: int, itemsize: int) -> int:
+    """Images per block the wrapper of tail ``name`` passes to its entry."""
+    if name == "kdft_resident":
+        return b
+    return _batch_tile(ph, b, _kh_unroll(kh) if name == "kdft" else 0, itemsize)
+
+
+def _ring_takes(name: str, ph: int, tb: int, ci: int, co: int, kh: int, h: int,
+                itemsize: int) -> bool:
+    """The ring version: the build form in bf16, at most 8 images a block."""
+    return (name != "kf" and itemsize == 2 and ci % 16 == 0 and co % _CO_TILE == 0
+            and tb <= _BATCH_TILE and kh <= 9 and _ring_smem_bytes(ph, h) <= _SMEM_LIMIT)
+
+
+def _regstaged_takes(name: str, ph: int, tb: int, ci: int, co: int, kh: int,
+                     itemsize: int) -> bool:
+    """The register-staged tensor-core version (either form)."""
+    build = name != "kf"
+    return (itemsize == 2 and ci % 16 == 0 and co % _CO_TILE == 0 and tb <= _BATCH_TILE
+            and (not build or kh <= 9) and _mma_smem_bytes(ph, build) <= _SMEM_LIMIT)
+
+
+def tail_body(name: str, ph: int, b: int, ci: int, co: int, kh: int, h: int,
+              itemsize: int) -> str:
+    """Which kernel body the C entry of tail ``name`` runs on a geometry that
+    ``tail_fits``: a rule on the shapes, the one the entry applies.
+
+    - ``'ring'``: the build form (``kdft_resident``, ``kdft``) in bf16 with
+      Ci % 16 == 0, Co % 32 == 0, kh <= 9, at most 8 images a block and a
+      ring, K_f step and R tile that fit one block; the resident entry
+      hands it 9 to 16 images as two batch tiles;
+    - ``'regstaged'``: the register-staged tensor-core version, on bf16
+      shapes the ring does not take (taller transforms) and in ``kf``;
+    - ``'cuda_cores'``: f32, and bf16 shapes neither takes.
+    """
+    tb = _entry_tile(name, ph, b, kh, itemsize)
+    ring_tb = min(tb, _BATCH_TILE) if name == "kdft_resident" else tb
+    if _ring_takes(name, ph, ring_tb, ci, co, kh, h, itemsize):
+        return "ring"
+    if _regstaged_takes(name, ph, tb, ci, co, kh, itemsize):
+        return "regstaged"
+    return "cuda_cores"
 
 
 def _kh_unroll(kh: int) -> int | None:
@@ -308,9 +382,32 @@ def tail_kf(xr, xi, kr, ki, t) -> torch.Tensor:
     return out
 
 
+def tail_kdft_regstaged(xr, xi, a_re, a_im, t) -> torch.Tensor:
+    """The build form's register-staged tensor-core version, which the ring
+    version replaced on the rows 6 and 7 path, kept as a timed entry: the
+    ``kdft`` entry's batch tiles, bf16 shapes that version takes only."""
+    if xr.device.type == "cpu":
+        return tail_kdft_plain(xr, xi, a_re, a_im, t)
+    kh = a_re.shape[1] if a_re.dim() == 4 else 0
+    g, ph, b, ci, co, h = _check_tail("tail_kdft_regstaged", xr, xi, a_re, a_im, kh, t)
+    itemsize = xr.element_size()
+    if not (tail_fits("kdft", ph, b, kh, itemsize) and _regstaged_takes(
+            "kdft", ph, _entry_tile("kdft", ph, b, kh, itemsize), ci, co, kh, itemsize)):
+        raise ValueError(f"tail_kdft_regstaged does not take Ph={ph}, batch={b}, Ci={ci}, "
+                         f"Co={co}, kernel height {kh}, {xr.dtype}")
+    tb = _entry_tile("kdft", ph, b, kh, itemsize)
+    out = torch.empty((h, 2, g, b, co), dtype=xr.dtype, device=xr.device)
+    _run("fft_conv_tail_kdft_regstaged",
+         (xr, xi, a_re, a_im, t["gr"], t["ir_t"], t["gpack"], t["irpack"]), out,
+         (g, ph, b, ci, co, kh, h, tb, xr.element_size()))
+    tail_kdft_regstaged.launches += 1
+    return out
+
+
 tail_kdft_resident.launches = 0
 tail_kdft.launches = 0
 tail_kf.launches = 0
+tail_kdft_regstaged.launches = 0
 
 
 # --- the conv ---------------------------------------------------------------
@@ -344,20 +441,30 @@ def forward_spectra(x: torch.Tensor, kernel: torch.Tensor, pallas_tail: bool = T
 
 def input_spectrum(xc: torch.Tensor, t) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward DFT of the input (b, y, x, i), bins leading: rows, then
-    columns -> (xr, xi) (G, Ph, B, Ci)."""
-    em = torch.einsum
-    ar = em("fy,byxi->fbxi", t["fr_re"], xc)
-    ai = em("fy,byxi->fbxi", t["fr_im"], xc)
-    xr = em("gx,fbxi->gfbi", t["fc_re"], ar) - em("gx,fbxi->gfbi", t["fc_im"], ai)
-    xi = em("gx,fbxi->gfbi", t["fc_im"], ar) + em("gx,fbxi->gfbi", t["fc_re"], ai)
-    return xr, xi
+    columns -> (xr, xi) (G, Ph, B, Ci), contiguous, the layout the tails
+    read.  The input is laid out once as (x, y, b·i), so that the row
+    transform gives (x, f, b·i) and the column transform, one product over
+    x, gives (g, f·b·i) with no copy after it."""
+    b, _, w, ci = xc.shape
+    rows = xc.permute(2, 1, 0, 3).reshape(w, -1, b * ci)
+    ar = torch.matmul(t["fr_re"], rows).reshape(w, -1)  # (x, f·b·i)
+    ai = torch.matmul(t["fr_im"], rows).reshape(w, -1)
+    xr = torch.matmul(t["fc_re"], ar) - torch.matmul(t["fc_im"], ai)
+    xi = torch.matmul(t["fc_im"], ar) + torch.matmul(t["fc_re"], ai)
+    shape = (xr.shape[0], t["fr_re"].shape[0], b, ci)
+    return xr.view(shape), xi.view(shape)
 
 
 def kernel_column_dft(kc: torch.Tensor, t) -> tuple[torch.Tensor, torch.Tensor]:
     """Column DFT of the kernel (y, x, i, o): ``a`` is (G, Kh, Ci, Co)
-    complex, Kh/Ph the size of the full spectrum K_f."""
-    return (torch.einsum("gx,yxio->gyio", t["gc_re"], kc),
-            torch.einsum("gx,yxio->gyio", t["gc_im"], kc))
+    complex, contiguous, Kh/Ph the size of the full spectrum K_f.  The
+    kernel is laid out once as (x, y·i·o), so that one product over x gives
+    (g, y·i·o) with no copy after it."""
+    kh, kw, ci, co = kc.shape
+    cols = kc.permute(1, 0, 2, 3).reshape(kw, -1)
+    shape = (t["gc_re"].shape[0], kh, ci, co)
+    return (torch.matmul(t["gc_re"], cols).view(shape),
+            torch.matmul(t["gc_im"], cols).view(shape))
 
 
 def inverse_columns(tcat: torch.Tensor, t) -> torch.Tensor:
@@ -371,7 +478,7 @@ def fused_tail(xr, xi, a_re, a_im, t) -> torch.Tensor:
     the geometry -> (H, 2, G, B, Co)."""
     ph, b, kh = xr.shape[1], xr.shape[2], a_re.shape[1]
     name = select_tail(ph, b, kh, xr.element_size())
-    xr, xi, a_re, a_im = (v.contiguous() for v in (xr, xi, a_re, a_im))
+    # input_spectrum and kernel_column_dft emit the layouts the kernels read.
     if name == "kdft_resident":
         return tail_kdft_resident(xr, xi, a_re, a_im, t)
     if name == "kdft":

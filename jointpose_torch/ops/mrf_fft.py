@@ -10,8 +10,9 @@ operators evaluate exactly the SAME-crop output positions.
 Every matmul runs at the precision its caller asks for, whatever the
 process-wide TF32 flags say: ``precision`` None or ``'high'`` is fp32,
 ``'default'`` on a CUDA device one TF32 pass with fp32 accumulation
-(the reference's ``Precision.DEFAULT``, one reduced-precision pass).  On
-the CPU both are fp32, as JAX computes ``DEFAULT`` there.
+(the reference's ``Precision.DEFAULT``, one reduced-precision pass), in
+the forward and in the backward alike.  On the CPU both are fp32, as JAX
+computes ``DEFAULT`` there.
 """
 
 from __future__ import annotations
@@ -151,6 +152,49 @@ def _transform2d(x, row_re, row_im, col_re, col_im):
     return re, im
 
 
+def _transform2d_adjoint(g_re, g_im, row_re, row_im, col_re, col_im):
+    """The adjoint of ``_transform2d`` (a linear map of x): dL/dx."""
+    a_re = torch.matmul(g_re, col_re) + torch.matmul(g_im, col_im)
+    a_im = torch.matmul(g_im, col_re) - torch.matmul(g_re, col_im)
+    return torch.matmul(row_re.T, a_re) + torch.matmul(row_im.T, a_im)
+
+
+def _inverse2d(r_re, r_im, ir_re, ir_im, ic_re, ic_im):
+    """Real part of the inverse 2-D DFT of R (..., Ph, G) with the SAME
+    crop: Re{Ir @ R @ Ic^T} -> (..., H, W)."""
+    t_re = torch.matmul(ir_re, r_re) - torch.matmul(ir_im, r_im)
+    t_im = torch.matmul(ir_re, r_im) + torch.matmul(ir_im, r_re)
+    return torch.matmul(t_re, ic_re.T) - torch.matmul(t_im, ic_im.T)
+
+
+def _inverse2d_adjoint(g, ir_re, ir_im, ic_re, ic_im):
+    """The adjoint of ``_inverse2d`` (linear in R): (dL/dR_re, dL/dR_im)."""
+    g_re = torch.matmul(g, ic_re)
+    g_im = -torch.matmul(g, ic_im)
+    return (torch.matmul(ir_re.T, g_re) + torch.matmul(ir_im.T, g_im),
+            torch.matmul(ir_re.T, g_im) - torch.matmul(ir_im.T, g_re))
+
+
+class _AtPrecision(torch.autograd.Function):
+    """One of the pass's linear DFT maps, forward and backward at the
+    call's precision.  Autograd would run the backward of the forward's
+    matmuls later, in the caller's ``.backward()``, under whatever TF32
+    flag the process holds then; here the adjoint's matmuls enter
+    ``matmul_precision`` again.  The tables are constants."""
+
+    @staticmethod
+    def forward(ctx, fn, adjoint, tables, precision, *inputs):
+        ctx.adjoint, ctx.tables, ctx.precision = adjoint, tables, precision
+        with matmul_precision(precision, inputs[0].device):
+            return fn(*inputs, *tables)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with matmul_precision(ctx.precision, grads[0].device):
+            dx = ctx.adjoint(*grads, *ctx.tables)
+        return (None, None, None, None, *(dx if isinstance(dx, tuple) else (dx,)))
+
+
 def forward_ffts(p: torch.Tensor, kernels: torch.Tensor, precision: str | None = None):
     """Forward DFTs of unaries and kernels, at ``precision``.
 
@@ -164,9 +208,10 @@ def forward_ffts(p: torch.Tensor, kernels: torch.Tensor, precision: str | None =
     t = dft_tables((h, w), (wh, ww), p.device)
     planes = p.float().permute(0, 3, 1, 2)  # (B, K, H, W)
     kplanes = kernels.float().permute(2, 3, 0, 1)  # (Kv, Ka, wh, ww)
-    with matmul_precision(precision, p.device):
-        pf = _transform2d(planes, t["fr_re"], t["fr_im"], t["fc_re"], t["fc_im"])
-        kf = _transform2d(kplanes, t["gr_re"], t["gr_im"], t["gc_re"], t["gc_im"])
+    pf = _AtPrecision.apply(_transform2d, _transform2d_adjoint,
+                            (t["fr_re"], t["fr_im"], t["fc_re"], t["fc_im"]), precision, planes)
+    kf = _AtPrecision.apply(_transform2d, _transform2d_adjoint,
+                            (t["gr_re"], t["gr_im"], t["gc_re"], t["gc_im"]), precision, kplanes)
     return pf, kf, t
 
 
@@ -182,10 +227,9 @@ def fft_pairwise_conv(
     # R = conj(K_f) ⊙ P_f: P_f[b, v] against K_f[v, a] -> (B, Kv, Ka, Ph, G).
     r_re = kf_re[None] * pf_re[:, :, None] + kf_im[None] * pf_im[:, :, None]
     r_im = kf_re[None] * pf_im[:, :, None] - kf_im[None] * pf_re[:, :, None]
-    with matmul_precision(precision, p.device):
-        t_re = torch.matmul(t["ir_re"], r_re) - torch.matmul(t["ir_im"], r_im)
-        t_im = torch.matmul(t["ir_re"], r_im) + torch.matmul(t["ir_im"], r_re)
-        resp = torch.matmul(t_re, t["ic_re"].T) - torch.matmul(t_im, t["ic_im"].T)
+    resp = _AtPrecision.apply(_inverse2d, _inverse2d_adjoint,
+                              (t["ir_re"], t["ir_im"], t["ic_re"], t["ic_im"]), precision,
+                              r_re, r_im)
     return resp.permute(0, 3, 4, 1, 2)  # (B, H, W, Kv, Ka)
 
 

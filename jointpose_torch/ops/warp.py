@@ -13,11 +13,17 @@ axis-aligned maps, close to it under rotation.
 
 ``shear_warp`` (the reference's production orientation) and
 ``shear_warp_rowmajor`` (its cross-orientation oracle) both take and
-return NHWC.  On CUDA tensors they launch the kernel of
-``csrc/shear_warp.cu`` twice, once per pass, or raise; on CPU tensors
-they run the plain version ``shear_warp_reference``, the dense-hat fp32
-oracle.  The kernel computes the two nonzero taps of each hat in fp32;
-the TPU kernel applies the dense hat as a bf16 matmul.
+return NHWC.  On CUDA tensors they launch the kernels of
+``csrc/shear_warp.cu`` or raise; on CPU tensors they run the plain
+version ``shear_warp_reference``, the dense-hat fp32 oracle.
+``shear_warp`` is one launch of the fused kernel: a block per (image,
+strip of output columns) keeps the strip's intermediate in shared memory
+(``strip_width`` is its shape rule; ``shear_warp_strips`` repeats its
+arithmetic per strip in plain PyTorch).  ``shear_warp_rowmajor`` is two
+launches of the one-pass kernel, as is ``shear_warp_two_pass``, the
+production orientation's earlier design, kept as a timed entry: the fused
+kernel is bit-equal to it.  The kernels compute the two nonzero taps of
+each hat in fp32; the TPU kernel applies the dense hat as a bf16 matmul.
 """
 
 from __future__ import annotations
@@ -31,7 +37,18 @@ from jointpose_torch import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_SIGNATURES = {"shear_pass": ([_P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _STRIDES, _I, _P], _I)}
+_SIGNATURES = {
+    "shear_pass": ([_P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _STRIDES, _I, _P], _I),
+    "shear_warp_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+}
+_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
+# The fused kernel's strips: the widest of these whose (H, TW, C) fp32
+# intermediate fits an eighth of that, so that eight blocks of 256 threads
+# share an SM.  At the training shape (240 x 360 x 3, batch 32) widths 4, 8,
+# 16, 32 and 64 took 0.0659, 0.0542, 0.0625, 0.0779 and 0.1142 ms on an
+# H100 80GB HBM3 at 700 W (chip_smoke.py's sweep).
+_STRIP_WIDTHS = (32, 16, 8, 4, 2, 1)
+_STRIP_BUDGET = _SMEM_LIMIT // 8
 # Which axis neighbouring threads of the kernel walk, matched to the
 # output's memory order: the lines n for an output whose n sits next to
 # the channels, the positions o for a (B, N, C, S_out) output.
@@ -75,6 +92,69 @@ def shear_warp_reference(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch
     return torch.stack(out)
 
 
+def strip_width(h: int, c: int) -> int:
+    """Columns per strip of the fused warp for (H, C) images: a rule on the
+    shape.  The widest of ``_STRIP_WIDTHS`` whose intermediate H·TW·C·4
+    bytes fits ``_STRIP_BUDGET``, else one column if it fits a block's
+    shared memory at all; a taller image raises, naming the limit."""
+    per_column = h * c * 4
+    for tw in _STRIP_WIDTHS:
+        if tw * per_column <= _STRIP_BUDGET:
+            return tw
+    if per_column <= _SMEM_LIMIT:
+        return 1
+    raise ValueError(
+        f"shear_warp: a column of {h} rows x {c} channels needs {per_column} B of shared "
+        f"memory, above the {_SMEM_LIMIT} B a block may use (at most "
+        f"{_SMEM_LIMIT // (4 * c)} rows)")
+
+
+def shear_warp_strips(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor,
+                      tw: int | None = None) -> torch.Tensor:
+    """The fused kernel's arithmetic in plain PyTorch: each strip of ``tw``
+    output columns (``strip_width`` by default) from its own pass-1
+    intermediate over all rows, with the two taps of each hat gathered
+    and weighted in fp32 as the kernel does."""
+    b, h, w, c = images.shape
+    tw = strip_width(h, c) if tw is None else tw
+    p1, p2 = _pass_params(a_inv, b_inv)
+    images = images.float()
+    out = torch.empty_like(images)
+    rows = torch.arange(h, dtype=torch.float32, device=images.device)
+    for x0 in range(0, w, tw):
+        cols = torch.arange(x0, min(x0 + tw, w), dtype=torch.float32, device=images.device)
+        # Pass 1: lines are source rows y, positions the strip's columns.
+        t1 = _two_taps(images, p1, cols[None, :], rows[:, None], w, along=2)  # (B, H, nx, C)
+        # Pass 2: lines are the strip's columns, positions the output rows.
+        out[:, :, x0:x0 + len(cols)] = _two_taps(t1, p2, rows[:, None], cols[None, :], h, along=1)
+    return out
+
+
+def _two_taps(src, par, o, n, s_in: int, along: int) -> torch.Tensor:
+    """Resample ``src`` along axis ``along`` (1: rows, 2: columns) at
+    positions α·o + shear·n + off of each image, the grids ``o`` and ``n``
+    broadcast to the output's (rows, columns); two fp32 hat taps each."""
+    alpha, shear, off = (par[:, i, None, None] for i in range(3))
+    pos = (alpha * o + shear * n) + off  # (B, rows, cols)
+    inside = (pos > -1) & (pos < s_in)
+    f0 = torch.where(inside, pos.floor(), torch.zeros_like(pos))
+    i0 = f0.long()
+    w0 = 1 - (pos - f0)
+    w1 = 1 - ((f0 + 1) - pos).abs()
+
+    def tap(i, ok, weight):
+        idx = i.clamp(0, s_in - 1)
+        bidx = torch.arange(src.shape[0], device=src.device)[:, None, None]
+        if along == 2:
+            v = src[bidx, torch.arange(src.shape[1], device=src.device)[None, :, None], idx]
+        else:
+            v = src[bidx, idx, torch.arange(idx.shape[2], device=src.device)[None, None, :]]
+        return torch.where(ok[..., None], weight[..., None] * v, torch.zeros_like(v))
+
+    acc = tap(i0, inside & (i0 >= 0), w0)
+    return torch.where((inside & (i0 + 1 < s_in))[..., None], acc + tap(i0 + 1, inside, w1), acc)
+
+
 def _check(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, what: str) -> None:
     if images.dim() != 4:
         raise ValueError(f"{what}: images must be (B, H, W, C), got {tuple(images.shape)}")
@@ -107,13 +187,46 @@ def _pass(src, dst, pars, geometry, src_strides, dst_strides, order) -> None:
 def shear_warp(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> torch.Tensor:
     """Warp (B, H, W, C) f32 images by src = A_inv dst + b_inv -> (B, H, W, C) f32.
 
-    The reference's production orientation: the intermediate is
-    channel-major per source row, (B, H, C, Xo).  Pass 1 reads the NHWC
-    input directly; pass 2 reads the intermediate along y and writes NHWC.
+    The reference's production orientation (x pass at fixed source row,
+    then y pass at fixed output column), both passes in one launch of the
+    fused kernel, strips of ``strip_width(H, C)`` columns.  The warp's
+    parameters stay on the device.
     """
     if images.device.type == "cpu":
         return shear_warp_reference(images, a_inv, b_inv)
     _check(images, a_inv, b_inv, "shear_warp")
+    out = _fused(images, a_inv, b_inv, strip_width(images.shape[1], images.shape[3]))
+    shear_warp.launches += 1
+    return out
+
+
+def _fused(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, tw: int) -> torch.Tensor:
+    """One launch of the fused kernel with strips of ``tw`` columns."""
+    b, h, w, c = images.shape
+    # The kernel derives the passes' parameters itself: one launch a call.
+    a_inv, b_inv = a_inv.float().contiguous(), b_inv.float().contiguous()
+    out = torch.empty_like(images)
+    lib = _build.load("shear_warp", _SIGNATURES)
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.shear_warp_fused(images.data_ptr(), out.data_ptr(), a_inv.data_ptr(),
+                                   b_inv.data_ptr(), b, h, w, c, tw, stream)
+    _build.check(err, "shear_warp_fused")
+    return out
+
+
+shear_warp.launches = 0
+
+
+def shear_warp_two_pass(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> torch.Tensor:
+    """The production orientation's earlier design, kept as a timed entry:
+    two launches of the one-pass kernel, the intermediate channel-major per
+    source row, (B, H, C, Xo), in device memory.  Pass 1 reads the NHWC
+    input directly; pass 2 reads the intermediate along y and writes NHWC.
+    """
+    if images.device.type == "cpu":
+        return shear_warp_reference(images, a_inv, b_inv)
+    _check(images, a_inv, b_inv, "shear_warp_two_pass")
     b, h, w, c = images.shape
     p1, p2 = _pass_params(a_inv, b_inv)
     t1 = torch.empty((b, h, c, w), dtype=torch.float32, device=images.device)
@@ -122,11 +235,11 @@ def shear_warp(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -
     out = torch.empty_like(images)
     _pass(t1, out, p2, (b, w, h, h, c), (h * c * w, 1, c * w, w), (h * w * c, c, w * c, 1),
           _LINES_FASTEST)
-    shear_warp.launches += 2
+    shear_warp_two_pass.launches += 2
     return out
 
 
-shear_warp.launches = 0
+shear_warp_two_pass.launches = 0
 
 
 def shear_warp_rowmajor(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> torch.Tensor:

@@ -227,3 +227,49 @@ def test_flops_model_and_argument_checks():
         tfc.fft_conv2d(x, torch.zeros(3, 3, 5, 3))
     with pytest.raises(NotImplementedError, match="precision"):
         tfc.fft_conv2d(x, torch.zeros(3, 3, 2, 3), precision="default")
+
+
+def test_tail_body_is_a_rule_on_shapes():
+    # The paper head (Ph 72, 60 output rows, 128 -> 512): the ring version
+    # at serving batch 8 and, batch-tiled, at training batch 32.
+    head = dict(ph=72, ci=128, co=512, kh=9, h=60)
+    assert tfc.tail_body("kdft_resident", b=8, itemsize=2, **head) == "ring"
+    assert tfc.tail_body("kdft", b=32, itemsize=2, **head) == "ring"
+    assert tfc.tail_body("kdft", b=3, itemsize=2, **{**head, "kh": 5}) == "ring"
+    # The ring's shared memory at the paper head: three stages, K_f, R, Gpack.
+    assert tfc._ring_smem_bytes(72, 60) == (3 * (24 * 1040 + 8192) + 2 * 20736 + 144 * 528
+                                            + 80 * 128)
+    # A transform too tall for the ring keeps the register-staged version.
+    assert tfc.tail_body("kdft_resident", b=8, itemsize=2, **{**head, "ph": 100}) == "regstaged"
+    # The K_f-from-memory entry builds nothing: never the ring.
+    assert tfc.tail_body("kf", b=8, itemsize=2, **head) == "regstaged"
+    # f32, ragged channels and more than 8 images a block: the CUDA cores.
+    assert tfc.tail_body("kdft_resident", b=8, itemsize=4, **head) == "cuda_cores"
+    assert tfc.tail_body("kdft", b=8, itemsize=2, **{**head, "ci": 20}) == "cuda_cores"
+    # The resident entry hands 9 to 16 images to the ring as two batch tiles.
+    assert tfc.tail_body("kdft_resident", b=16, itemsize=2, **head) == "ring"
+    assert tfc.tail_body("kdft_resident", b=16, itemsize=2, **{**head, "ph": 100}) == "cuda_cores"
+
+
+def test_spectra_come_in_the_layouts_the_tails_read():
+    x, k = map(torch.from_numpy, _inputs("9x9", seed=7))
+    (xr, xi), (a_re, a_im), t = tfc.forward_spectra(x, k)
+    for v in (xr, xi, a_re, a_im):
+        assert v.is_contiguous()
+    assert tuple(xr.shape) == (t["gc_re"].shape[0], t["gr_re"].shape[0], 4, 16)
+    assert tuple(a_re.shape) == (t["gc_re"].shape[0], 9, 16, 32)
+    # The same spectra as the reference's einsums (fp32).
+    em = torch.einsum
+    ar = em("fy,byxi->fbxi", t["fr_re"], x)
+    ai = em("fy,byxi->fbxi", t["fr_im"], x)
+    want = em("gx,fbxi->gfbi", t["fc_re"], ar) - em("gx,fbxi->gfbi", t["fc_im"], ai)
+    assert _rel(xr, want) <= CONV_RTOL
+    assert _rel(a_im, em("gx,yxio->gyio", t["gc_im"], k)) <= CONV_RTOL
+
+
+def test_regstaged_tail_on_the_cpu_is_the_plain_version():
+    ops, _, tables, h = _tail_operands()
+    t = {n: torch.from_numpy(v) for n, v in ops.items()}
+    got = tfc.tail_kdft_regstaged(t["xr"], t["xi"], t["ar"], t["ai"], tables)
+    assert torch.equal(got, tfc.tail_kdft_plain(t["xr"], t["xi"], t["ar"], t["ai"], tables))
+    assert tfc.tail_kdft_regstaged.launches == 0

@@ -121,8 +121,8 @@ def test_fit_tiny_on_the_card(cuda, tmp_path):
     counters = (tw.shear_warp, tme.mrf_epilogue, tme.mrf_epilogue_bwd)
     before = [fn.launches for fn in counters]
     result = fit(cfg, str(tmp_path), eval_max_batches=1)
-    # 2 warps a step; the epilogue in 3 joint steps and the joint-stage eval; its backward in 3.
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 4, 3]
+    # 1 warp launch a step; the epilogue in 3 joint steps and the joint-stage eval; its backward in 3.
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [6, 4, 3]
     assert result.state.step == 6 and result.metrics["eval_stage"] == "joint"
     assert all(p.device.type == "cuda" for p in result.state.model.parameters())
     state_dict, step = restore_params(cfg, str(tmp_path / "checkpoints"))
@@ -226,9 +226,51 @@ def test_shear_warp_kernels_match_plain(cuda, entry, shape):
     fn = getattr(tw, entry)
     before = fn.launches
     got = fn(images, a_inv, b_inv)
-    assert fn.launches == before + 2  # one launch per pass
+    # The fused kernel once; the row-major oracle once per pass.
+    assert fn.launches == before + {"shear_warp": 1, "shear_warp_rowmajor": 2}[entry]
     want = tw.shear_warp_reference(images, a_inv, b_inv)
     assert (got - want).abs().max().item() <= WARP_ATOL
+
+
+def _extreme_affines(batch, h, w):
+    """Rotations of ±60°, scales 0.5 and 2, flips and a small a11."""
+    import math
+
+    maps = []
+    for angle, scale, flip in ((60.0, 0.5, 1.0), (-60.0, 2.0, -1.0), (45.0, 2.0, 1.0)):
+        t = math.radians(angle)
+        rot = torch.tensor([[math.cos(t), -math.sin(t)], [math.sin(t), math.cos(t)]])
+        maps.append(rot @ torch.diag(torch.tensor([flip, 1.0])) / scale)
+    maps.append(torch.tensor([[0.3, 1.1], [-0.9, 1e-3]]))
+    a_inv = torch.stack([maps[i % len(maps)] for i in range(batch)])
+    centre = torch.tensor([(w - 1) / 2, (h - 1) / 2])
+    return a_inv, centre - torch.einsum("bij,j->bi", a_inv, centre) + 1.5
+
+
+# (B, H, W, C): the training shape (strips of 8 columns); a ragged last
+# strip and two channels; an image too tall for wide strips (1 column).
+FUSED_WARP_SHAPES = [(32, 240, 360, 3), (3, 17, 29, 2), (2, 3000, 7, 3)]
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["full_draw", "extreme"])
+@pytest.mark.parametrize("shape", FUSED_WARP_SHAPES)
+def test_fused_shear_warp_is_bit_equal_to_two_pass(cuda, shape, extreme):
+    b, h, w, _ = shape
+    images = torch.rand(shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    if extreme:
+        a_inv, b_inv = _extreme_affines(b, h, w)
+    else:
+        a_inv, b_inv = inverse_affine(random_augment_params(
+            torch.Generator().manual_seed(5), b, AugmentConfig(crop_frac_range=(0.8, 1.0)), (h, w)),
+            (h, w))
+    a_inv, b_inv = a_inv.to(cuda), b_inv.to(cuda)
+    before = (tw.shear_warp.launches, tw.shear_warp_two_pass.launches)
+    got = tw.shear_warp(images, a_inv, b_inv)
+    two = tw.shear_warp_two_pass(images, a_inv, b_inv)
+    assert (tw.shear_warp.launches, tw.shear_warp_two_pass.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(got, two)
+    assert (got - tw.shear_warp_reference(images, a_inv, b_inv)).abs().max().item() <= WARP_ATOL
+    assert torch.equal(got, tw.shear_warp_strips(images.cpu(), a_inv.cpu(), b_inv.cpu()).to(cuda))
 
 
 @pytest.mark.parametrize("mrf", [MRFConfig(window=(5, 7), impl="pallas", stride=2),
@@ -380,3 +422,81 @@ def test_high_precision_ignores_the_global_tf32_flag(cuda):
     for fn in fns:
         one, fp32 = want[fn, "default"], want[fn, "high"]
         assert not torch.equal(one, fp32) and _rel(one, fp32) <= SINGLE_PASS_RTOL
+
+
+# (B, H, W, kh, Ci, Co) for the build form's ring version: the paper head
+# at serving batch 8 and training batch 32; Ph not a multiple of 16 (H 13:
+# Ph 17 -> 24, and 21 -> 24), batch 1, 3 and 16, kernel heights 5 and 9.
+RING_GEOMETRIES = [(8, 60, 90, 9, 128, 512), (32, 60, 90, 9, 128, 512), (1, 13, 10, 5, 32, 64),
+                   (3, 13, 10, 9, 32, 64), (16, 13, 10, 9, 32, 64), (32, 21, 12, 5, 32, 64)]
+
+
+# The resident entry takes at most 16 images.
+RING_CASES = [(entry, geom) for entry in ("kdft_resident", "kdft") for geom in RING_GEOMETRIES
+              if entry == "kdft" or geom[0] <= 16]
+
+
+@pytest.mark.parametrize("entry,geom", RING_CASES)
+def test_ring_tail_matches_plain_and_the_register_staged_version(cuda, entry, geom):
+    b, h, w, kh, ci, co = geom
+    t, xr, xi, ar, ai = _tail_operands(geom, torch.bfloat16, cuda)
+    ph = xr.shape[1]
+    body = tfc.tail_body(entry, ph, b, ci, co, kh, h, 2)
+    assert body == "ring"
+    fn = getattr(tfc, f"tail_{entry}")
+    before = fn.launches
+    got = fn(xr, xi, ar, ai, t)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert _rel(got, tfc.tail_kdft_plain(xr, xi, ar, ai, t)) <= TAIL_RTOL[torch.bfloat16]
+    if body == "ring":
+        old = tfc.tail_kdft_regstaged(xr, xi, ar, ai, t)
+        assert _rel(got, old) <= TAIL_RTOL[torch.bfloat16]
+    assert torch.equal(fn(xr, xi, ar, ai, t), got)
+
+
+def test_fourier_head_gradients_on_card_match_cpu(cuda):
+    """The autograd guard of the build form: bf16 features through the
+    ring version in the forward, the plain route recomputed in the
+    backward, against the same on the CPU."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 13, 10, 32, generator=gen).bfloat16()
+    k = torch.randn(9, 9, 32, 64, generator=gen) / 50
+    cot = torch.randn(2, 13, 10, 64, generator=gen)
+    assert tfc.tail_body("kdft_resident", 24, 2, 32, 64, 9, 13, 2) == "ring"
+    grads = {}
+    for device in ("cpu", cuda):
+        xd = x.to(device).detach().requires_grad_(True)
+        kd = k.to(device).detach().requires_grad_(True)
+        (tfc.fft_conv2d(xd, kd).float() * cot.to(device)).sum().backward()
+        grads[torch.device(device).type] = (xd.grad.float().cpu(), kd.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert got.abs().max() > 0
+        assert _rel(got, want) <= 2e-2  # bf16 intermediates, rounded in another order
+
+
+def test_plain_pass_gradients_ignore_the_global_tf32_flag(cuda):
+    """The plain Fourier pass's backward runs at the call's precision: with
+    TF32 switched on for the process, its gradients at 'high' are bit-equal
+    to those with it off, at 'default' they differ, and the flag is put back."""
+    from jointpose_torch.ops.mrf_fft import mrf_message_pass_fft
+
+    p, kernels, biases = _inputs((30, 40), (21, 31), 2, torch.float32, cuda, seed=8)
+    cot = torch.randn(2, 30, 40, K, generator=torch.Generator().manual_seed(9)).to(cuda)
+
+    def grads(precision):
+        inputs = [t.detach().clone().requires_grad_(True) for t in (p, kernels, biases)]
+        out = mrf_message_pass_fft(*inputs, precision=precision)
+        return torch.autograd.grad((out * cot).sum(), inputs)
+
+    fp32 = grads("high")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        flagged = grads("high")
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert all(torch.equal(a, b) for a, b in zip(flagged, fp32))
+    one = grads("default")
+    assert not all(torch.equal(a, b) for a, b in zip(one, fp32))
+    assert max(_rel(a, b) for a, b in zip(one, fp32)) <= SINGLE_PASS_RTOL

@@ -91,6 +91,50 @@ def test_fft_pass_plain_tail_matches_reference():
     assert _rel(got, want) <= MRF_RTOL
 
 
+@pytest.mark.parametrize("precision", [None, "high", "default"])
+def test_plain_pass_backward_runs_at_the_calls_precision(monkeypatch, precision):
+    """The backward's products run inside ``matmul_precision`` with the
+    call's precision, however late the caller's ``.backward()`` comes; the
+    gradients equal the reference's (fp32 on the CPU at every precision)."""
+    import contextlib
+
+    import jax
+
+    active, seen = [], []
+    enter, matmul = tmf.matmul_precision, torch.matmul
+
+    @contextlib.contextmanager
+    def recording(prec, device):
+        active.append(prec)
+        try:
+            with enter(prec, device):
+                yield
+        finally:
+            active.pop()
+
+    def recorded_matmul(a, b):
+        seen.append(tuple(active))
+        return matmul(a, b)
+
+    monkeypatch.setattr(tmf, "matmul_precision", recording)
+    p, kernels, biases = _inputs((12, 18), (7, 11), seed=3)
+    cot = np.random.RandomState(4).randn(2, 12, 18, K).astype(np.float32)
+    inputs = [torch.from_numpy(v).requires_grad_(True) for v in (p, kernels, biases)]
+    out = tmf.mrf_message_pass_fft(*inputs, precision=precision)
+    monkeypatch.setattr(torch, "matmul", recorded_matmul)
+    (out * torch.from_numpy(cot)).sum().backward()
+    monkeypatch.setattr(torch, "matmul", matmul)
+    assert len(seen) >= 10 and all(s == (precision,) for s in seen)
+
+    def loss(*args):
+        out = jmf.mrf_message_pass_fft(*args, precision=HI, use_pallas_epilogue=False)
+        return jnp.sum(out * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (p, kernels, biases)))
+    for got, ref in zip(inputs, want):
+        assert _rel(got.grad, ref) <= MRF_RTOL
+
+
 @pytest.mark.parametrize("fn", [tmf.mrf_message_pass_fft, tmff.mrf_message_pass_fft_fused],
                              ids=["plain", "fused"])
 def test_tables_built_while_serving_serve_training(fn):

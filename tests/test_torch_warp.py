@@ -97,3 +97,55 @@ def test_content_follows_joints_under_full_draw(seed):
             assert abs(px - ex) < 1.25 and abs(py - ey) < 1.25, (b, k, px, py, ex, ey)
             checked += 1
     assert checked >= 9
+
+
+def test_strip_width_is_a_rule_on_shapes():
+    # The training shape: 8 columns of 240 x 3 fp32 (23 KB, eight blocks an SM).
+    assert tw.strip_width(240, 3) == 8
+    assert tw.strip_width(48, 3) == 32
+    assert tw.strip_width(240, 9) == 2
+    # Too tall for an eighth of the shared memory: one column a block.
+    assert tw.strip_width(5000, 3) == 1
+    assert tw.strip_width(19370, 3) == 1
+    # Too tall for any block: raises, naming the limit.
+    with pytest.raises(ValueError, match="at most 19370 rows"):
+        tw.strip_width(19371, 3)
+
+
+def _extreme_affines(h, w):
+    """(a_inv, b_inv) of rotations up to ±60°, scales 0.5 and 2, flips and
+    shifts about the centre, and one map whose a11 is small but nonzero."""
+    maps = []
+    for angle, scale, flip, shift in ((60.0, 0.5, 1.0, (3.0, -2.0)), (-60.0, 2.0, -1.0, (0.0, 5.0)),
+                                      (45.0, 2.0, 1.0, (-7.0, 1.0)), (-30.0, 0.5, -1.0, (2.5, 0.5))):
+        t = np.deg2rad(angle)
+        rot = np.array([[np.cos(t), -np.sin(t)], [np.sin(t), np.cos(t)]])
+        maps.append(rot @ np.diag([flip, 1.0]) / scale)
+    maps.append(np.array([[0.3, 1.1], [-0.9, 1e-3]]))
+    a_inv = np.stack(maps).astype(np.float32)
+    centre = np.array([(w - 1) / 2, (h - 1) / 2])
+    shifts = np.array([[3.0, -2.0], [0.0, 5.0], [-7.0, 1.0], [2.5, 0.5], [1.0, -1.0]])
+    b_inv = (centre - np.einsum("bij,j->bi", a_inv, centre) + shifts).astype(np.float32)
+    return torch.from_numpy(a_inv), torch.from_numpy(b_inv)
+
+
+@pytest.mark.parametrize("shape", [(17, 29, 3), (24, 36, 2)])
+def test_strip_emulation_matches_reference_on_extreme_affines(shape):
+    """The fused kernel's arithmetic, strip by strip, against the dense-hat
+    oracle on extreme maps; any strip width gives the same bits, because a
+    strip's columns depend on nothing outside it."""
+    a_inv, b_inv = _extreme_affines(*shape[:2])
+    images = torch.from_numpy(np.random.RandomState(11).rand(len(a_inv), *shape).astype(np.float32))
+    want = tw.shear_warp_reference(images, a_inv, b_inv)
+    got = tw.shear_warp_strips(images, a_inv, b_inv)
+    assert (got - want).abs().max().item() <= WARP_ATOL
+    # The rotations keep some of the image (the small-a11 map may keep none).
+    assert got[:4].abs().sum(dim=(1, 2, 3)).min() > 0
+    for width in (1, 5, shape[1]):
+        assert torch.equal(tw.shear_warp_strips(images, a_inv, b_inv, tw=width), got)
+
+
+def test_strip_emulation_matches_reference_on_a_full_draw():
+    images, a_inv, b_inv = map(torch.from_numpy, _draw(3, 3, (24, 36)))
+    got = tw.shear_warp_strips(images, a_inv, b_inv)
+    assert (got - tw.shear_warp_reference(images, a_inv, b_inv)).abs().max().item() <= WARP_ATOL
