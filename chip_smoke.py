@@ -43,7 +43,11 @@ the package is missing.  Phases, each fatal on failure:
 7. ``fit`` the same config end to end through ``train.fit``: synthetic
    source generated on the card, 6 detector + 6 joint steps at batch 32,
    priors, evals of both stages, checkpoints; then serve the restored
-   checkpoint (bit-equal to the fitted model) and resume for 2 more steps;
+   checkpoint (bit-equal to the fitted model), run ``python -m
+   jointpose_torch.quantize`` on it and ``predict.main`` as a process
+   without and with ``--quantize-artifact`` (records equal to the
+   in-process predictors', through the epilogue kernel), and resume for 2
+   more steps;
 8. serve through ``jointpose_torch.serve`` at the serving default, MRF
    precision 'default': a full-width ``joint`` checkpoint written from
    seeded weights behind ``PoseService(batch_size=16, batch_buckets=[1,
@@ -52,6 +56,14 @@ the package is missing.  Phases, each fatal on failure:
    one batch at 'high' against 'default'; ``flagship`` at 'default'
    (bit-equal to 'high': its direct conv ignores the flag); then ``python
    -m jointpose_torch.serve`` as a process: /healthz, /predict, SIGTERM;
+   then the int8 deployment of ``joint`` at full width: calibrate on 64
+   images of the synthetic source generated on the card, quantize, write
+   and read the artifact (w_q, w_scale and bias bit-equal to the CPU's,
+   in_scale within 1e-5; from one set of qparams every int8 input and
+   int32 sum bit-equal card vs CPU; int8 within 0.08 of the fp32 logits'
+   range), serve the quantized predictor (one single-pass MRF tail launch
+   per request; a second predictor from the read artifact bit-equal) and
+   ``PoseService(quantize_artifact=)``;
 9. check the MRF paths and the Fourier head on the card against the CPU
    at the ``tiny`` preset (fp32): the forward, one training step's
    gradients (the fused Fourier path also at precision 'default'), a
@@ -62,7 +74,9 @@ the package is missing.  Phases, each fatal on failure:
    and its two-pass form (and the fused kernel's strip widths), the
    head-conv tail's ring and register-staged versions at batch 8 and 32;
    then the Fourier head against cuDNN and served ``joint`` with either
-   head at batch 1, 8, 16 and 32.
+   head at batch 1, 8, 16 and 32.  The int8 detector is timed in phase 8,
+   against the bf16 cuDNN detector in turns, with each conv's im2col and
+   ``torch._int_mm``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -138,6 +152,16 @@ FIT_RTOL = 1e-3
 # out one fp32 step apart (7.6e-6 px at coordinates up to 360), and a limb
 # mask changes by up to 0.1 per px, under up to three overlapping limbs.
 SYNTHETIC_ATOL = 5e-6
+# The int8 detector against its fp32 graph, max|Δ| / max|fp32|: the
+# reference's post-training-quantization bar (tests/test_quant.py).
+INT8_FP_BAR = 0.08
+# The int8 logits on the card against the CPU's from the same qparams: the
+# int32 sums are exact on both, the fp32 epilogue is the same operations.
+INT8_LOGITS_RTOL = 1e-6
+# Calibration amax on the card against the CPU: two devices' fp32 convs.
+CALIB_RTOL = 1e-5
+INT8_OPS_PER_S = 1979e12  # tensor cores, dense
+DEPLOY_CALIB = 64
 BATCH = 8
 REQUESTS = 4
 TRAIN_STEPS = 4
@@ -269,13 +293,15 @@ def reset(counters: dict) -> None:
         fn.launches = 0
 
 
-def serve(config, seed: int, counters: dict, requests: int = REQUESTS, batch: int = BATCH) -> dict:
-    """Serve ``requests`` requests of ``batch`` uint8 images; return timings,
-    launch counts, the decoded coordinates and the heatmaps."""
+def serve(config, seed: int, counters: dict, requests: int = REQUESTS, batch: int = BATCH,
+          predict=None) -> dict:
+    """Serve ``requests`` requests of ``batch`` uint8 images through
+    ``predict`` (default: ``build_predictor`` of seeded weights); return
+    timings, launch counts, the decoded coordinates and the heatmaps."""
     from jointpose_torch.predict import build_predictor, init_state_dict
 
-    state = init_state_dict(config, torch.Generator().manual_seed(seed))
-    predict = build_predictor(config, state)
+    if predict is None:
+        predict = build_predictor(config, init_state_dict(config, torch.Generator().manual_seed(seed)))
     h, w = config.data.image_hw
     rng = np.random.default_rng(seed)
     images = torch.from_numpy(rng.integers(0, 256, (requests, batch, h, w, 3), dtype=np.uint8))
@@ -488,6 +514,7 @@ def fit_phase(config, counters: dict, smi: str) -> None:
               "fit: the restored predictor differs from the fitted model")
         check(bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all()),
               "fit: the restored predictor's output is not finite")
+        deploy_cli_phase(config, ckpt_dir, smi)
 
         eval_ms = timed_ms(lambda: evaluate(result.state.model, test_ds, config, max_batches=4))
         idx = np.arange(tb)
@@ -755,6 +782,251 @@ def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:
         print(f"python -m jointpose_torch.serve --config {joint.name} (MRF precision 'default'): up in "
               f"{up_s:.1f} s, answered /healthz and /predict, drained on SIGTERM and exited 0")
     return {"launches": launches, "metrics": m, "dispatches": dispatches}
+
+
+# ``predict.main`` in a child process with the preset's MRF impl set to the
+# one the checkpoint was trained with (argv[1]): the CLIs take their config
+# from the preset by name, as the reference's do.  Prints the epilogue's
+# launch count at exit.
+PREDICT_CHILD = """
+import dataclasses, json, sys
+import jointpose_torch.configs as configs
+from jointpose_torch import predict
+from jointpose_torch.ops.mrf_epilogue import mrf_epilogue
+preset = configs.get_config
+configs.get_config = lambda name: preset(name).replace(
+    mrf=dataclasses.replace(preset(name).mrf, impl=sys.argv[1]))
+predict.main(sys.argv[2:])
+print("launches " + json.dumps({"mrf_epilogue": mrf_epilogue.launches}))
+"""
+
+
+def _child(args: list[str], what: str) -> tuple[str, float]:
+    """Run ``python <args>`` from the repository root; its output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0,
+          f"{what} exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def deploy_cli_phase(config, ckpt_dir: str, smi: str) -> None:
+    """The deployment CLIs on ``fit``'s checkpoint: ``python -m
+    jointpose_torch.quantize``, then ``predict.main`` as a process without
+    and with ``--quantize-artifact``; each writes ``num`` records equal to
+    the in-process predictors' coordinates on the same images, through the
+    epilogue kernel."""
+    from jointpose_torch.checkpoint import reconcile_config
+    from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.ops.quant import build_quantized_predictor, load_quantized
+    from jointpose_torch.predict import build_predictor, restore_params
+
+    served = with_mrf_precision(reconcile_config(config, ckpt_dir), "default")
+    state, step = restore_params(served, ckpt_dir, best=True)
+    _, test_ds = make_dataset(served.data)
+    num, bs = min(20, test_ds.size), BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = os.path.join(tmp, "int8.npz")
+        out, quant_s = _child(["-m", "jointpose_torch.quantize", "--config", config.name,
+                               "--checkpoint", ckpt_dir, "--best", "--calib", str(DEPLOY_CALIB),
+                               "--out", artifact], "python -m jointpose_torch.quantize")
+        summary = [line for line in out.splitlines() if line.startswith("quantized ")]
+        check(len(summary) == 1 and f"step {step}, calibrated on {DEPLOY_CALIB} images" in summary[0],
+              f"quantize printed {out[-1000:]}")
+        predictors = {"float": build_predictor(served, state),
+                      "int8": build_quantized_predictor(served, state,
+                                                        qparams=load_quantized(artifact))}
+        report = []
+        for tag, extra in (("float", []), ("int8", ["--quantize-artifact", artifact])):
+            workdir = os.path.join(tmp, tag)
+            out, child_s = _child(["-c", PREDICT_CHILD, config.mrf.impl, "--config", config.name,
+                                   "--checkpoint", ckpt_dir, "--best", "--workdir", workdir,
+                                   "--num", str(num), "--batch-size", str(bs), *extra],
+                                  f"predict.main {tag}")
+            launches = json.loads(out.split("launches ", 1)[1].splitlines()[0])
+            with open(os.path.join(workdir, "predictions.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            check([r["example"] for r in records] == list(range(num)),
+                  f"predict {tag}: records {[r['example'] for r in records]}")
+            got = np.array([list(r["joints"].values()) for r in records], np.float32)
+            want = []
+            for start in range(0, num, bs):
+                idx = np.arange(start, min(start + bs, num))
+                images = test_ds.get_batch(np.pad(idx, (0, bs - len(idx)), mode="edge"))["image"]
+                want.append(predictors[tag](images)[0][: len(idx)].cpu().numpy())
+            diff = float(np.abs(got - np.concatenate(want)).max())
+            check(diff <= 1e-3, f"predict {tag}: records differ from the predictor by {diff} px")
+            check(launches["mrf_epilogue"] == -(-num // bs),
+                  f"predict {tag}: mrf_epilogue launched {launches['mrf_epilogue']} times")
+            report.append(f"{tag}: {num} records in {child_s:.1f} s, max {diff:.2e} px from the "
+                          f"in-process predictor, epilogue launches {launches['mrf_epilogue']}")
+    print(f"deploy CLIs on fit's checkpoint ({config.name}, mrf.impl={config.mrf.impl!r}, step {step}): python -m "
+          f"jointpose_torch.quantize --calib {DEPLOY_CALIB} in {quant_s:.1f} s ({summary[0]}); "
+          f"predict.main as a process, batch {bs}, last batch padded by edge: "
+          f"{'; '.join(report)}; on {smi}")
+
+
+def deploy_phase(joint, counters: dict, smi: str) -> dict:
+    """The int8 deployment path on ``joint`` at full width (seeded weights,
+    MRF precision 'default'): calibrate on the synthetic source generated on
+    the card, quantize, write and read the artifact, build the quantized
+    predictor and serve it, through the single-pass Fourier MRF tail.
+    Checks the card against the CPU (weights, scales, every int32 sum),
+    int8 against fp32, the artifact round trip and quantized serving; times
+    the int8 detector against the bf16 one in turns, and each conv's im2col
+    and ``_int_mm``."""
+    from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.convert import write_initial_checkpoint
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.models.detector import Detector
+    from jointpose_torch.ops import quant
+    from jointpose_torch.predict import init_state_dict
+    from jointpose_torch.serve import PoseService
+
+    cfg = with_mrf_precision(joint, "default")
+    h, w = cfg.data.image_hw
+    state = init_state_dict(cfg, torch.Generator().manual_seed(11))
+    train_ds, test_ds = make_dataset(cfg.data)
+    calib = train_ds.get_batch(np.arange(DEPLOY_CALIB))["image"]
+    check(calib.device.type == "cuda" and tuple(calib.shape) == (DEPLOY_CALIB, h, w, 3),
+          "deploy: the calibration images are not on the card at full width")
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quant.quantize_detector(cfg, state, calib)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    check(torch.backends.cudnn.allow_tf32 == tf32_before, "calibration did not put the TF32 flag back")
+
+    # The card against the CPU on the first 8 calibration images.
+    card8 = quant.quantize_detector(cfg, state, calib[:8])
+    cpu8 = quant.quantize_detector(cfg, state, calib[:8].cpu(), device="cpu")
+    scale_err = 0.0
+    for name, node in cpu8.items():
+        for field in ("w_q", "w_scale", "bias"):
+            check(torch.equal(card8[name][field].cpu(), node[field])
+                  and torch.equal(qparams[name][field].cpu(), node[field]),
+                  f"deploy: {name} {field} differs between the card and the CPU")
+        scale_err = max(scale_err, rel_err(card8[name]["in_scale"].cpu(), node["in_scale"])[0])
+    check(scale_err <= CALIB_RTOL, f"deploy: in_scale card vs CPU rel err {scale_err}")
+
+    # Test images of the calibration images' source, as uint8 (the serving input).
+    images = (test_ds.get_batch(np.arange(BATCH))["image"] * 255.0).round().to(torch.uint8).cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = os.path.join(tmp, "int8.npz")
+        quant.save_quantized(artifact, qparams)
+        loaded = quant.load_quantized(artifact)
+        check(list(loaded) == list(qparams) and all(
+            torch.equal(loaded[n][f], qparams[n][f].cpu()) and loaded[n][f].dtype == qparams[n][f].dtype
+            for n in qparams for f in quant.FIELDS), "deploy: the artifact does not read back equal")
+
+        # The same qparams on both sides: every int32 sum bit-equal.
+        sums_card, sums_cpu = {}, {}
+        with torch.inference_mode():
+            logits_card = quant.quant_detector_logits(cfg, loaded, images[:2].cuda(), sums_card)
+            logits_cpu = quant.quant_detector_logits(cfg, loaded, images[:2], sums_cpu)
+        n_sums = sum(y.numel() for pairs in sums_cpu.values() for _, y in pairs)
+        check(sums_card.keys() == sums_cpu.keys(), "deploy: the card and the CPU ran other convs")
+        differ = [f"{name}[{i}] {what}: {int((a.cpu() != b).sum())} of {b.numel()}"
+                  for name in sums_cpu for i, (pa, pb) in enumerate(zip(sums_card[name], sums_cpu[name]))
+                  for what, a, b in (("int8 input", pa[0], pb[0]), ("int32 sums", pa[1], pb[1]))
+                  if not torch.equal(a.cpu(), b)]
+        logit_err = rel_err(logits_card.cpu(), logits_cpu)
+        check(not differ, f"deploy: the card differs from the CPU in {differ}")
+        check(logit_err[0] <= INT8_LOGITS_RTOL, f"deploy: logits card vs CPU rel err {logit_err[0]}")
+        with torch.inference_mode():
+            sums8 = {}
+            int8_logits = quant.quant_detector_logits(cfg, qparams, images.cuda(), sums8)
+            fp_logits = quant.fp_reference_logits(cfg, state, images.cuda())
+        fp_err = rel_err(int8_logits, fp_logits)
+        check(fp_err[0] <= INT8_FP_BAR, f"deploy: int8 logits {fp_err[0]:.4f} of the fp32 range away")
+        print(f"deploy joint int8 (240x360, seeded weights): quantize_detector on {DEPLOY_CALIB} "
+              f"synthetic images generated on the card in {quantize_s:.2f} s; card vs CPU on 8 of "
+              f"them: w_q, w_scale and bias bit-equal, in_scale rel err {scale_err:.3e} (limit "
+              f"{CALIB_RTOL:g}); the artifact reads back equal; from the same qparams on 2 uint8 "
+              f"test images every int8 input and all {n_sums} int32 sums bit-equal card vs CPU, "
+              f"logits rel err {logit_err[0]:.3e} (limit {INT8_LOGITS_RTOL:g}); int8 vs fp32 logits "
+              f"on {BATCH} test images {fp_err[0]:.4f} of the fp32 range (limit {INT8_FP_BAR:g})")
+
+        # The quantized predictor, served, through the single-pass MRF tail.
+        predict = quant.build_quantized_predictor(cfg, state, qparams=loaded)
+        served = serve(cfg, seed=13, counters=counters, predict=predict)
+        check(served["launches"]["mrf_fft_tail_1pass"] == REQUESTS
+              and served["launches"]["mrf_fft_tail"] == 0,
+              f"deploy: launches {served['launches']}, not one single-pass tail per request")
+        again = quant.build_quantized_predictor(cfg, state, qparams=quant.load_quantized(artifact))
+        req = torch.from_numpy(np.random.default_rng(13).integers(
+            0, 256, (REQUESTS, BATCH, h, w, 3), dtype=np.uint8)).cuda()
+        same_again = all(torch.equal(again(req[r])[0].cpu(), served["coords"][r])
+                         for r in range(REQUESTS))
+        check(same_again, "deploy: a predictor from the loaded artifact gives other coordinates")
+
+        ckpt_dir = os.path.join(tmp, "joint")
+        write_initial_checkpoint(cfg, ckpt_dir, state)
+        service = PoseService(cfg, ckpt_dir, batch_size=BATCH, step=0, quantize_artifact=artifact)
+        try:
+            replies = [_pred_coords(service.predict(req[r].cpu().numpy())) for r in range(3)]
+        finally:
+            service.close()
+        same_service = all(np.array_equal(replies[r], served["coords"][r].numpy()) for r in range(3))
+        check(same_service, "deploy: PoseService(quantize_artifact=) answers other coordinates")
+        print(f"deploy joint int8 served: {REQUESTS} requests x {BATCH} uint8 images, p50 "
+              f"{served['p50_ms']:.3f} ms/request, latencies {served['latencies_ms']}, launches "
+              f"{served['launches']}; a second predictor from the read artifact bit-equal; "
+              f"PoseService(quantize_artifact=) answered 3 requests with the same coordinates")
+
+    # Times: the int8 detector and the bf16 cuDNN one in turns, batch 8.
+    det = Detector(cfg.detector, cfg.num_joints, dtype=torch.bfloat16)
+    det.load_state_dict({k[len("detector."):]: v for k, v in state.items() if k.startswith("detector.")})
+    det = det.cuda().eval()
+    images = images.cuda()
+    x16 = images.to(torch.bfloat16) * (1.0 / 255.0)
+    with torch.inference_mode():
+        turns = [time_ms(fn) for fn in (
+            lambda: quant.quant_detector_logits(cfg, qparams, images), lambda: det(x16),
+            lambda: det(x16), lambda: quant.quant_detector_logits(cfg, qparams, images))]
+        int8_ms, bf16_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
+        print(f"time joint detector at batch {BATCH}, in turns int8 / bf16 cuDNN / bf16 cuDNN / "
+              f"int8: {' / '.join(f'{t:.4f}' for t in turns)} ms; int8 {int8_ms:.4f} ms against "
+              f"bf16 {bf16_ms:.4f} ({int8_ms / bf16_ms:.2f}x); on {smi}")
+        convs, total = [], 0.0
+        for name, pairs in sums8.items():
+            w_q = qparams[name]["w_q"]
+            k = w_q.shape[-1]
+            wm = quant.weight_matrix(w_q)
+            for xq, y in pairs:
+                stride = xq.shape[-2] // y.shape[-2]
+                cols = quant.im2col_int8(xq, k, stride)
+                # A 1x1 conv's im2col of a channels-last map is a view: no copy, no time.
+                view = cols.untyped_storage().data_ptr() == xq.untyped_storage().data_ptr()
+                col_ms = 0.0 if view else time_ms(
+                    lambda xq=xq, k=k, s=stride: quant.im2col_int8(xq, k, s))
+                mm_ms = time_ms(lambda cols=cols, wm=wm: torch._int_mm(cols, wm.t()))
+                m_rows, kp = cols.shape
+                col_bound = 0.0 if view else (nbytes(xq) + nbytes(cols)) / HBM_BYTES_PER_S * 1e3
+                mm_bound = max((nbytes(cols, wm) + m_rows * wm.shape[0] * 4) / HBM_BYTES_PER_S,
+                               2 * m_rows * wm.shape[0] * kp / INT8_OPS_PER_S) * 1e3
+                total += col_ms + mm_ms
+                convs.append({"conv": name, "input": list(xq.shape), "M": m_rows, "K": kp, "view": view,
+                              "N": wm.shape[0], "im2col_ms": col_ms, "im2col_bound_ms": col_bound,
+                              "int_mm_ms": mm_ms, "int_mm_bound_ms": mm_bound})
+                col = ("a view of the input, no copy" if view else
+                       f"({m_rows} x {kp} int8, {nbytes(cols) / 1e6:.1f} MB) {col_ms:.4f} ms "
+                       f"(byte bound {col_bound:.4f})")
+                print(f"time int8 conv {name} input {tuple(xq.shape)} stride {stride}: im2col "
+                      f"{col}, _int_mm ({m_rows} x {kp} x {wm.shape[0]}) {mm_ms:.4f} ms (bound "
+                      f"{mm_bound:.4f}); on {smi}")
+                del cols
+    cols_ms = sum(c["im2col_ms"] for c in convs)
+    print(f"time int8 convs: im2col {cols_ms:.4f} ms + _int_mm {total - cols_ms:.4f} ms summed over "
+          f"the {len(convs)} convs, {total:.4f} ms of the int8 detector's {int8_ms:.4f} (the rest, "
+          f"by difference: the fp32 epilogues, requantizes, pools and the multires sum); bounds: "
+          f"HBM {HBM_BYTES_PER_S / 1e12} TB/s, int8 tensor cores {INT8_OPS_PER_S / 1e12} TOP/s "
+          f"(H100 SXM data sheet)")
+    print(f"deploy {json.dumps({'int8_ms': int8_ms, 'bf16_ms': bf16_ms, 'turns': turns, 'convs': convs})}")
+    return {"launches": served["launches"], "int8_ms": int8_ms, "bf16_ms": bf16_ms}
 
 
 def main() -> int:
@@ -1168,6 +1440,7 @@ def main() -> int:
               f"flagship training: {name} launched {trained['launches'][name]} times, not {n}")
     fit_phase(flag_cfg, counters, smi)
     served_default = serve_phase(joint, flag_cfg, counters, smi)
+    deploy_phase(joint, counters, smi)
     torch.backends.cudnn.allow_tf32 = False
 
     # --- the card against the CPU on a small input.

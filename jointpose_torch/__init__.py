@@ -18,8 +18,13 @@ images and (B, H, W, K) heatmaps.
                                 training, evals, checkpoints, resume).
 - ``jointpose_torch.priors``, ``evaluate``, ``metrics``, ``checkpoint``
                               — what ``fit`` is made of.
-- ``jointpose_torch.predict`` — ``build_predictor``, ``restore_params``
-                                and seeded weights.
+- ``jointpose_torch.predict`` — ``build_predictor``, ``restore_params``,
+                                seeded weights and the batch-inference CLI.
+- ``jointpose_torch.serve``   — the HTTP inference server.
+- ``jointpose_torch.ops.quant``, ``quantize``
+                              — the int8 post-training-quantized detector
+                                and its artifact CLI.
+- ``jointpose_torch.visualize`` — heatmap overlays, priors, PDJ curves.
 - ``jointpose_torch.convert`` — flax params tree -> torch ``state_dict``.
 
 The package never imports ``jax`` or anything of ``jointpose``.

@@ -12,11 +12,13 @@ while swapping left and right joint channels, and averages in
 probability space.
 
     python -m jointpose_torch.evaluate --config tiny \\
-        --checkpoint runs/tiny/checkpoints [--best] [--tta] [--device cpu]
+        --checkpoint runs/tiny/checkpoints [--best] [--tta] [--device cpu] \\
+        [--quantize-artifact int8.npz] [--curves pdj.png]
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import numpy as np
@@ -108,17 +110,18 @@ def evaluate(
     eval_step: Callable | None = None,
     uint8_ingest: bool = False,
 ) -> dict:
-    """Full-split evaluation of ``model`` on its device; returns the PDJ
-    curves and headline numbers.  ``eval_step`` (from ``make_eval_step``)
-    replaces the default step over the whole model, e.g. to score the
-    detector head alone."""
+    """Full-split evaluation of ``model`` (a ``PoseModel``, or the int8 model
+    of ``ops/quant.py``) on its device; returns the PDJ curves and headline
+    numbers.  ``eval_step`` (from ``make_eval_step``) replaces the default
+    step over the whole model, e.g. to score the detector head alone."""
     if eval_step is not None and hasattr(eval_step, "thresholds"):
         assert eval_step.thresholds == tuple(float(t) for t in thresholds), (
             "prebuilt eval_step was built with different thresholds than "
             "the labels requested here"
         )
     eval_step = eval_step or make_eval_step(config, model, thresholds)
-    device = next(model.parameters()).device
+    # The int8 model of a config without an MRF holds buffers alone.
+    device = next(itertools.chain(model.parameters(), model.buffers())).device
     batch = config.train.batch_size
     detected = torch.zeros(len(thresholds), skeleton.NUM_JOINTS, dtype=torch.float64, device=device)
     visible = torch.zeros(skeleton.NUM_JOINTS, dtype=torch.float64, device=device)
@@ -186,10 +189,24 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--mrf-precision", choices=["high", "default"], default=None,
                         help="matmul precision inside the MRF message pass (the preset's "
                              "unless given; 'default' is one TF32 pass on the card)")
+    parser.add_argument("--mesh-data", type=int, default=0,
+                        help="data-parallel devices; -1, 0 and 1 mean the one device, larger "
+                             "meshes are not ported yet (ROADMAP.md)")
+    parser.add_argument("--mesh-model", type=int, default=1,
+                        help="model-axis devices; only 1 (ROADMAP.md)")
+    parser.add_argument("--quantize-artifact", default=None, metavar="NPZ",
+                        help="evaluate a prebuilt int8 artifact (python -m "
+                             "jointpose_torch.quantize) instead of calibrating: the exact "
+                             "tensors a deployment serves")
+    parser.add_argument("--quantize", type=int, default=0, metavar="N_CALIB",
+                        help="evaluate the int8-quantized detector (ops/quant.py), calibrating "
+                             "activation scales on N_CALIB training images")
     parser.add_argument("--uint8-ingest", action="store_true",
                         help="feed the split as raw uint8 RGB (the serving input contract)")
     parser.add_argument("--source", choices=["synthetic", "flic"], default=None)
     parser.add_argument("--flic-dir", default=None)
+    parser.add_argument("--curves", default=None,
+                        help="write the PDJ-curve figure to this PNG path")
     parser.add_argument("--json-out", default=None,
                         help="write the full metrics dict to this JSON path")
     parser.add_argument("--device", default=None,
@@ -200,8 +217,9 @@ def main(argv: list[str] | None = None) -> None:
     from jointpose_torch.configs import get_config, with_mrf_precision
     from jointpose_torch.data.pipeline import device_cache, make_dataset
     from jointpose_torch.models.pose import PoseModel
-    from jointpose_torch.predict import resolve_device, restore_params
+    from jointpose_torch.predict import refuse_unported, resolve_device, restore_params
 
+    refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
     device = resolve_device(args.device)
     config = get_config(args.config)
     if args.tta is not None:
@@ -215,19 +233,31 @@ def main(argv: list[str] | None = None) -> None:
         config = config.replace(data=dataclasses.replace(config.data, **dd))
     config = reconcile_config(config, args.checkpoint, args.pool_mode)
     state_dict, step = restore_params(config, args.checkpoint, args.step, best=args.best)
-    model = PoseModel(config)
-    model.load_state_dict(state_dict)
-    model = model.to(device).eval()
     train_ds, test_ds = make_dataset(config.data, device)
     ds = train_ds if args.split == "train" else test_ds
     if config.data.device_cache_gb > 0:
         ds = device_cache(ds, config.data.device_cache_gb * 1e9, device)
+    if args.quantize > 0 or args.quantize_artifact:
+        from jointpose_torch.ops.quant import quantized_model_for
+
+        model, line = quantized_model_for(config, state_dict, args.quantize,
+                                          args.quantize_artifact, train_ds, device)
+        print(line)
+    else:
+        model = PoseModel(config)
+        model.load_state_dict(state_dict)
+        model = model.to(device).eval()
     ev = evaluate(model, ds, config, max_batches=args.max_batches, uint8_ingest=args.uint8_ingest)
 
     print(f"checkpoint step {step}, {args.split} split, {int(ev['num_examples'])} examples")
     for name, v in ev["pdj_at_05"].items():
         print(f"  PDJ@0.05 {name:>5}: {v:.4f}")
     print(f"  PDJ@0.05 wrist/elbow: {ev['pdj_at_05_wrist_elbow']:.4f}")
+    if args.curves:
+        from jointpose_torch.visualize import save_pdj_curves
+
+        save_pdj_curves(ev, args.curves)
+        print(f"curves -> {args.curves}")
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as f:

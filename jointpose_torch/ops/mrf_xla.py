@@ -100,3 +100,16 @@ def mrf_message_pass_coarse(
     ).permute(0, 2, 3, 1)
     unary = torch.log(p.float().clamp_min(eps))
     return unary + up
+
+
+def mrf_message_pass_direct(
+    p: torch.Tensor, kernels: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Direct-space oracle: log Π_v max(k⊛p_v + b, eps), for tests.
+
+    Mathematically the log-space pass of ``mrf_message_pass_xla``; the
+    product underflows for large K, which is why the model sums logs.
+    """
+    resp = pairwise_conv(p, kernels, precision=precision).float()
+    return torch.log((resp + biases.float()).clamp_min(eps).prod(dim=-2))

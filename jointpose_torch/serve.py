@@ -23,11 +23,14 @@ API:
              (B, H, W, 3), float32 in [0,1] or uint8 RGB (uint8 goes to
              the card as it is and is normalized there)
 
-CLI:  python -m jointpose_torch.serve --config joint \\
-          --checkpoint runs/joint/checkpoints --port 8471 [--device cpu]
+With ``--quantize N`` or ``--quantize-artifact NPZ`` the int8 detector of
+``ops/quant.py`` replaces the float one, in front of the same MRF tail.
 
-Not ported yet (ROADMAP.md): int8 quantized serving (``--quantize*``) and
-meshes of more than one device (``--mesh-*``).
+CLI:  python -m jointpose_torch.serve --config joint \\
+          --checkpoint runs/joint/checkpoints --port 8471 \\
+          [--quantize-artifact int8.npz] [--device cpu]
+
+Not ported yet (ROADMAP.md): meshes of more than one device (``--mesh-*``).
 """
 
 from __future__ import annotations
@@ -67,10 +70,6 @@ class _Pending:
         self.error: Exception | None = None
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet; see ROADMAP.md")
-
-
 class PoseService:
     """Holds the predictor and the serving batch buckets.
 
@@ -78,7 +77,9 @@ class PoseService:
     same-dtype chunks into a single padded device batch (bounded by
     ``batch_wait_ms``), so the card only sees warmed shapes and concurrent
     callers share dispatches.  ``device`` is the CUDA device unless the
-    caller asks for the CPU.
+    caller asks for the CPU.  ``quantize_calib`` (training images to
+    calibrate on) or ``quantize_artifact`` (a ``quantize`` npz) puts the
+    int8 detector of ``ops/quant.py`` in place of the float one.
     """
 
     def __init__(self, config: Config, checkpoint_dir: str, batch_size: int,
@@ -88,12 +89,15 @@ class PoseService:
                  batch_buckets: list[int] | None = None,
                  max_queue_images: int = 0, max_inflight: int = 2,
                  device: str | torch.device | None = None):
-        from jointpose_torch.predict import build_predictor, resolve_device, restore_params
+        from jointpose_torch.predict import (
+            build_predictor, predictor_for, resolve_device, restore_params,
+        )
 
+        quantized = quantize_calib > 0 or bool(quantize_artifact)
+        if mesh is not None and quantized:
+            raise ValueError("quantized serving is exclusive with mesh serving")
         if mesh is not None:
-            raise _unported("PoseService(mesh=)")
-        if quantize_calib > 0 or quantize_artifact:
-            raise _unported("quantized serving (quantize_calib, quantize_artifact)")
+            raise NotImplementedError("PoseService(mesh=): not ported yet; see ROADMAP.md")
         self.config = config
         self.batch_size = batch_size
         self.device = resolve_device(device)
@@ -108,7 +112,14 @@ class PoseService:
             )
         self._buckets = buckets + [batch_size]
         params, self.step = restore_params(config, checkpoint_dir, step, best=best)
-        self._predict = build_predictor(config, params, device=self.device)
+        if quantized:
+            from jointpose_torch.ops.quant import quantized_model_for
+
+            model, _ = quantized_model_for(config, params, quantize_calib, quantize_artifact,
+                                           device=self.device)
+            self._predict = predictor_for(config, model, self.device)
+        else:
+            self._predict = build_predictor(config, params, device=self.device)
         # Warm both accepted input types at every bucket, so that the first
         # request of each shape finds the DFT tables, the kernels built and
         # cuDNN's algorithms chosen.
@@ -395,9 +406,11 @@ def main(argv: list[str] | None = None) -> None:
                         help="MRF message-pass matmul precision; serving defaults to "
                              "'default' (on the card one TF32 pass in the Fourier paths)")
     parser.add_argument("--quantize", type=int, default=0, metavar="N_CALIB",
-                        help="int8-quantized detector: not ported yet (ROADMAP.md)")
+                        help="serve the int8-quantized detector (ops/quant.py), calibrating on "
+                             "N_CALIB training images")
     parser.add_argument("--quantize-artifact", default=None, metavar="NPZ",
-                        help="prebuilt int8 artifact: not ported yet (ROADMAP.md)")
+                        help="load a prebuilt int8 artifact (python -m jointpose_torch.quantize) "
+                             "instead of calibrating")
     parser.add_argument("--batch-buckets", default=None, metavar="N,N,...",
                         help="extra batch sizes below --batch-size (e.g. '1,8'): a small "
                              "request pads only to the smallest bucket that fits")
@@ -418,15 +431,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--device", default=None,
                         help="'cpu' runs the kernels' plain versions; default: the CUDA device")
     args = parser.parse_args(argv)
-    unported = [flag for flag, on in (
-        ("--quantize", args.quantize > 0), ("--quantize-artifact", bool(args.quantize_artifact)),
-        ("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1),
-    ) if on]
-    if unported:
-        raise _unported(", ".join(unported))
 
     from jointpose_torch.checkpoint import reconcile_config
     from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.predict import refuse_unported
+
+    refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
 
     config = reconcile_config(get_config(args.config), args.checkpoint, args.pool_mode)
     config = with_mrf_precision(config, args.mrf_precision)
@@ -434,7 +444,8 @@ def main(argv: list[str] | None = None) -> None:
                if args.batch_buckets else None)
     service = PoseService(
         config, args.checkpoint, args.batch_size, step=args.step,
-        batch_wait_ms=args.batch_wait_ms, batch_buckets=buckets,
+        batch_wait_ms=args.batch_wait_ms, quantize_calib=args.quantize,
+        quantize_artifact=args.quantize_artifact, batch_buckets=buckets,
         max_queue_images=args.max_queue_images, max_inflight=args.max_inflight,
         device=args.device,
     )

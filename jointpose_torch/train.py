@@ -32,9 +32,11 @@ the loss does not reach it.
 Not carried over from the reference's ``fit`` (ROADMAP.md names each):
 the mesh and multi-process branches, the K-step scan
 (``steps_per_dispatch`` is read and ignored: one step per call), the
-per-stage roofline log, heartbeat and fault injection, figures and the
-profiler hook.  Preemption is carried over: SIGTERM checkpoints at the
-next step boundary and exits ``resilience.EXIT_PREEMPTED``.
+per-stage roofline log, heartbeat and fault injection, and the profiler
+hook.  Preemption is carried over: SIGTERM checkpoints at the next step
+boundary and exits ``resilience.EXIT_PREEMPTED``.  ``save_figures``
+(``--figures``) writes the prior grid after the prior init and the PDJ
+curves and heatmap overlays at the end, under ``<workdir>/figures/``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from jointpose_torch.data.targets import image_to_heatmap_coords, render_gaussia
 from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose_torch.models.mrf import priors_to_raw_kernels
 from jointpose_torch.models.pose import PoseModel
-from jointpose_torch.predict import init_state_dict, resolve_device
+from jointpose_torch.predict import init_state_dict, refuse_unported, resolve_device
 from jointpose_torch.resilience import PreemptionHandler
 
 
@@ -255,6 +257,7 @@ def fit(
     resume: bool = False,
     profile_steps: int = 0,
     device: str | torch.device | None = None,
+    save_figures: bool = False,
 ) -> FitResult:
     """Run the full staged training on ``device`` (CUDA unless the caller
     asks for the CPU); returns the final state and eval metrics."""
@@ -355,6 +358,10 @@ def fit(
                 priors = estimate_priors(train_ds, config, max_examples=2048)
                 state = init_mrf_from_priors(state, priors)
                 mrf_initialized = True
+                if save_figures:
+                    from jointpose_torch.visualize import save_prior_grid
+
+                    save_prior_grid(np.asarray(priors), f"{workdir}/figures/priors.png")
             state, metrics = step_fns[stage](state, train_ds.get_batch(indices_for_step(step)))
             step += 1
             if preemption.preempted:
@@ -384,6 +391,17 @@ def fit(
                 t_last = now()  # evals and saves stay out of the logged rate
     finally:
         preemption.uninstall()
+
+    if final_eval and save_figures:
+        from jointpose_torch.ops.heatmaps import model_probs
+        from jointpose_torch.visualize import save_heatmap_overlays, save_pdj_curves
+
+        save_pdj_curves(final_eval, f"{workdir}/figures/pdj_curves.png")
+        batch = test_ds.get_batch(np.arange(4))
+        with torch.inference_mode():
+            probs = model_probs(model(batch["image"].to(device)))
+        save_heatmap_overlays(batch["image"].cpu().numpy(), probs.cpu().numpy(),
+                              f"{workdir}/figures/heatmaps.png", batch["joints"].cpu().numpy())
 
     logger.close()
     ckpt.close()
@@ -421,7 +439,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--eval-every", type=int, default=None,
                         help="eval + checkpoint cadence in steps")
     parser.add_argument("--log-every", type=int, default=None)
-    parser.add_argument("--figures", action="store_true", help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--figures", action="store_true",
+                        help="write the prior grid, PDJ curves and heatmap overlays to "
+                             "<workdir>/figures/")
     parser.add_argument("--profile-steps", type=int, default=0,
                         help="not ported yet (ROADMAP.md)")
     parser.add_argument("--check-numerics", action="store_true",
@@ -435,12 +455,10 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--device", default=None,
                         help="'cpu' runs the kernels' plain versions; default: the CUDA device")
     args = parser.parse_args(argv)
-    unported = [flag for flag, on in (
-        ("--figures", args.figures), ("--mesh-data", args.mesh_data not in (None, -1, 0, 1)),
+    refuse_unported([
+        ("--mesh-data", args.mesh_data not in (None, -1, 0, 1)),
         ("--mesh-model", args.mesh_model not in (None, 1)), ("--mesh-spatial", args.mesh_spatial),
-    ) if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not ported yet; see ROADMAP.md")
+    ])
     if args.check_numerics:
         torch.autograd.set_detect_anomaly(True)
 
@@ -467,7 +485,8 @@ def main(argv: list[str] | None = None) -> None:
         config = config.replace(data=dataclasses.replace(config.data, **dd))
 
     result = fit(config, args.workdir, eval_max_batches=args.eval_max_batches,
-                 resume=args.resume, profile_steps=args.profile_steps, device=args.device)
+                 resume=args.resume, profile_steps=args.profile_steps, device=args.device,
+                 save_figures=args.figures)
     print("final:", {k: v for k, v in result.metrics.items() if k != "pdj_curves"})
 
 

@@ -11,6 +11,7 @@ differ by one count per joint and threshold; ``num_examples`` and
 
 import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +176,54 @@ def test_evaluate_main_reads_a_fit_checkpoint(tmp_path, capsys):
               "--tta", "--max-batches", "1", "--json-out", str(out), "--device", "cpu"])
     assert "checkpoint step 2, test split, 4 examples" in capsys.readouterr().out
     assert out.exists()
+
+
+@pytest.mark.parametrize("tta", [False, True])
+def test_evaluate_int8_model_matches_reference(tmp_path, tta):
+    """The PDJ harness on the int8 detector: one artifact of the reference's
+    qparams, read by both packages, over the same host arrays."""
+    from jointpose.ops import quant as jq
+    from jointpose_torch.ops import quant as tq
+
+    jcfg, tcfg, arrays, jmodel, variables, model = _setup(10, tta)
+    jqp = jq.quantize_detector(jcfg, variables, jnp.asarray(arrays["image"][:4]))
+    jq.save_quantized(str(tmp_path / "int8.npz"), jqp)
+    apply_fn = jq.make_quantized_apply_fn(jcfg, variables, qparams=jq.load_quantized(
+        str(tmp_path / "int8.npz")))
+    want = jev.evaluate(variables, jpipe.from_host_arrays(arrays), jcfg, apply_fn)
+    qmodel = tq.make_quantized_apply_fn(tcfg, model.state_dict(), device="cpu",
+                                        qparams=tq.load_quantized(str(tmp_path / "int8.npz")))
+    got = tev.evaluate(qmodel, tpipe.from_host_arrays(arrays), tcfg)
+    _assert_evals_agree(got, want, _visible_counts(arrays, 10))
+    # Without an MRF the int8 model holds buffers alone; evaluate finds its device.
+    bare = tq.make_quantized_apply_fn(tcfg.replace(mrf=None), model.state_dict(), device="cpu",
+                                      qparams=qmodel.qparams())
+    assert tev.evaluate(bare, tpipe.from_host_arrays(arrays), tcfg.replace(mrf=None))[
+        "num_examples"] == 10.0
+
+
+def test_evaluate_main_scores_the_int8_model(tmp_path, capsys):
+    from jointpose_torch import quantize
+    from jointpose_torch.train import fit
+
+    cfg = get_config("tiny")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, detector_steps=1, joint_steps=1,
+                                                eval_every=2, log_every=2))
+    fit(cfg, str(tmp_path / "run"), eval_max_batches=1, device="cpu")
+    ckpt = str(tmp_path / "run" / "checkpoints")
+    artifact = str(tmp_path / "int8.npz")
+    quantize.main(["--config", "tiny", "--checkpoint", ckpt, "--calib", "4", "--out", artifact,
+                   "--device", "cpu"])
+    common = ["--config", "tiny", "--checkpoint", ckpt, "--max-batches", "2", "--device", "cpu",
+              "--mesh-data", "1", "--mesh-model", "1"]
+    tev.main([*common, "--quantize-artifact", artifact, "--json-out", str(tmp_path / "a.json")])
+    tev.main([*common, "--quantize", "4", "--json-out", str(tmp_path / "c.json")])
+    out = capsys.readouterr().out
+    assert f"int8 detector (artifact {artifact})" in out
+    assert "int8 detector (calibrated on 4 train images)" in out
+    with open(tmp_path / "a.json") as f, open(tmp_path / "c.json") as g:
+        a, c = json.load(f), json.load(g)
+    assert a == c and a["num_examples"] == 8.0 and 0.0 <= a["pdj_at_05_wrist_elbow"] <= 1.0
+    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tev.main(["--config", "tiny", "--checkpoint", ckpt, "--device", "cpu", *flags])

@@ -500,3 +500,102 @@ def test_plain_pass_gradients_ignore_the_global_tf32_flag(cuda):
     one = grads("default")
     assert not all(torch.equal(a, b) for a, b in zip(one, fp32))
     assert max(_rel(a, b) for a, b in zip(one, fp32)) <= SINGLE_PASS_RTOL
+
+
+# The int8 convs of `joint` at 240×360 (the trunk at both pyramid levels, the
+# wide head, the 1×1s: K = 75 and N = 9 among them) and the flagship's
+# stride-2 5×5 convs (asymmetric SAME padding), batch 1:
+# (C_in, C_out, kernel, stride, H, W).
+INT8_CONVS = [(3, 64, 5, 1, 240, 360), (3, 64, 5, 1, 120, 180), (64, 128, 5, 1, 120, 180),
+              (64, 128, 5, 1, 60, 90), (128, 128, 5, 1, 60, 90), (128, 128, 5, 1, 30, 45),
+              (128, 512, 9, 1, 60, 90), (512, 256, 1, 1, 60, 90), (256, 9, 1, 1, 60, 90),
+              (3, 24, 5, 2, 240, 360), (24, 48, 5, 2, 120, 180), (48, 96, 5, 1, 60, 90)]
+
+
+@pytest.mark.parametrize("case", INT8_CONVS, ids=lambda c: "x".join(map(str, c)))
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, case):
+    """im2col + ``torch._int_mm`` on the card against the CPU's int32 conv:
+    both exact, so bit-equal; on the extreme int8 values too."""
+    from jointpose_torch.ops import quant as tq
+
+    cin, cout, k, s, h, w = case
+    g = torch.Generator().manual_seed(sum(case))
+    x = torch.randint(-127, 128, (1, cin, h, w), generator=g, dtype=torch.int8)
+    x[..., :4, :] = 127
+    x[..., -4:, :] = -127
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=g, dtype=torch.int8)
+    wq[: cout // 2] = 127
+    got = tq.int_conv(x.to(cuda), wq.to(cuda), s)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), tq.int_conv_plain(x, wq, s))
+
+
+@pytest.mark.parametrize("hw", [(45, 67), (60, 90), (31, 1)])
+def test_int8_pool_on_the_card_equals_the_cpu(cuda, hw):
+    """The int8 max pool, odd sizes included, on a map in the channels-last
+    memory that ``_int_mm``'s output leaves."""
+    from jointpose_torch.ops import quant as tq
+
+    x = torch.randint(-128, 128, (2, *hw, 16), generator=torch.Generator().manual_seed(1),
+                      dtype=torch.int8)
+    got = tq._pool_int(x.to(cuda).permute(0, 3, 1, 2))
+    assert torch.equal(got.cpu(), tq._pool_int(x.permute(0, 3, 1, 2)))
+
+
+def test_int8_detector_on_the_card_equals_the_cpu(cuda):
+    """Quantizing on the card and the CPU gives the same int8 weights and
+    weight scales; the whole int8 forward of a small multires detector from
+    one set of qparams: every int8 input and int32 sum bit-equal card vs
+    CPU, uint8 and float images."""
+    import dataclasses
+
+    from jointpose_torch.configs import get_config
+    from jointpose_torch.ops import quant as tq
+    from jointpose_torch.predict import init_state_dict
+
+    cfg = get_config("tiny")
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector, pool_mode="stride"))
+    state = init_state_dict(cfg, torch.Generator().manual_seed(2))
+    g = torch.Generator().manual_seed(3)
+    calib = torch.rand(8, *cfg.data.image_hw, 3, generator=g)
+    qparams = tq.quantize_detector(cfg, state, calib, device="cpu")
+    on_card = tq.quantize_detector(cfg, state, calib.to(cuda))
+    for name, node in qparams.items():
+        for field in ("w_q", "w_scale", "bias"):
+            assert torch.equal(on_card[name][field].cpu(), node[field]), (name, field)
+        assert _rel(on_card[name]["in_scale"].cpu(), node["in_scale"]) <= 1e-5
+    for images in (calib[:2], (calib[2:4] * 255).round().to(torch.uint8)):
+        sums = {}, {}
+        on_card = tq.quant_detector_logits(cfg, qparams, images.to(cuda), sums[0])
+        on_cpu = tq.quant_detector_logits(cfg, qparams, images, sums[1])
+        assert sums[0].keys() == sums[1].keys()
+        for name in sums[1]:
+            for a, b in zip(sums[0][name], sums[1][name]):
+                assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1]), name
+        assert _rel(on_card.cpu(), on_cpu) <= 1e-6
+
+
+def test_calibration_runs_without_tf32_and_puts_the_flag_back(cuda):
+    """cuDNN's TF32 switched on for the process: the calibration's convs
+    still run in fp32 (the same scales as with it off, and within fp32
+    rounding of the CPU's), and the flag is on again afterwards."""
+    import dataclasses
+
+    from jointpose_torch.configs import get_config
+    from jointpose_torch.ops import quant as tq
+    from jointpose_torch.predict import init_state_dict
+
+    cfg = get_config("tiny")
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector, trunk_features=(64, 128),
+                                                   head_features=(256, 64)))
+    state = init_state_dict(cfg, torch.Generator().manual_seed(4))
+    calib = torch.rand(8, *cfg.data.image_hw, 3, generator=torch.Generator().manual_seed(5))
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        flagged = tq.calibrate_detector(cfg, state, calib.to(cuda))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert flagged == tq.calibrate_detector(cfg, state, calib.to(cuda))
+    on_cpu = tq.calibrate_detector(cfg, state, calib, device="cpu")
+    assert all(abs(flagged[n] - on_cpu[n]) <= 1e-5 * on_cpu[n] for n in on_cpu)

@@ -147,8 +147,9 @@ def test_flip_tta_predictor_matches_reference(path):
 
 
 def test_unported_options_raise(tmp_path):
-    """MRF precision 'default' is ported: the model builds and serves.
-    What is not ported yet raises, naming ROADMAP.md."""
+    """MRF precision 'default' and quantized serving are ported: the model
+    builds and serves.  What is not ported yet (meshes of more than one
+    device) raises, naming ROADMAP.md."""
     from jointpose_torch import serve
 
     cfg = with_mrf_precision(get_config("tiny"), "default")
@@ -159,8 +160,8 @@ def test_unported_options_raise(tmp_path):
     assert coords.shape == (1, cfg.num_joints, 2)
     with pytest.raises(ValueError, match="precision"):
         PoseModel(cfg.replace(mrf=dataclasses.replace(cfg.mrf, precision="bf16")))
-    for flags in (["--quantize", "1"], ["--quantize-artifact", "q.npz"], ["--mesh-data", "2"],
-                  ["--mesh-model", "2"]):
+    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"],
+                  ["--quantize-artifact", "q.npz", "--mesh-data", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.main(["--config", "tiny", "--checkpoint", str(tmp_path), "--device", "cpu",
                         *flags])

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from jointpose.checkpoint import Checkpointer as JaxCheckpointer
 from jointpose.configs import get_config as jax_get_config
@@ -134,6 +135,68 @@ def test_services_answer_like_the_reference(checkpoints, service):
                 np.testing.assert_allclose(_coords(got), _coords(want), rtol=0, atol=COORD_ATOL)
     finally:
         ref.close()
+
+
+def test_quantized_services_answer_like_the_reference(checkpoints, tmp_path):
+    """Both packages' PoseService on one int8 artifact (the reference's
+    quantize_detector on its restored parameters), warmed and answering
+    as the float services do."""
+    from jointpose.ops.quant import quantize_detector, save_quantized
+    from jointpose.predict import restore_params as jax_restore_params
+    from jointpose_torch.ops.quant import build_quantized_predictor, load_quantized
+    from jointpose_torch.predict import restore_params
+
+    jcfg, tcfg, jdir, tdir = checkpoints
+    params, _ = jax_restore_params(jcfg, jdir, 0)
+    artifact = str(tmp_path / "int8.npz")
+    save_quantized(artifact, quantize_detector(jcfg, params, jnp.asarray(
+        _images(tcfg, 4, "float32", seed=9))))
+    ref = JaxPoseService(jcfg, jdir, batch_size=2, best=False, quantize_artifact=artifact)
+    svc = serve.PoseService(tcfg, tdir, batch_size=2, best=False, quantize_artifact=artifact,
+                            batch_buckets=[1], device="cpu")
+    try:
+        for n, dtype in ((1, "uint8"), (3, "float32")):
+            images = _images(tcfg, n, dtype, seed=10 + n)
+            got, want = svc.predict(images), ref.predict(images)
+            np.testing.assert_allclose(_coords(got), _coords(want), rtol=0, atol=COORD_ATOL)
+        # The service's answers are the quantized predictor's.
+        images = _images(tcfg, 2, "uint8", seed=20)
+        state, _ = restore_params(tcfg, tdir, 0)
+        direct = build_quantized_predictor(tcfg, state, qparams=load_quantized(artifact),
+                                           device="cpu")(torch.from_numpy(images))[0]
+        np.testing.assert_array_equal(_coords(svc.predict(images)), direct.numpy())
+    finally:
+        ref.close()
+        svc.close()
+    # Calibrating in the service: the train split's first images.
+    calibrated = serve.PoseService(tcfg, tdir, batch_size=2, best=False, quantize_calib=4,
+                                   device="cpu")
+    try:
+        assert len(calibrated.predict(_images(tcfg, 1, "uint8", seed=21))) == 1
+    finally:
+        calibrated.close()
+    with pytest.raises(ValueError, match="exclusive"):
+        serve.PoseService(tcfg, tdir, batch_size=2, best=False, mesh=object(),
+                          quantize_artifact=artifact, device="cpu")
+
+
+def test_main_passes_the_quantize_flags(checkpoints, monkeypatch):
+    _, _, _, tdir = checkpoints
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_service(config, checkpoint_dir, batch_size, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(serve, "PoseService", fake_service)
+    for flags, want in ((["--quantize", "8"], (8, None)),
+                        (["--quantize-artifact", "q.npz"], (0, "q.npz"))):
+        with pytest.raises(Stop):
+            serve.main(["--config", "tiny", "--checkpoint", tdir, "--device", "cpu", *flags])
+        assert (seen["quantize_calib"], seen["quantize_artifact"]) == want
 
 
 def test_micro_batcher_coalesces(checkpoints):
