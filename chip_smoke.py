@@ -48,7 +48,23 @@ the package is missing.  Phases, each fatal on failure:
    without and with ``--quantize-artifact`` (records equal to the
    in-process predictors', through the epilogue kernel), and resume for 2
    more steps;
-8. serve through ``jointpose_torch.serve`` at the serving default, MRF
+8. observability and operations (``observe_phase``): ``fit`` of the same
+   config, 4 + 6 steps, with a profiler window of steps 5-7 (its trace,
+   read by ``devtime.parse_trace``, holds the path's three kernels as often
+   as their launch counters say) and each stage's cost record (its
+   roofline bound finite and at least the stage's measured images/s); one
+   joint step under ``perf.count_cost`` (the kernels' own reports) and the
+   step time without and with the profiler in turns; ``devtime.
+   measure_device_time`` of served ``joint`` at MRF precision 'default'
+   (the single-pass tail once a run) beside ``time_ms`` of the same call;
+   ``python -m jointpose_torch.resilience`` over ``flagship``'s CLI with a
+   fault injected at step 5 (one restart, resumed from step 4 with the
+   priors applied there, ended at step 8, parameters within FIT_RTOL of an
+   unbroken run, both under cuDNN's deterministic algorithms; a third run
+   with the defaults shows their spread); ``debug.checked_apply`` on the
+   ``joint`` model, clean and with a NaN in one image (it names the first
+   module);
+9. serve through ``jointpose_torch.serve`` at the serving default, MRF
    precision 'default': a full-width ``joint`` checkpoint written from
    seeded weights behind ``PoseService(batch_size=16, batch_buckets=[1,
    8])`` and its HTTP handler, 64 npy requests of 1-8 uint8 images from 8
@@ -64,17 +80,17 @@ the package is missing.  Phases, each fatal on failure:
    range), serve the quantized predictor (one single-pass MRF tail launch
    per request; a second predictor from the read artifact bit-equal) and
    ``PoseService(quantize_artifact=)``;
-9. check the MRF paths and the Fourier head on the card against the CPU
+10. check the MRF paths and the Fourier head on the card against the CPU
    at the ``tiny`` preset (fp32): the forward, one training step's
    gradients (the fused Fourier path also at precision 'default'), a
    whole ``fit`` of 4 + 4 steps, and the synthetic source;
-10. time each kernel and its plain version at the main-path shape, the
+11. time each kernel and its plain version at the main-path shape, the
    epilogue forward also against its first design and an empty launch,
    in turns: the two forms of the Fourier MRF tail, the fused shear warp
    and its two-pass form (and the fused kernel's strip widths), the
    head-conv tail's ring and register-staged versions at batch 8 and 32;
    then the Fourier head against cuDNN and served ``joint`` with either
-   head at batch 1, 8, 16 and 32.  The int8 detector is timed in phase 8,
+   head at batch 1, 8, 16 and 32.  The int8 detector is timed in phase 9,
    against the bf16 cuDNN detector in turns, with each conv's im2col and
    ``torch._int_mm``.
 
@@ -105,11 +121,13 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12  # CUDA cores, no tensor cores
-BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
-TF32_FLOPS_PER_S = 495e12  # tensor cores, dense
+# The card's peaks and the bound on them: one copy, in the package.
+from jointpose_torch.perf import (
+    BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, TF32_FLOPS_PER_S,
+    nbytes, tf32_ops_ms,
+)
+from jointpose_torch.perf import bound_ms as bound
+
 # max|kernel - plain| / max|plain|: the reference's parity tolerance for
 # every MRF message-pass path (BENCH_r05.json parity_tolerances).
 KERNEL_RTOL = 1e-3
@@ -160,7 +178,6 @@ INT8_FP_BAR = 0.08
 INT8_LOGITS_RTOL = 1e-6
 # Calibration amax on the card against the CPU: two devices' fp32 convs.
 CALIB_RTOL = 1e-5
-INT8_OPS_PER_S = 1979e12  # tensor cores, dense
 DEPLOY_CALIB = 64
 BATCH = 8
 REQUESTS = 4
@@ -222,16 +239,6 @@ def call_ms(fn, runs: int = TIMED_RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
-
-
-def nbytes(*tensors: torch.Tensor) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes: int, n_flops: int, peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def extreme_affines(batch: int, h: int, w: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -557,6 +564,253 @@ def fit_phase(config, counters: dict, smi: str) -> None:
           f"images/s; synthetic get_batch at batch {tb} {get_batch_ms:.3f} ms; checkpoint save "
           f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms; restored predictor bit-equal on 8 test "
           f"images; resume took 2 steps and kept the kernels' prior init; on {smi}")
+
+
+# A sitecustomize for the children of the supervised-fit check: the
+# interpreter's own sitecustomize first, then cuDNN's and PyTorch's
+# deterministic algorithms for the whole process.
+DETERMINISTIC_SITE = """
+import importlib.machinery, importlib.util, os, sys
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+"""
+
+
+# Kernel function names in a CUDA trace of each launch counter of the
+# training path (csrc/shear_warp.cu, csrc/mrf_epilogue.cu).
+PATH_KERNELS = {"shear_warp": "shear_warp_fused_kernel", "mrf_epilogue": "mrf_epilogue_fwd_kernel",
+                "mrf_epilogue_bwd": "mrf_epilogue_bwd_kernel"}
+
+
+def observe_phase(config, joint, counters: dict, smi: str) -> None:
+    """Observability and operations on the card: ``fit`` of ``config`` with
+    a profiler window and its stage-cost records, ``devtime.
+    measure_device_time`` of served ``joint``, a supervised ``fit`` killed
+    by an injected fault and resumed, and ``debug.checked_apply``."""
+    from jointpose_torch import devtime, metrics, perf
+    from jointpose_torch.checkpoint import Checkpointer
+    from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.debug import checked_apply
+    from jointpose_torch.models.pose import PoseModel
+    from jointpose_torch.ops.mrf_fft_fused import fused_tail
+    from jointpose_torch.predict import build_predictor, init_state_dict
+    from jointpose_torch.train import fit, make_train_step
+
+    # 1. The profiler window (steps 5-7, all joint steps) and the stage costs.
+    det, joint_steps, window = 4, 6, 3
+    cfg = config.replace(train=dataclasses.replace(
+        config.train, detector_steps=det, joint_steps=joint_steps, eval_every=5, log_every=1))
+    tb = cfg.train.batch_size
+    marks: dict[str, dict] = {}
+
+    class CountingHook(metrics.ProfilerHook):
+        """The launch counters where the window opens and where it closes."""
+
+        def on_step(self, step: int) -> None:
+            edge = ("start" if step == self.start_step else
+                    "stop" if step >= self.stop_step and "stop" not in marks else None)
+            if edge:
+                marks[edge] = {name: fn.launches for name, fn in counters.items()}
+            super().on_step(step)
+
+    hook_class, metrics.ProfilerHook = metrics.ProfilerHook, CountingHook
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            reset(counters)
+            fit(cfg, workdir, eval_max_batches=1, profile_steps=window)
+            records = read_records(workdir)
+            timing = devtime.parse_trace(os.path.join(workdir, "profile"), "train")
+    finally:
+        metrics.ProfilerHook = hook_class
+    check(timing is not None and timing.num_runs == window,
+          f"profile: {0 if timing is None else timing.num_runs} annotated steps with device ops "
+          f"in the window, not {window}")
+    in_window = {name: marks["stop"][name] - marks["start"][name] for name in PATH_KERNELS}
+    traced = {name: sum(o.count for o in timing.ops if kname in o.name)
+              for name, kname in PATH_KERNELS.items()}
+    print(f"profile window of fit (steps 5-{4 + window}, flagship, batch {tb}): per-step device "
+          f"time {[round(t * 1e3, 3) for t in timing.run_durations_s]} ms, median "
+          f"{timing.median_run_s * 1e3:.3f} ms, busy {sum(o.duration_s for o in timing.ops) * 1e3 / window:.3f} "
+          f"ms a step; the path's kernels in the trace {traced}, launched in the window {in_window}; "
+          f"on {smi}")
+    for op in timing.top_ops(10):
+        print(f"  window top op: {op.duration_s * 1e3 / window:8.4f} ms/step x{op.count / window:g} "
+              f"{op.name[:100]}")
+    check(traced == in_window == {name: window for name in PATH_KERNELS},
+          f"profile: kernels in the trace {traced}, launched in the window {in_window}")
+    costs = [r for r in records if "roofline_images_per_sec" in r]
+    check([(r["step"], r["stage"]) for r in costs] == [(0, "detector"), (det, "joint")],
+          f"fit logged stage costs {[(r['step'], r.get('stage')) for r in costs]}")
+    for r in costs:
+        rates = [q["images_per_sec"] for q in records if q.get("stage") == r["stage"]
+                 and "images_per_sec" in q]
+        roof = r["roofline_images_per_sec"]
+        print(f"stage cost {r['stage']}: {r['train_step_gflops_per_image']:.4f} GFLOP and "
+              f"{r['train_step_mb_per_image']:.3f} MB per image counted, roofline bound "
+              f"{roof:.1f} images/s; measured images/s per step {[round(x, 1) for x in rates]} "
+              f"(best {max(rates) / roof:.2%} of the bound); on {smi}")
+        check(roof is not None and math.isfinite(roof) and roof >= max(rates),
+              f"stage {r['stage']}: the roofline {roof} is below the measured {max(rates)} images/s")
+
+    # The cost of one joint step by hand, with the port's kernels' own
+    # reports, and the profiler's cost on the step time in turns.
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.train import create_state
+
+    state = create_state(cfg, torch.Generator().manual_seed(3))
+    train_ds, _ = make_dataset(cfg.data)
+    step_fn = make_train_step(cfg, "joint")
+    batches = [np.arange(i * tb, (i + 1) * tb) for i in range(8)]
+
+    def steps(profiled: bool) -> float:
+        hook = metrics.ProfilerHook(os.path.join(trace_root, "window"), 0, len(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, idx in enumerate(batches):
+            if profiled:
+                hook.on_step(i)
+                with hook.annotation(i):
+                    step_fn(state, train_ds.get_batch(idx))
+            else:
+                step_fn(state, train_ds.get_batch(idx))
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3 / len(batches)
+        hook.close()  # the trace is written after the timed steps
+        return t
+
+    with tempfile.TemporaryDirectory() as trace_root:
+        step_fn(state, train_ds.get_batch(batches[0]))  # warm-up
+        with perf.count_cost() as cost:
+            step_fn(state, train_ds.get_batch(batches[1]))
+        turns = [steps(p) for p in (False, True, True, False)]
+    plain_ms, profiled_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
+    kernels = {name: dict(k) for name, k in cost.kernels.items()}
+    print(f"one joint step counted by perf.count_cost: {cost.flops / tb / 1e9:.4f} GFLOP and "
+          f"{cost.bytes / tb / 1e6:.3f} MB per image; the port's kernels reported {kernels}; "
+          f"step time in turns without / with the profiler / with / without: "
+          f"{' / '.join(f'{t:.3f}' for t in turns)} ms: the profiler adds "
+          f"{profiled_ms / plain_ms - 1:.1%}; on {smi}")
+    check({name: k["launches"] for name, k in kernels.items()}
+          == {"shear_warp": 1, "mrf_epilogue": 1, "mrf_epilogue_bwd": 1},
+          f"count_cost: the path's kernels reported {kernels}")
+    del state, train_ds
+
+    # 2. measure_device_time of served joint at 'default' (one TF32 pass).
+    jcfg = with_mrf_precision(joint, "default")
+    predict = build_predictor(jcfg, init_state_dict(jcfg, torch.Generator().manual_seed(1)))
+    images = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (BATCH, *jcfg.data.image_hw, 3), dtype=np.uint8)).cuda()
+    iters, warmup = 10, 2
+    before = fused_tail.launches_1pass
+    dev = devtime.measure_device_time(predict, images, iters=iters, warmup=warmup,
+                                      program_name="serve_joint")
+    check(dev is not None and dev.num_runs == iters, "measure_device_time: no runs on the card")
+    tail_ops = sum(o.count for o in dev.ops if "mrf_fft_tail_kernel" in o.name)
+    check(tail_ops == iters and fused_tail.launches_1pass - before == iters + warmup,
+          f"measure_device_time: row 3' appears {tail_ops} times in {iters} runs")
+    graph_ms = time_ms(lambda: predict(images))
+    busy_ms = sum(o.duration_s for o in dev.ops) * 1e3 / iters
+    print(f"measure_device_time, served joint (bf16, MRF 'default', batch {BATCH}): median run "
+          f"{dev.median_run_s * 1e3:.4f} ms on the device (first kernel's start to last kernel's "
+          f"end of an eager call, launch gaps included), busy {busy_ms:.4f} ms a run (the sum of "
+          f"its kernels), row 3' once a run ({tail_ops} in {iters}); time_ms of the same call "
+          f"{graph_ms:.4f} ms (CUDA-graph replays: the kernels back to back, no host launches); "
+          f"on {smi}")
+    for op in dev.top_ops(8):
+        print(f"  serve_joint top op: {op.duration_s * 1e3 / iters:8.4f} ms/run "
+              f"x{op.count / iters:g} {op.name[:100]}")
+    del predict
+
+    # 3. A supervised fit killed by an injected fault, against an unbroken
+    # one.  cuDNN's default algorithms are not deterministic on the card:
+    # two unbroken runs of this command end more than FIT_RTOL apart (Adam
+    # turns last-bit gradient differences into whole updates of small
+    # parameters), so the two runs compared take the deterministic ones
+    # (DETERMINISTIC_SITE); a third, unbroken with the defaults, shows the
+    # spread they remove.
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        site = os.path.join(tmp, "site")
+        os.makedirs(site)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(DETERMINISTIC_SITE)
+        deterministic = {"PYTHONPATH": os.pathsep.join(filter(None, [site, os.environ.get(
+            "PYTHONPATH")])), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        walls, outs = {}, {}
+        for tag, pre, env in (
+                ("supervised", ["-m", "jointpose_torch.resilience", "--max-restarts", "1", "--"],
+                 {"JOINTPOSE_FAULT_AT_STEP": "5", **deterministic}),
+                ("unbroken", ["-m", "jointpose_torch.train"], deterministic),
+                ("default", ["-m", "jointpose_torch.train"], {})):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, *pre, "--config", config.name, "--workdir", os.path.join(tmp, tag),
+                 "--detector-steps", "4", "--joint-steps", "4", "--eval-every", "2",
+                 "--eval-max-batches", "1"],
+                capture_output=True, text=True, timeout=600, env={**os.environ, **env}, cwd=root)
+            walls[tag], outs[tag] = time.perf_counter() - t0, proc.stdout
+            check(proc.returncode == 0, f"{tag} fit exited {proc.returncode}: "
+                  f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        with open(os.path.join(tmp, "supervised", "supervisor.jsonl")) as f:
+            events = [(e["event"], e.get("rc")) for e in map(json.loads, f)]
+        check(events == [("launch", None), ("failure", 41), ("launch", None), ("done", None)],
+              f"supervisor.jsonl reads {events}")
+        resumed = outs["supervised"].split("resumed from step 4", 1)
+        check(len(resumed) == 2 and "estimating pairwise priors" in resumed[1],
+              "the restarted child did not resume from step 4 and apply the priors there")
+        final = {tag: Checkpointer(os.path.join(tmp, tag, "checkpoints")) for tag in walls}
+        check(all(c.latest_step() == 8 for c in final.values()), "a run did not end at step 8")
+        params = {tag: c.restore_subtree()["model"] for tag, c in final.items()}
+
+    def apart(tag: str) -> tuple[str, float, bool]:
+        errs = {n: rel_err(params[tag][n], w)[0] for n, w in params["unbroken"].items()}
+        worst = max(errs, key=errs.get)
+        return worst, errs[worst], all(torch.equal(params[tag][n], w)
+                                       for n, w in params["unbroken"].items())
+
+    (worst, err, same), spread = apart("supervised"), apart("default")
+    print(f"supervised fit (the {config.name} preset through its CLI: the direct grouped MRF and "
+          f"the shear warp; python -m jointpose_torch.resilience, JOINTPOSE_FAULT_AT_STEP=5, "
+          f"cuDNN's deterministic algorithms): events {events}; the restart resumed from step 4, "
+          f"applied the priors there and ended at step 8; final parameters against an unbroken "
+          f"run: {'bit-equal' if same else 'not bit-equal'}, worst tensor {worst} rel err {err:.3e} "
+          f"(limit {FIT_RTOL:g}); an unbroken run with cuDNN's default algorithms ends "
+          f"{spread[1]:.3e} from it ({spread[0]}); wall {walls['supervised']:.1f} s supervised "
+          f"(two processes) against {walls['unbroken']:.1f} s unbroken and {walls['default']:.1f} s "
+          f"unbroken with the defaults; on {smi}")
+    check(err <= FIT_RTOL, f"the supervised run's {worst} strays from the unbroken run's")
+
+    # 4. checked_apply on the joint model: clean, then one image with a NaN.
+    model = PoseModel(joint)
+    model.load_state_dict(init_state_dict(joint, torch.Generator().manual_seed(2)))
+    model = model.cuda().eval()
+    x = images.float() / 255.0
+    order = []
+    hooks = [m.register_forward_hook(lambda m, i, o, n=n: order.append(n))
+             for n, m in model.named_modules() if n and not list(m.children())]
+    with torch.inference_mode():
+        err, out = checked_apply(model, x)
+        for h in hooks:
+            h.remove()
+        check(err.get() is None, f"checked_apply flags clean images: {err.get()}")
+        x[BATCH // 2, x.shape[1] // 2, x.shape[2] // 2, 1] = float("nan")
+        bad, _ = checked_apply(model, x)
+    try:
+        bad.throw()
+        check(False, "checked_apply did not flag a NaN image")
+    except FloatingPointError as e:
+        message = str(e)
+    check(f"'{order[0]}'" in message, f"checked_apply named {message}, not the first module {order[0]}")
+    print(f"checked_apply on joint (bf16, batch {BATCH}): clean images pass; with a NaN in image "
+          f"{BATCH // 2}: {message}")
 
 
 def tiny_fit_cpu_vs_card() -> tuple[float, str, float, float]:
@@ -1042,6 +1296,8 @@ def main() -> int:
     from jointpose_torch import _build, get_config
     from jointpose_torch.data.augment import inverse_affine, random_augment_params
     from jointpose_torch.ops import fft_conv as fc
+    from jointpose_torch.ops.mrf_epilogue import bwd_cost as epilogue_bwd_cost
+    from jointpose_torch.ops.mrf_epilogue import fwd_cost as epilogue_fwd_cost
     from jointpose_torch.ops.mrf_epilogue import (
         mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_fwd_empty,
         mrf_epilogue_fwd_pervalue, mrf_epilogue_fwd_tiled, mrf_epilogue_plain,
@@ -1050,10 +1306,11 @@ def main() -> int:
         fft_pairwise_conv, forward_ffts, matmul_precision, mrf_message_pass_fft,
     )
     from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_emulated, fused_tail_plain
+    from jointpose_torch.ops.mrf_fft_fused import tail_cost as mrf_tail_cost
     from jointpose_torch.ops.mrf_xla import pairwise_conv
     from jointpose_torch.ops import warp as warp_ops
     from jointpose_torch.ops.warp import (
-        shear_warp, shear_warp_reference, shear_warp_rowmajor, shear_warp_two_pass,
+        shear_warp, shear_warp_reference, shear_warp_rowmajor, shear_warp_two_pass, warp_cost,
     )
 
     smi = subprocess.run(
@@ -1439,6 +1696,7 @@ def main() -> int:
         check(trained["launches"][name] == n,
               f"flagship training: {name} launched {trained['launches'][name]} times, not {n}")
     fit_phase(flag_cfg, counters, smi)
+    observe_phase(flag_cfg, joint, counters, smi)
     served_default = serve_phase(joint, flag_cfg, counters, smi)
     deploy_phase(joint, counters, smi)
     torch.backends.cudnn.allow_tf32 = False
@@ -1487,38 +1745,27 @@ def main() -> int:
           and synth_err["visible"] == 0, "the synthetic source on the card strays from the CPU's")
 
     # --- timings at the main-path shapes.
-    out1 = mrf_epilogue(resp1, bias1)
-    rows = resp1.shape[0] * resp1.shape[1] * resp1.shape[2]
-    b1, by1 = bound(nbytes(resp1, bias1, out1), rows * k * k * 4)
-    dresp3, dbias3 = mrf_epilogue_bwd(resp3, bias1, g3)
-    rows3 = resp3.shape[0] * resp3.shape[1] * resp3.shape[2]
-    # per value: bias add, compare, reciprocal, product, and its add to dbias
-    b3, by3 = bound(nbytes(resp3, bias1, g3, dresp3, dbias3), rows3 * k * k * 5)
-    out2 = fused_tail(pf, kf, tables, bias2)
-    ph, gw = pf[0].shape[-2:]
-    # The cheaper order of the two transforms, rows first: R, T = Ir @ R,
-    # Re{T @ Ic}, the log.  The tail's products are admissible on the tensor
-    # cores only as 3xTF32 (checked above against MRF_TAIL_RTOL), three
-    # operations for one: the operations' time is the lesser of fp32 on the
-    # CUDA cores and three times the work at the TF32 peak.
-    flops_pair = 6 * ph * gw + 8 * jh * ph * gw + 4 * jh * gw * jw + 4 * jh * jw
-    flops2 = BATCH * k * k * flops_pair
-    t_ops2 = min(flops2 / FP32_FLOPS_PER_S, 3 * flops2 / TF32_FLOPS_PER_S) * 1e3
-    t_bytes2 = nbytes(*pf, *kf, tables["ir"], tables["ict_re"], tables["ict_im"], bias2,
-                      out2) / HBM_BYTES_PER_S * 1e3
+    # Each function's bytes and operations come from the cost formulas
+    # beside its wrapper, which perf.step_cost reads too.
+    b1, by1 = bound(*epilogue_fwd_cost(resp1, bias1))
+    b3, by3 = bound(*epilogue_bwd_cost(resp3, bias1, g3))
+    # The tail's products are admissible on the tensor cores only as 3xTF32
+    # (checked above against MRF_TAIL_RTOL), three operations for one: the
+    # operations' time is the lesser of fp32 on the CUDA cores and three
+    # times the work at the TF32 peak.
+    tail_bytes, flops2 = mrf_tail_cost(pf, kf, tables, bias2)
+    t_ops2 = tf32_ops_ms(flops2, 3)
+    t_bytes2 = tail_bytes / HBM_BYTES_PER_S * 1e3
     b2, by2 = (t_bytes2, "bytes") if t_bytes2 >= t_ops2 else (t_ops2, "operations")
     # The single-pass form: the same work, one pass at the TF32 peak.
-    t_ops2_1 = min(flops2 / FP32_FLOPS_PER_S, flops2 / TF32_FLOPS_PER_S) * 1e3
+    t_ops2_1 = tf32_ops_ms(flops2, 1)
     b2_1, by2_1 = (t_bytes2, "bytes") if t_bytes2 >= t_ops2_1 else (t_ops2_1, "operations")
     # The two forms in turns in this one process: 3xTF32, one pass, one pass, 3xTF32.
     tail_turns = [time_ms(lambda prec=prec: fused_tail(pf, kf, tables, bias2, precision=prec))
                   for prec in ("high", "default", "default", "high")]
     with matmul_precision("default", pf[0].device):
         plain_tf32_ms = time_ms(lambda: fused_tail_plain(pf, kf, tables, bias2))
-    # The warp's function reads the images and the (B, 2, 2) and (B, 2)
-    # maps and writes the images; per output value and pass: the position
-    # (4), the two tap weights (4) and the two products and their sum (3).
-    b4, by4 = bound(2 * nbytes(images) + nbytes(a_inv, b_inv), 2 * images.numel() * 11)
+    b4, by4 = bound(*warp_cost(images, a_inv, b_inv))
     # Row 1 at both shapes, in turns with its first design and its tiled
     # layout in this one process, and the floor: an empty launch of its grid.
     epi_ms = {}
@@ -1532,7 +1779,7 @@ def main() -> int:
             "tiled": min(turns[2], turns[3]),
             "empty": time_ms(lambda r=resp: mrf_epilogue_fwd_empty(r, bias1)),
             "plain": time_ms(lambda r=resp: mrf_epilogue_plain(r, bias1)),
-            "bound": bound(nbytes(resp, bias1) + n_rows * k * 4, n_rows * k * k * 4)[0],
+            "bound": bound(*epilogue_fwd_cost(resp, bias1))[0],
         }
         e = epi_ms[batch]
         print(f"time mrf_epilogue forward at batch {batch} ({n_rows} rows x {k * k} bf16): kernel "
@@ -1610,15 +1857,9 @@ def main() -> int:
             "plain_ms": plain_warp_ms,
             "bound_ms": b4, "bound_by": by4, "library_ms": None,
         })
-    # The head-conv tails in bf16, the served path's type.  Function bytes:
-    # x, the kernel operand (a, or K_f for the kf entry), both tables and
-    # the output, once each.  Operations: the K_f build (not in the kf
-    # entry), the pointwise product over Ci and the inverse row DFT, over
-    # the tensor-core peak of the input type.
+    # The head-conv tails in bf16, the served path's type, over the
+    # tensor-core peak of the input type (fc.tail_cost).
     x_ops = tail_args["fft_conv_tail_kdft", torch.bfloat16]
-    ng, nph = x_ops[0].shape[:2]
-    pointwise_inverse = 8 * nph * ci * co * ng * BATCH + 8 * jh * nph * co * ng * BATCH
-    kf_build = 8 * nph * kk * ci * co * ng
     plain_tail_ms = {
         fn: time_ms(lambda fn=fn, a=a: fn(*a), runs=5, per_graph=1)
         for fn, a in ((fc.tail_kdft_plain, x_ops),
@@ -1637,11 +1878,7 @@ def main() -> int:
                                                              fc.tail_kdft, fc.tail_kdft_regstaged)],
     }
     kf_ms = time_ms(lambda: fc.tail_kf(*tail_args["fft_conv_tail_kf", torch.bfloat16]))
-    ng32, nph32 = tail32_args[0].shape[:2]
-    bound32 = bound(nbytes(*tail32_args[:4], tail32_args[4]["gr"], tail32_args[4]["ir_t"])
-                    + 2 * jh * ng32 * tb * co * 2,
-                    8 * nph32 * ci * co * ng32 * tb + 8 * jh * nph32 * co * ng32 * tb + kf_build,
-                    BF16_FLOPS_PER_S)
+    bound32 = bound(*fc.tail_cost(*tail32_args, True), BF16_FLOPS_PER_S)
     for batch, turns in ring_turns.items():
         ring_ms, reg_ms = min(turns[1], turns[2]), min(turns[0], turns[3])
         bt = bound32[0] if batch == tb else None
@@ -1653,10 +1890,7 @@ def main() -> int:
     for (name, fn), line in zip(tails.items(), (478, 307, 284)):
         args = tail_args[name, torch.bfloat16]
         built = fn is not fc.tail_kf
-        out_bytes = 2 * jh * ng * BATCH * co * 2
-        dft = (args[4]["gr"], args[4]["ir_t"]) if built else (args[4]["ir_t"],)
-        bt, bby = bound(nbytes(*args[:4], *dft) + out_bytes,
-                        pointwise_inverse + (kf_build if built else 0), BF16_FLOPS_PER_S)
+        bt, bby = bound(*fc.tail_cost(*args, built), BF16_FLOPS_PER_S)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "jointpose_torch/csrc/fft_conv_tail.cu",

@@ -25,6 +25,12 @@ images and (B, H, W, K) heatmaps.
                               — the int8 post-training-quantized detector
                                 and its artifact CLI.
 - ``jointpose_torch.visualize`` — heatmap overlays, priors, PDJ curves.
+- ``jointpose_torch.resilience`` — preemption, heartbeat, fault injection
+                                and the supervisor of a training run.
+- ``jointpose_torch.perf``, ``devtime``, ``debug``, ``cli``
+                              — the card's peaks and a step's cost, device
+                                time from profiler traces, numerics
+                                checks, the entry points' shared flags.
 - ``jointpose_torch.convert`` — flax params tree -> torch ``state_dict``.
 
 The package never imports ``jax`` or anything of ``jointpose``.

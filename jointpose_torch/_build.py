@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, which ``ctypes`` loads: no PyTorch headers, so a
-build takes seconds.  Libraries land in ``build/jointpose_torch/`` at
-the repository root, named by the source's content hash, so an edited
-source rebuilds and an unchanged one is reused.  A failed build raises
+build takes seconds.  Libraries land in ``build_dir()``, named by the
+source's content hash, so an edited source rebuilds and an unchanged one
+is reused: ``build/jointpose_torch/`` at the repository root, or
+``$JOINTPOSE_CACHE_DIR/jointpose_torch`` (for a package directory that is
+read-only), or with ``JOINTPOSE_NO_COMPILE_CACHE=1`` a fresh temporary
+directory of the process, removed at its exit.  A failed build raises
 with the compiler's output.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
@@ -13,16 +16,19 @@ with the compiler's output.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "jointpose_torch"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "jointpose_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -30,6 +36,23 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+@functools.cache
+def _fresh_dir() -> Path:
+    """This process's build directory under JOINTPOSE_NO_COMPILE_CACHE."""
+    path = Path(tempfile.mkdtemp(prefix="jointpose_kernels_"))
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    return path
+
+
+def build_dir() -> Path:
+    """Where the libraries are built and looked for (see the module
+    docstring), read from the environment at each call."""
+    if os.environ.get("JOINTPOSE_NO_COMPILE_CACHE"):
+        return _fresh_dir()
+    cache = os.environ.get("JOINTPOSE_CACHE_DIR")
+    return Path(cache) / "jointpose_torch" if cache else DEFAULT_BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -48,7 +71,7 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return build_dir() / f"{name}-{digest}.so"
 
 
 def _start_build(name: str) -> subprocess.Popen | None:
@@ -56,7 +79,7 @@ def _start_build(name: str) -> subprocess.Popen | None:
     out = _lib_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return subprocess.Popen(

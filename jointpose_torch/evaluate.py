@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from jointpose_torch import skeleton
+from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config
 from jointpose_torch.data.pipeline import Dataset
 from jointpose_torch.ops.heatmaps import decode_probs, model_probs
@@ -209,18 +210,17 @@ def main(argv: list[str] | None = None) -> None:
                         help="write the PDJ-curve figure to this PNG path")
     parser.add_argument("--json-out", default=None,
                         help="write the full metrics dict to this JSON path")
-    parser.add_argument("--device", default=None,
-                        help="'cpu' runs the kernels' plain versions; default: the CUDA device")
+    add_device_flag(parser)
     args = parser.parse_args(argv)
 
     from jointpose_torch.checkpoint import reconcile_config
     from jointpose_torch.configs import get_config, with_mrf_precision
     from jointpose_torch.data.pipeline import device_cache, make_dataset
     from jointpose_torch.models.pose import PoseModel
-    from jointpose_torch.predict import refuse_unported, resolve_device, restore_params
+    from jointpose_torch.predict import refuse_unported, restore_params
 
     refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
-    device = resolve_device(args.device)
+    device = apply_device(args.device)
     config = get_config(args.config)
     if args.tta is not None:
         config = config.replace(eval_flip_tta=args.tta)

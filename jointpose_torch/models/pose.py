@@ -47,8 +47,10 @@ class PoseModel(nn.Module):
         without running the spatial model (evaluation before the spatial
         model has its prior init)."""
         if images.dtype == torch.uint8:
-            images = images.to(self.dtype) * torch.tensor(
-                1.0 / 255.0, dtype=self.dtype, device=images.device
+            # A fill on the device, not a copy from the host: a CUDA graph
+            # can capture it.
+            images = images.to(self.dtype) * torch.full(
+                (), 1.0 / 255.0, dtype=self.dtype, device=images.device
             )
         logits = self.detector(images)
         if freeze_detector:

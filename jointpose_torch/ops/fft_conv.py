@@ -47,7 +47,7 @@ import functools
 import torch
 from torch import nn
 
-from jointpose_torch import _build
+from jointpose_torch import _build, perf
 from jointpose_torch.ops.mrf_fft import dft_tables
 
 _P = ctypes.c_void_p
@@ -293,6 +293,21 @@ def select_tail(ph: int, b: int, kh: int, itemsize: int) -> str:
 # --- the tails: wrappers ----------------------------------------------------
 
 
+def tail_cost(xr, xi, kr, ki, t, built: bool) -> tuple[int, int]:
+    """(bytes, operations) of a tail's function: x, the kernel operand (a
+    where the tail builds K_f, K_f for the kf entry), the tables it reads
+    and the (H, 2, G, B, Co) output once each; the K_f build where
+    ``built``, the pointwise product over Ci and the inverse row DFT."""
+    g, ph, b, ci = xr.shape
+    kh, co = kr.shape[1], kr.shape[-1]
+    h = t["ir_t"].shape[1]
+    tables = (t["gr"], t["ir_t"]) if built else (t["ir_t"],)
+    ops = 8 * ph * ci * co * g * b + 8 * h * ph * co * g * b
+    if built:
+        ops += 8 * ph * kh * ci * co * g
+    return perf.nbytes(xr, xi, kr, ki, *tables) + h * 2 * g * b * co * xr.element_size(), ops
+
+
 def _check_tail(what: str, xr, xi, kr, ki, k_rows: int, t) -> tuple[int, ...]:
     """Validate a tail's CUDA operands; return (G, Ph, B, Ci, Co, H)."""
     if xr.dim() != 4 or kr.dim() != 4:
@@ -344,6 +359,7 @@ def tail_kdft_resident(xr, xi, a_re, a_im, t) -> torch.Tensor:
          (xr, xi, a_re, a_im, t["gr"], t["ir_t"], t["gpack"], t["irpack"]), out,
          (g, ph, b, ci, co, kh, h, xr.element_size()))
     tail_kdft_resident.launches += 1
+    perf.count_kernel("fft_conv_tail_kdft_resident", tail_cost, xr, xi, a_re, a_im, t, True)
     return out
 
 
@@ -363,6 +379,7 @@ def tail_kdft(xr, xi, a_re, a_im, t) -> torch.Tensor:
     _run("fft_conv_tail_kdft", (xr, xi, a_re, a_im, t["gr"], t["ir_t"], t["gpack"], t["irpack"]), out,
          (g, ph, b, ci, co, kh, h, tb, xr.element_size()))
     tail_kdft.launches += 1
+    perf.count_kernel("fft_conv_tail_kdft", tail_cost, xr, xi, a_re, a_im, t, True)
     return out
 
 
@@ -379,6 +396,7 @@ def tail_kf(xr, xi, kr, ki, t) -> torch.Tensor:
     _run("fft_conv_tail_kf", (xr, xi, kr, ki, t["ir_t"], t["irpack"]), out,
          (g, ph, b, ci, co, h, tb, xr.element_size()))
     tail_kf.launches += 1
+    perf.count_kernel("fft_conv_tail_kf", tail_cost, xr, xi, kr, ki, t, False)
     return out
 
 

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from jointpose_torch import _build
+from jointpose_torch import _build, perf
 from jointpose_torch.ops.mrf_xla import pairwise_conv
 
 _P = ctypes.c_void_p
@@ -75,6 +75,23 @@ def dbias_by_vector_lanes(d: torch.Tensor, vec: int) -> torch.Tensor:
     return torch.zeros(kk, dtype=d.dtype, device=d.device).index_add_(0, cols, lanes)
 
 
+def fwd_cost(resp: torch.Tensor, biases: torch.Tensor) -> tuple[int, int]:
+    """(bytes, operations) of the forward's function: the responses and
+    biases read once and the fp32 (rows, Ka) output written once; per
+    response the bias add, the clamp, the log and its add into the sum."""
+    rows, kv, ka = resp.shape[0] * resp.shape[1] * resp.shape[2], resp.shape[3], resp.shape[4]
+    return perf.nbytes(resp, biases) + rows * ka * 4, rows * kv * ka * 4
+
+
+def bwd_cost(resp: torch.Tensor, biases: torch.Tensor, g: torch.Tensor) -> tuple[int, int]:
+    """(bytes, operations) of the backward's function: the responses,
+    biases and output gradient read once, dresp (the responses' type) and
+    the fp32 dbias written once; per response the bias add, the compare,
+    the reciprocal, the product and its add into dbias."""
+    rows, kv, ka = resp.shape[0] * resp.shape[1] * resp.shape[2], resp.shape[3], resp.shape[4]
+    return 2 * perf.nbytes(resp) + perf.nbytes(biases, g) + kv * ka * 4, rows * kv * ka * 5
+
+
 def _check(resp: torch.Tensor, biases: torch.Tensor, what: str) -> tuple[int, int, int]:
     if resp.dim() != 5:
         raise ValueError(f"{what}: resp must be (B, H, W, Kv, Ka), got {tuple(resp.shape)}")
@@ -110,6 +127,7 @@ def mrf_epilogue_fwd(resp: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
         return mrf_epilogue_plain(resp, biases, eps)
     out = _launch_fwd("mrf_epilogue_fwd", resp, biases, eps)
     mrf_epilogue.launches += 1
+    perf.count_kernel("mrf_epilogue", fwd_cost, resp, biases)
     return out
 
 
@@ -169,6 +187,7 @@ def mrf_epilogue_bwd(
         )
     _build.check(err, "mrf_epilogue_bwd")
     mrf_epilogue_bwd.launches += 1
+    perf.count_kernel("mrf_epilogue_bwd", bwd_cost, resp, biases, g)
     return dresp, dbias
 
 

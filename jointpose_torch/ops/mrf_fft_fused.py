@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from jointpose_torch import _build
+from jointpose_torch import _build, perf
 from jointpose_torch.ops.mrf_fft import (
     forward_ffts, matmul_precision, mrf_message_pass_fft, single_pass,
 )
@@ -121,6 +121,20 @@ def fused_tail_emulated(pf, kf, tables, biases, eps: float = 1e-6,
     return torch.log(o.clamp_min(eps)).sum(dim=1)
 
 
+def tail_cost(pf, kf, tables, biases) -> tuple[int, int]:
+    """(bytes, operations) of the tail's function: the spectra, the
+    inverse-transform tables and the biases read once, the fp32 (B, Ka, H,
+    W) output written once; per (b, v, a) the cheaper order of the two
+    transforms, rows first: R, T = Ir @ R, Re{T @ Ic}, then the bias add,
+    the log and its add into the sum."""
+    b, kv, ph, g = pf[0].shape
+    ka = kf[0].shape[1]
+    h, w = tables["ir_re"].shape[0], tables["ict_re"].shape[1]
+    per_pair = 6 * ph * g + 8 * h * ph * g + 4 * h * g * w + 4 * h * w
+    n_bytes = perf.nbytes(*pf, *kf, tables["ir"], tables["ict_re"], tables["ict_im"], biases)
+    return n_bytes + b * ka * h * w * 4, b * kv * ka * per_pair
+
+
 def fused_tail(pf, kf, tables, biases, eps: float = 1e-6,
                precision: str | None = None) -> torch.Tensor:
     """The fused tail: (B, Ka, H, W) fp32 log-messages summed over v; on
@@ -173,6 +187,8 @@ def fused_tail(pf, kf, tables, biases, eps: float = 1e-6,
         fused_tail.launches_1pass += 1
     else:
         fused_tail.launches += 1
+    perf.count_kernel("mrf_fft_tail_1pass" if passes == 1 else "mrf_fft_tail", tail_cost,
+                      pf, kf, tables, biases)
     return out
 
 

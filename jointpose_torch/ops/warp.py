@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from jointpose_torch import _build
+from jointpose_torch import _build, perf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -155,6 +155,14 @@ def _two_taps(src, par, o, n, s_in: int, along: int) -> torch.Tensor:
     return torch.where((inside & (i0 + 1 < s_in))[..., None], acc + tap(i0 + 1, inside, w1), acc)
 
 
+def warp_cost(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> tuple[int, int]:
+    """(bytes, operations) of the warp's function: the images and the
+    (B, 2, 2) and (B, 2) maps read once, the images written once; per
+    output value and pass the position (4), the two tap weights (4) and
+    the two products and their sum (3)."""
+    return 2 * perf.nbytes(images) + perf.nbytes(a_inv, b_inv), 2 * images.numel() * 11
+
+
 def _check(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, what: str) -> None:
     if images.dim() != 4:
         raise ValueError(f"{what}: images must be (B, H, W, C), got {tuple(images.shape)}")
@@ -197,6 +205,7 @@ def shear_warp(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -
     _check(images, a_inv, b_inv, "shear_warp")
     out = _fused(images, a_inv, b_inv, strip_width(images.shape[1], images.shape[3]))
     shear_warp.launches += 1
+    perf.count_kernel("shear_warp", warp_cost, images, a_inv, b_inv)
     return out
 
 
@@ -257,6 +266,7 @@ def shear_warp_rowmajor(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.
     _pass(t1, out, p2, (b, w, h, h, c), (w * h * c, h * c, c, 1), (h * w * c, c, w * c, 1),
           _LINES_FASTEST)
     shear_warp_rowmajor.launches += 2
+    perf.count_kernel("shear_warp_rowmajor", warp_cost, images, a_inv, b_inv)
     return out
 
 

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.ops.heatmaps import decode_probs, model_probs
@@ -174,8 +175,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--quantize-artifact", default=None, metavar="NPZ",
                         help="load a prebuilt int8 artifact (python -m jointpose_torch.quantize) "
                              "instead of calibrating")
-    parser.add_argument("--device", default=None,
-                        help="'cpu' runs the kernels' plain versions; default: the CUDA device")
+    add_device_flag(parser)
     args = parser.parse_args(argv)
     refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1),
                      ("--pipeline", args.pipeline > 0)])
@@ -185,7 +185,7 @@ def main(argv: list[str] | None = None) -> None:
     from jointpose_torch.configs import get_config, with_mrf_precision
     from jointpose_torch.data.pipeline import make_dataset
 
-    device = resolve_device(args.device)
+    device = apply_device(args.device)
     config = reconcile_config(get_config(args.config), args.checkpoint, args.pool_mode)
     config = with_mrf_precision(config, args.mrf_precision)
     state_dict, step = restore_params(config, args.checkpoint, args.step, best=args.best)

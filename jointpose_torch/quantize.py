@@ -19,6 +19,8 @@ import os
 
 import numpy as np
 
+from jointpose_torch.cli import add_device_flag, apply_device
+
 
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description="jointpose_torch int8 quantization")
@@ -30,17 +32,16 @@ def main(argv: list[str] | None = None) -> None:
                         help="number of training images for activation-scale calibration")
     parser.add_argument("--out", required=True, help="artifact path (.npz)")
     parser.add_argument("--pool-mode", choices=["max", "stride"], default=None)
-    parser.add_argument("--device", default=None,
-                        help="'cpu' calibrates there; default: the CUDA device")
+    add_device_flag(parser, help="'cpu' calibrates there; default: the CUDA device")
     args = parser.parse_args(argv)
 
     from jointpose_torch.checkpoint import reconcile_config
     from jointpose_torch.configs import get_config
     from jointpose_torch.data.pipeline import make_dataset
     from jointpose_torch.ops.quant import quantize_detector, save_quantized
-    from jointpose_torch.predict import resolve_device, restore_params
+    from jointpose_torch.predict import restore_params
 
-    device = resolve_device(args.device)
+    device = apply_device(args.device)
     config = reconcile_config(get_config(args.config), args.checkpoint, args.pool_mode)
     state_dict, step = restore_params(config, args.checkpoint, args.step, best=args.best)
     train_ds, _ = make_dataset(config.data, device)

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from jointpose_torch import skeleton
+from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config, get_config
 
 
@@ -428,8 +429,7 @@ def main(argv: list[str] | None = None) -> None:
                              "larger meshes are not ported yet (ROADMAP.md)")
     parser.add_argument("--mesh-model", type=int, default=1,
                         help="spatial-parallel devices; only 1 (ROADMAP.md)")
-    parser.add_argument("--device", default=None,
-                        help="'cpu' runs the kernels' plain versions; default: the CUDA device")
+    add_device_flag(parser)
     args = parser.parse_args(argv)
 
     from jointpose_torch.checkpoint import reconcile_config
@@ -437,6 +437,7 @@ def main(argv: list[str] | None = None) -> None:
     from jointpose_torch.predict import refuse_unported
 
     refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
+    device = apply_device(args.device)
 
     config = reconcile_config(get_config(args.config), args.checkpoint, args.pool_mode)
     config = with_mrf_precision(config, args.mrf_precision)
@@ -447,7 +448,7 @@ def main(argv: list[str] | None = None) -> None:
         batch_wait_ms=args.batch_wait_ms, quantize_calib=args.quantize,
         quantize_artifact=args.quantize_artifact, batch_buckets=buckets,
         max_queue_images=args.max_queue_images, max_inflight=args.max_inflight,
-        device=args.device,
+        device=device,
     )
     server = ThreadingHTTPServer(("127.0.0.1", args.port), make_handler(service))
     print(f"serving {args.config} (step {service.step}) on 127.0.0.1:{args.port}", flush=True)

@@ -30,13 +30,21 @@ parameter, so the step gives every parameter a gradient, zeros where
 the loss does not reach it.
 
 Not carried over from the reference's ``fit`` (ROADMAP.md names each):
-the mesh and multi-process branches, the K-step scan
-(``steps_per_dispatch`` is read and ignored: one step per call), the
-per-stage roofline log, heartbeat and fault injection, and the profiler
-hook.  Preemption is carried over: SIGTERM checkpoints at the next step
-boundary and exits ``resilience.EXIT_PREEMPTED``.  ``save_figures``
-(``--figures``) writes the prior grid after the prior init and the PDJ
-curves and heatmap overlays at the end, under ``<workdir>/figures/``.
+the mesh and multi-process branches and the K-step scan
+(``steps_per_dispatch`` is read and ignored: one step per call).
+Carried over from ``resilience.py``: SIGTERM checkpoints at the next step
+boundary and exits ``resilience.EXIT_PREEMPTED``; the heartbeat is
+written after each step, eval, prior init and save (none before the
+first step), and ``JOINTPOSE_FAULT_AT_STEP`` is checked after each step,
+so that ``python -m jointpose_torch.resilience`` supervises the run.
+``profile_steps`` (``--profile-steps``) traces steps ``start + 5`` to
+``start + 4 + profile_steps`` under ``metrics.ProfilerHook`` into
+``<workdir>/profile/``.  On CUDA the first step of each stage runs under
+``perf.count_cost`` and logs the step's GFLOP and MB per image and the
+bound ``roofline_images_per_sec`` (the reference logs it on the TPU
+alone).  ``save_figures`` (``--figures``) writes the prior grid after the
+prior init and the PDJ curves and heatmap overlays at the end, under
+``<workdir>/figures/``.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config, get_config
 from jointpose_torch.data.augment import AugmentParams, augment_batch, random_augment_params
 from jointpose_torch.data.targets import image_to_heatmap_coords, render_gaussian_heatmaps
@@ -58,7 +67,7 @@ from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose_torch.models.mrf import priors_to_raw_kernels
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.predict import init_state_dict, refuse_unported, resolve_device
-from jointpose_torch.resilience import PreemptionHandler
+from jointpose_torch.resilience import Heartbeat, PreemptionHandler, maybe_inject_fault
 
 
 @dataclasses.dataclass
@@ -264,13 +273,10 @@ def fit(
     from jointpose_torch.checkpoint import Checkpointer
     from jointpose_torch.data.pipeline import device_cache, epoch_order, epoch_steps, make_dataset
     from jointpose_torch.evaluate import evaluate, make_eval_step
-    from jointpose_torch.metrics import MetricLogger
+    from jointpose_torch.metrics import MetricLogger, ProfilerHook
+    from jointpose_torch.perf import count_cost, roofline_images_per_sec
     from jointpose_torch.priors import estimate_priors
 
-    if profile_steps > 0:
-        raise NotImplementedError(
-            "fit(profile_steps>0): metrics.ProfilerHook is not ported yet; see ROADMAP.md"
-        )
     device = resolve_device(device)
     t = config.train
     logger = MetricLogger(workdir)
@@ -326,6 +332,11 @@ def fit(
         "joint": make_eval_step(config, model),
     }
 
+    # The supervisor's hang detector reads the heartbeat (resilience.py).
+    # No beat before the first step: its clock starts at the first beat,
+    # so start-up, cuDNN's algorithm choice and kernel builds stay exempt.
+    heartbeat = Heartbeat(workdir)
+
     def run_eval(step: int) -> dict:
         stage_now = "detector" if step <= det_steps else "joint"
         ev = evaluate(model, test_ds, config, max_batches=eval_max_batches,
@@ -337,7 +348,33 @@ def fit(
             step, eval_stage=stage_now, pdj_at_05_wrist_elbow=ev["pdj_at_05_wrist_elbow"],
             **{f"pdj05/{k}": v for k, v in ev["pdj_at_05"].items()},
         )
+        heartbeat.beat(step)  # an eval blocks the loop
         return ev
+
+    def take_step(stage: str, step: int):
+        return step_fns[stage](state, train_ds.get_batch(indices_for_step(step)))
+
+    def counted_step(stage: str, step: int):
+        """The step under ``perf.count_cost``, logged as the reference's
+        per-stage cost record: what the step (its batch generated on the
+        card included) reads, writes and multiplies, per image, and the
+        images per second the card's peaks would allow for it."""
+        with count_cost() as cost:
+            out = take_step(stage, step)
+        per_img_flops, per_img_bytes = cost.flops / t.batch_size, cost.bytes / t.batch_size
+        logger.log(
+            step, stage=stage, steps_per_dispatch=1,
+            train_step_gflops_per_image=per_img_flops / 1e9,
+            train_step_mb_per_image=per_img_bytes / 1e6,
+            roofline_images_per_sec=roofline_images_per_sec(per_img_flops, per_img_bytes),
+        )
+        return out
+
+    # A trace of a window after the run's first steps (cuDNN's algorithm
+    # choice and the kernel builds stay out of it).
+    profiler = (ProfilerHook(workdir, start_step=start_step + 5, num_steps=profile_steps)
+                if profile_steps > 0 else None)
+    costed: set[str] = set()  # stages whose cost was logged (on CUDA only)
 
     def now() -> float:
         if device.type == "cuda":
@@ -358,12 +395,24 @@ def fit(
                 priors = estimate_priors(train_ds, config, max_examples=2048)
                 state = init_mrf_from_priors(state, priors)
                 mrf_initialized = True
+                heartbeat.beat(step)  # the prior estimation blocks the loop too
                 if save_figures:
                     from jointpose_torch.visualize import save_prior_grid
 
                     save_prior_grid(np.asarray(priors), f"{workdir}/figures/priors.png")
-            state, metrics = step_fns[stage](state, train_ds.get_batch(indices_for_step(step)))
+            run = take_step
+            if device.type == "cuda" and stage not in costed:
+                costed.add(stage)
+                run = counted_step
+            if profiler is not None:
+                profiler.on_step(step)
+                with profiler.annotation(step):
+                    state, metrics = run(stage, step)
+            else:
+                state, metrics = run(stage, step)
             step += 1
+            heartbeat.beat(step)
+            maybe_inject_fault(workdir, step)
             if preemption.preempted:
                 if ckpt.latest_step() != step:  # an eval may have saved this step
                     ckpt.save(step, state)
@@ -388,9 +437,12 @@ def fit(
                 # detector head is the full model, so every eval qualifies.
                 is_full_model = config.mrf is None or final_eval["eval_stage"] == "joint"
                 ckpt.save(step, state, metrics=final_eval if is_full_model else None)
+                heartbeat.beat(step)  # a blocking save counts as liveness too
                 t_last = now()  # evals and saves stay out of the logged rate
     finally:
         preemption.uninstall()
+    if profiler is not None:
+        profiler.close()  # write a trace still open at the loop's end
 
     if final_eval and save_figures:
         from jointpose_torch.ops.heatmaps import model_probs
@@ -443,7 +495,7 @@ def main(argv: list[str] | None = None) -> None:
                         help="write the prior grid, PDJ curves and heatmap overlays to "
                              "<workdir>/figures/")
     parser.add_argument("--profile-steps", type=int, default=0,
-                        help="not ported yet (ROADMAP.md)")
+                        help="trace N train steps with torch.profiler into <workdir>/profile")
     parser.add_argument("--check-numerics", action="store_true",
                         help="torch.autograd.set_detect_anomaly: fail at the op that made a NaN")
     parser.add_argument("--mesh-data", type=int, default=None,
@@ -452,13 +504,13 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--mesh-model", type=int, default=None,
                         help="model-axis devices; only 1 (ROADMAP.md)")
     parser.add_argument("--mesh-spatial", action="store_true", help="not ported yet (ROADMAP.md)")
-    parser.add_argument("--device", default=None,
-                        help="'cpu' runs the kernels' plain versions; default: the CUDA device")
+    add_device_flag(parser)
     args = parser.parse_args(argv)
     refuse_unported([
         ("--mesh-data", args.mesh_data not in (None, -1, 0, 1)),
         ("--mesh-model", args.mesh_model not in (None, 1)), ("--mesh-spatial", args.mesh_spatial),
     ])
+    device = apply_device(args.device)
     if args.check_numerics:
         torch.autograd.set_detect_anomaly(True)
 
@@ -485,7 +537,7 @@ def main(argv: list[str] | None = None) -> None:
         config = config.replace(data=dataclasses.replace(config.data, **dd))
 
     result = fit(config, args.workdir, eval_max_batches=args.eval_max_batches,
-                 resume=args.resume, profile_steps=args.profile_steps, device=args.device,
+                 resume=args.resume, profile_steps=args.profile_steps, device=device,
                  save_figures=args.figures)
     print("final:", {k: v for k, v in result.metrics.items() if k != "pdj_curves"})
 

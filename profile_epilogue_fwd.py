@@ -24,7 +24,8 @@ import sys
 
 import torch
 
-from chip_smoke import HBM_BYTES_PER_S, nbytes, rel_err, time_ms
+from chip_smoke import rel_err, time_ms
+from jointpose_torch.perf import bound_ms
 
 
 def main() -> int:
@@ -32,7 +33,7 @@ def main() -> int:
         print("profile_epilogue_fwd: no CUDA device", file=sys.stderr)
         return 2
     from jointpose_torch.ops.mrf_epilogue import (
-        mrf_epilogue_fwd, mrf_epilogue_fwd_empty, mrf_epilogue_fwd_pervalue,
+        fwd_cost, mrf_epilogue_fwd, mrf_epilogue_fwd_empty, mrf_epilogue_fwd_pervalue,
         mrf_epilogue_fwd_tiled, mrf_epilogue_plain,
     )
 
@@ -62,7 +63,7 @@ def main() -> int:
             torch.cuda.synchronize()
             err, same = rel_err(got, want), torch.equal(tiled, first)
             ok &= same and err[0] <= 1e-3
-            bound_ms = nbytes(resp, bias, got) / HBM_BYTES_PER_S * 1e3
+            bound = bound_ms(*fwd_cost(resp, bias))[0]
             t = [time_ms(lambda f=f: f(resp, bias)) for f in
                  (mrf_epilogue_fwd_pervalue, mrf_epilogue_fwd, mrf_epilogue_fwd_tiled,
                   mrf_epilogue_fwd_tiled, mrf_epilogue_fwd, mrf_epilogue_fwd_pervalue)]
@@ -75,7 +76,7 @@ def main() -> int:
                   f"{'bit-identical to' if same else 'DIFFERENT from'} the first design; "
                   f"first design {t[0]:.6f} / {t[5]:.6f} ms, kernel {t[1]:.6f} / {t[4]:.6f} ms, "
                   f"tiled {t[2]:.6f} / {t[3]:.6f} ms, empty launch {empty:.6f} ms, byte bound "
-                  f"{bound_ms:.6f} ms, on {smi}")
+                  f"{bound:.6f} ms, on {smi}")
     for shape in ((1, 7, 11, 9, 9), (3, 5, 7, 9, 9), (2, 13, 3, 4, 5), (1, 1, 3, 9, 9),
                   (2, 9, 10, 14, 14), (1, 3, 3, 40, 40)):
         for dtype in (torch.bfloat16, torch.float32):

@@ -32,12 +32,14 @@ import torch
 
 
 def wall_ms(fn, n: int) -> float:
-    """Wall time of one of ``n`` calls, one synchronize after the last."""
+    """Wall time of one of ``n`` calls, one synchronize after the last; the
+    calls run in a profiler range named ``loop``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(n):
-        fn(i)
-    torch.cuda.synchronize()
+    with torch.profiler.record_function("loop"):
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n
 
 
@@ -48,7 +50,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_fit: no CUDA device", file=sys.stderr)
         return 2
-    from jointpose_torch import _build, get_config
+    from jointpose_torch import _build, devtime, get_config
     from jointpose_torch.checkpoint import Checkpointer
     from jointpose_torch.data.pipeline import epoch_order, make_dataset
     from jointpose_torch.evaluate import make_eval_step
@@ -86,7 +88,11 @@ def main() -> int:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             profiled = wall_ms(lambda i: step(state, train_ds.get_batch(indices[i])), n)
-        busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / n
+        with tempfile.TemporaryDirectory() as trace_dir:
+            prof.export_chrome_trace(devtime.trace_path(trace_dir))
+            # One range around the loop: every device op launched in it.
+            ops = devtime.parse_trace(trace_dir, "loop").ops
+        busy = sum(o.duration_s for o in ops) * 1e3 / n
         print(f"{stage} stage, batch {tb}: bare step {bare:.3f} ms ({tb / bare * 1e3:.1f} images/s), "
               f"with the batch generated per step {as_fit:.3f} ms ({tb / as_fit * 1e3:.1f} "
               f"images/s); under the profiler {profiled:.3f} ms/step of which the device is busy "
@@ -99,16 +105,13 @@ def main() -> int:
         train_ds.get_batch(indices[i])
     end.record()
     end.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        train_ds.get_batch(indices[0])
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    gen_busy = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    gen = devtime.measure_device_time(lambda: train_ds.get_batch(indices[0]), iters=1, warmup=0,
+                                      program_name="get_batch")
+    gen_busy = sum(o.duration_s for o in gen.ops) * 1e3
     print(f"synthetic get_batch at batch {tb}, 240x360: {gen_wall:.3f} ms wall per call, "
           f"{start.elapsed_time(end) / n:.3f} ms between CUDA events, {gen_busy:.3f} ms of kernels "
-          f"in {sum(e.count for e in events)} launches; the longest: "
-          f"{[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}, "
+          f"in {sum(o.count for o in gen.ops)} launches; the longest: "
+          f"{[(o.name[:48], round(o.duration_s * 1e3, 3), o.count) for o in gen.top_ops(4)]}, "
           f"on {smi}")
 
     eval_step = make_eval_step(cfg, state.model)

@@ -26,6 +26,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,8 +36,8 @@ PRESETS = ("joint", "joint_default", "joint_fft", "flagship_pallas")
 # The port's own kernels (jointpose_torch/csrc/), listed whatever their rank.
 PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
                 "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel",
-                "mrf_fft_tail_combine_kernel", "shear_pass_kernel",
-                "tail_kernel", "tail_mma_kernel")
+                "mrf_fft_tail_combine_kernel", "shear_pass_kernel", "shear_warp_fused_kernel",
+                "tail_kernel", "tail_mma_kernel", "tail_ring_kernel")
 
 
 def _config(preset: str):
@@ -84,9 +85,12 @@ def _train_unit(preset: str, batch: int, n: int):
 
 
 def profile(run, units: int, top: int = 12) -> dict:
-    """Profile ``units`` calls of ``run`` after two warm-up calls."""
-    from torch.profiler import ProfilerActivity
+    """Profile ``units`` calls of ``run`` after two warm-up calls; the
+    kernels, copies and memsets by name from ``devtime.parse_trace``."""
+    from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
+
+    from jointpose_torch import devtime
 
     for r in range(2):
         run(r)
@@ -94,17 +98,16 @@ def profile(run, units: int, top: int = 12) -> dict:
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for r in range(units):
-            run(r)
+            with record_function(f"unit#{r}"):
+                run(r)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / units
-    kernels = {}
-    for evt in prof.events():
-        # GPU-side user annotations (e.g. "Optimizer.step#AdamW.step") span
-        # kernels already counted; only kernels, copies and memsets add up.
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            kernels.setdefault(evt.name, [0.0, 0])
-            kernels[evt.name][0] += evt.time_range.elapsed_us() / 1e3 / units
-            kernels[evt.name][1] += 1
+    with tempfile.TemporaryDirectory() as trace_dir:
+        prof.export_chrome_trace(devtime.trace_path(trace_dir))
+        timing = devtime.parse_trace(trace_dir, "unit")
+    if timing is None:
+        raise SystemExit("profile_serve: the trace holds no device op")
+    kernels = {op.name: (op.duration_s * 1e3 / units, op.count) for op in timing.ops}
     busy_ms = sum(t for t, _ in kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
 

@@ -161,10 +161,8 @@ def test_fit_caches_a_host_split_on_the_device(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    cfg = _tiny(get_config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.fit(cfg, str(tmp_path), profile_steps=3, device="cpu")
-    # --figures is ported (tests/test_torch_visualize.py); meshes are not.
+    # --figures (tests/test_torch_visualize.py) and profile_steps
+    # (tests/test_torch_metrics.py) are ported; meshes are not.
     for flags in (["--mesh-data", "2"], ["--mesh-model", "2"], ["--mesh-spatial"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.main(["--config", "tiny", "--workdir", str(tmp_path), "--device", "cpu", *flags])
