@@ -16,6 +16,12 @@ half-written step directory.  ``run_config.json`` beside the two
 directories records the run's config with the reference's keys, so the
 reference's ``load_run_metadata`` reads a directory written here.  The
 reference's legacy single-directory layout is not read.
+
+In a run of several processes (``torch.distributed``) rank 0 writes and a
+barrier follows each save, so that no rank goes on (or resumes) before the
+checkpoint is whole; every rank restores the same file.  The state is
+replicated on every rank (``parallel/mesh.py``), so the file is the one
+a single device writes and reads.
 """
 
 from __future__ import annotations
@@ -143,7 +149,18 @@ class Checkpointer:
     def save(self, step: int, state: Any, metrics: dict | None = None) -> None:
         """Write ``latest/<step>`` and prune to ``keep``; with scalar
         ``metrics`` also ``best/<step>`` if its ``pdj_at_05_wrist_elbow``
-        (0 when absent) is no lower than the kept best's."""
+        (0 when absent) is no lower than the kept best's.  Every rank of a
+        process group calls it: rank 0 writes, then all meet at a barrier."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            self._save(step, state, metrics)
+            return
+        if dist.get_rank() == 0:
+            self._save(step, state, metrics)
+        dist.barrier()
+
+    def _save(self, step: int, state: Any, metrics: dict | None) -> None:
         if self._config is not None and not self._meta_written:
             self._write_metadata()
         metrics = {

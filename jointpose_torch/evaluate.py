@@ -110,11 +110,23 @@ def evaluate(
     max_batches: int | None = None,
     eval_step: Callable | None = None,
     uint8_ingest: bool = False,
+    mesh=None,
 ) -> dict:
     """Full-split evaluation of ``model`` (a ``PoseModel``, or the int8 model
     of ``ops/quant.py``) on its device; returns the PDJ curves and headline
     numbers.  ``eval_step`` (from ``make_eval_step``) replaces the default
-    step over the whole model, e.g. to score the detector head alone."""
+    step over the whole model, e.g. to score the detector head alone.
+
+    With ``mesh`` (``parallel.mesh.Mesh``) each rank scores its rows of
+    every global batch (the ragged last one masked alike) and the counts
+    are summed over 'data', so every rank returns the same PDJ; the data
+    axis must divide the batch size.  Tensor parallelism comes with the
+    model (``PoseModel(mesh=)``)."""
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    d = 0 if mesh is None else mesh.coords["data"]
+    if config.train.batch_size % n_data:
+        raise ValueError(f"eval batch size {config.train.batch_size} must be divisible by the "
+                         f"mesh data axis ({n_data})")
     if eval_step is not None and hasattr(eval_step, "thresholds"):
         assert eval_step.thresholds == tuple(float(t) for t in thresholds), (
             "prebuilt eval_step was built with different thresholds than "
@@ -131,25 +143,33 @@ def evaluate(
     # the padded duplicates are masked out through `visible`, so every
     # example counts once.
     n = dataset.size
-    examples_seen = 0
+    rows = batch // n_data
+    examples_seen = torch.zeros((), dtype=torch.float64, device=device)
     for i, start in enumerate(range(0, n, batch)):
         if max_batches is not None and i >= max_batches:
             break
-        idx = np.arange(start, start + batch, dtype=np.int32) % n
-        got = dict(dataset.get_batch(idx))
+        # This rank's rows of the global batch [start, start + batch).
+        pos = np.arange(start + d * rows, start + (d + 1) * rows)
+        got = dict(dataset.get_batch((pos % n).astype(np.int32)))
         if uint8_ingest and got["image"].dtype != torch.uint8:
             # Score the serving input contract: clients send raw uint8
             # RGB, which the model normalizes.  A dataset that already
             # hands back uint8 passes through untouched.
             got["image"] = torch.round(got["image"] * 255.0).to(torch.uint8)
         if start + batch > n:
-            mask = torch.from_numpy((np.arange(start, start + batch) < n).astype(np.float32))
+            mask = torch.from_numpy((pos < n).astype(np.float32))
             got["visible"] = got["visible"] * mask.to(got["visible"].device)[:, None]
-        examples_seen += min(batch, n - start)
-        d, v, t = eval_step(got, device)
-        detected += d
+        examples_seen += int((pos < n).sum())
+        det, v, t = eval_step(got, device)
+        detected += det
         visible += v
         torso_seen += t
+    if mesh is not None:
+        counts = torch.cat([detected.reshape(-1), visible, torso_seen[None], examples_seen[None]])
+        mesh.all_reduce(counts, "data")
+        detected, visible = counts[:detected.numel()].view_as(detected), counts[detected.numel():-2]
+        torso_seen, examples_seen = counts[-2], counts[-1]
+    examples_seen = float(examples_seen)
     curves = (detected / visible[None].clamp_min(1.0)).cpu().numpy()  # (T, K)
     thresholds_np = np.asarray(thresholds)
     t05 = int(np.argmin(np.abs(thresholds_np - 0.05)))

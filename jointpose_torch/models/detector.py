@@ -21,6 +21,8 @@ from torch import nn
 from jointpose_torch.configs import DetectorConfig
 from jointpose_torch.ops.fft_conv import FFTConv
 from jointpose_torch.ops.mrf_xla import same_pad
+from jointpose_torch.parallel.mesh import param_shardings
+from jointpose_torch.parallel.mrf_tp import enter_model_region, leave_model_region, model_slice
 
 
 def resolve_head_conv_impl(cfg: DetectorConfig) -> str:
@@ -54,9 +56,15 @@ class Conv(nn.Module):
         self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.weight, self.bias)
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        """The conv with given parameters (a channel slice of the module's,
+        under tensor parallelism); no bias for ``bias=None``."""
         h, w = x.shape[-2:]
         (ht, hb), (wl, wr) = same_pad(h, self.kernel, self.stride), same_pad(w, self.kernel, self.stride)
-        w_, b_ = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        w_ = weight.to(x.dtype)
+        b_ = None if bias is None else bias.to(x.dtype)
         if ht == hb and wl == wr:
             return F.conv2d(x, w_, b_, stride=self.stride, padding=(ht, wl))
         # Asymmetric SAME padding, e.g. (1, 2) for a stride-2 5×5 conv on
@@ -111,11 +119,16 @@ class Detector(nn.Module):
     Output: (B, H/stride, W/stride, K) float32 heatmap logits.
     """
 
-    def __init__(self, cfg: DetectorConfig, num_joints: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: DetectorConfig, num_joints: int, dtype: torch.dtype = torch.float32,
+                 mesh=None, spatial: bool = False):
         super().__init__()
+        if spatial:
+            raise NotImplementedError(
+                "spatial parallelism (the trunk's rows over 'model'): not ported yet; see ROADMAP.md")
         head_conv = FFTConv if resolve_head_conv_impl(cfg) == "fft" else Conv
         self.config = cfg
         self.dtype = dtype
+        self.mesh = mesh
         if cfg.share_trunk:
             self.trunk = Trunk(cfg)
         else:
@@ -130,6 +143,15 @@ class Detector(nn.Module):
             self.add_module(f"head_1x1_{i}", Conv(c, feats, 1))
             c = feats
         self.head_out = Conv(c, num_joints, 1)
+        # Head-channel tensor parallelism over 'model': head_wide computes
+        # the output-channel slice and head_1x1_0 the input-channel slice
+        # that param_shardings names.
+        rules = {} if mesh is None else param_shardings(self, mesh)
+        self.head_tp = rules.get("head_wide.weight") is not None
+        if self.head_tp and self.n_1x1 == 0:
+            raise NotImplementedError(
+                "head-channel tensor parallelism of a head without a 1x1 conv after its wide "
+                "conv: not ported (every preset has one)")
 
     @staticmethod
     def stride(cfg: DetectorConfig) -> int:
@@ -157,8 +179,26 @@ class Detector(nn.Module):
                 half = self.trunk_half(_avg_pyramid(x))
         if cfg.multires:
             full = full + _upsample2x(half)
-        y = F.relu(self.head_wide(full))
-        for i in range(self.n_1x1):
+        if self.head_tp:
+            y, first = self._head_tp(full), 1
+        else:
+            y, first = F.relu(self.head_wide(full)), 0
+        for i in range(first, self.n_1x1):
             y = F.relu(getattr(self, f"head_1x1_{i}")(y))
         logits = self.head_out(y)
         return logits.float().permute(0, 2, 3, 1)
+
+    def _head_tp(self, full: torch.Tensor) -> torch.Tensor:
+        """relu(head_1x1_0(relu(head_wide(full)))) with this rank's channel
+        slice: the wide conv's output channels, the 1x1 conv's input
+        channels, summed in fp32 over 'model' before the bias, which is
+        added once."""
+        sl = model_slice(self.config.head_features[0], self.mesh)
+        wide, proj = self.head_wide, self.head_1x1_0
+        x = enter_model_region(full, self.mesh)
+        y = F.relu(wide.conv(x, wide.weight[sl], wide.bias[sl]))
+        # The products of compute-dtype values summed in fp32, as the
+        # unsliced conv accumulates them.
+        part = F.conv2d(y.float(), proj.weight[:, sl].to(y.dtype).float())
+        z = leave_model_region(part, self.mesh) + proj.bias.to(y.dtype).float()[:, None, None]
+        return F.relu(z.to(y.dtype))

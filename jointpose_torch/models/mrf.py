@@ -7,12 +7,15 @@ forward pass reproduces the empirical pairwise priors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from jointpose_torch.configs import MRFConfig
 from jointpose_torch.ops.mrf_xla import mrf_message_pass_coarse, mrf_message_pass_xla
+from jointpose_torch.parallel.mrf_tp import mrf_message_pass_tp
 
 
 def inverse_softplus(y, floor: float = 1e-8) -> torch.Tensor:
@@ -86,13 +89,19 @@ class SpatialModel(nn.Module):
     Output: (B, Hm, Wm, K) unnormalized log p̄ in fp32.
     """
 
-    def __init__(self, config: MRFConfig, num_joints: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: MRFConfig, num_joints: int, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         if config.precision not in ("high", "default"):
             raise ValueError(f"unknown MRF precision {config.precision!r}")
         self.config = config
         self.dtype = dtype
         self.pass_fn = message_pass_fn(config)
+        # Source-joint tensor parallelism over 'model' (parallel/mrf_tp.py):
+        # the coarse pass wraps the sliced pass, not the reverse.
+        self.tp = mesh is not None and mesh.shape["model"] > 1
+        if self.tp:
+            self.pass_fn = functools.partial(mrf_message_pass_tp, mesh=mesh, base_pass=self.pass_fn)
         wh, ww = config.window
         k = num_joints
         self.raw_kernels = nn.Parameter(uniform_kernel_init((wh, ww), k))

@@ -15,6 +15,7 @@ from jointpose_torch.configs import Config
 from jointpose_torch.models.detector import Detector
 from jointpose_torch.models.mrf import SpatialModel
 from jointpose_torch.ops.heatmaps import spatial_softmax
+from jointpose_torch.parallel.mesh import param_shardings
 
 
 def _unaries(config: Config, logits: torch.Tensor) -> torch.Tensor:
@@ -25,15 +26,33 @@ def _unaries(config: Config, logits: torch.Tensor) -> torch.Tensor:
 
 
 class PoseModel(nn.Module):
-    def __init__(self, config: Config):
+    """``mesh`` (``parallel.mesh.Mesh``): tensor parallelism over its
+    'model' axis, engaged only when that axis is larger than 1 (the head's
+    split convs, the MRF's source joints); the parameters are the same
+    either way.  ``spatial=True`` (the trunk's rows over 'model') is not
+    ported yet."""
+
+    def __init__(self, config: Config, mesh=None, spatial: bool = False):
         super().__init__()
         self.config = config
+        self.mesh = mesh
         self.dtype = getattr(torch, config.compute_dtype)
-        self.detector = Detector(config.detector, config.num_joints, dtype=self.dtype)
+        self.detector = Detector(config.detector, config.num_joints, dtype=self.dtype,
+                                 mesh=mesh, spatial=spatial)
         self.spatial_model = (
-            SpatialModel(config.mrf, config.num_joints, dtype=self.dtype)
+            SpatialModel(config.mrf, config.num_joints, dtype=self.dtype, mesh=mesh)
             if config.mrf is not None else None
         )
+
+    def model_sliced_parameters(self) -> set[str]:
+        """Names of the parameters that this rank uses only in a 'model'
+        slice: their gradients must be summed over 'model' too."""
+        names = set()
+        if self.mesh is not None:  # the rule that slices the head's convs
+            names = {n for n, rule in param_shardings(self, self.mesh).items() if rule}
+        if self.spatial_model is not None and self.spatial_model.tp:  # sliced activations
+            names |= {"spatial_model.raw_kernels", "spatial_model.raw_bias"}
+        return names
 
     def forward(
         self, images: torch.Tensor, freeze_detector: bool = False, detector_only: bool = False

@@ -584,6 +584,11 @@ class FFTConv(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = fft_conv2d(x.permute(0, 2, 3, 1), self.weight.permute(2, 3, 1, 0))
-        y = y + self.bias.to(y.dtype)
+        return self.conv(x, self.weight, self.bias)
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The conv with given parameters (an output-channel slice of the
+        module's, under tensor parallelism)."""
+        y = fft_conv2d(x.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0))
+        y = y + bias.to(y.dtype)
         return y.permute(0, 3, 1, 2).to(x.dtype)

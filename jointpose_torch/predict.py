@@ -1,4 +1,4 @@
-"""Batch inference (counterpart of ``jointpose/predict.py``, one device):
+"""Batch inference (counterpart of ``jointpose/predict.py``):
 images -> joint coordinates and heatmaps, as a library call and a CLI.
 
     config = get_config("joint")
@@ -12,7 +12,9 @@ images -> joint coordinates and heatmaps, as a library call and a CLI.
 CLI: restore a checkpoint, predict a split, write ``predictions.jsonl``
 (one record per example) and, with ``--figures``, heatmap overlays; with
 ``--quantize N`` / ``--quantize-artifact NPZ`` through the int8 detector
-of ``ops/quant.py``:
+of ``ops/quant.py``; with ``--pipeline N_MICRO`` through the two-stage
+pipelined predictor of ``parallel/pipeline.py`` (meshes of more than one
+device are not ported yet, ROADMAP.md):
 
     python -m jointpose_torch.predict --config flagship \\
         --checkpoint runs/flagship/checkpoints --workdir out/ \\
@@ -132,7 +134,8 @@ def restore_params(
 
 def refuse_unported(flags: list[tuple[str, bool]]) -> None:
     """Raise ``NotImplementedError`` naming every flag that is set and not
-    ported yet (meshes of more than one device, pipelines)."""
+    ported yet (meshes of more than one device in inference, spatial
+    parallelism)."""
     unported = [flag for flag, on in flags if on]
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not ported yet; see ROADMAP.md")
@@ -168,7 +171,9 @@ def main(argv: list[str] | None = None) -> None:
                         help="MRF message-pass matmul precision; inference defaults to "
                              "'default' (on the card one TF32 pass in the Fourier paths)")
     parser.add_argument("--pipeline", type=int, default=0, metavar="N_MICRO",
-                        help="pipeline-parallel inference: not ported yet (ROADMAP.md)")
+                        help="two-stage pipelined inference (detector | MRF + decode), "
+                             "microbatched N_MICRO ways over the cards, or over the one card "
+                             "on two streams (parallel/pipeline.py); composes with --quantize*")
     parser.add_argument("--quantize", type=int, default=0, metavar="N_CALIB",
                         help="run the int8-quantized detector (ops/quant.py), calibrating on "
                              "N_CALIB training images")
@@ -177,8 +182,12 @@ def main(argv: list[str] | None = None) -> None:
                              "instead of calibrating")
     add_device_flag(parser)
     args = parser.parse_args(argv)
-    refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1),
-                     ("--pipeline", args.pipeline > 0)])
+    if args.pipeline > 0:
+        if args.mesh_data > 1 or args.mesh_model > 1:
+            raise SystemExit("--pipeline is exclusive with --mesh-data/--mesh-model")
+        if args.batch_size % args.pipeline:
+            raise SystemExit(f"--pipeline {args.pipeline} must divide --batch-size {args.batch_size}")
+    refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
 
     from jointpose_torch import skeleton
     from jointpose_torch.checkpoint import reconcile_config
@@ -191,7 +200,22 @@ def main(argv: list[str] | None = None) -> None:
     state_dict, step = restore_params(config, args.checkpoint, args.step, best=args.best)
     train_ds, test_ds = make_dataset(config.data, device)
     ds = train_ds if args.split == "train" else test_ds
-    if args.quantize > 0 or args.quantize_artifact:
+    if args.pipeline > 0:
+        from jointpose_torch.parallel.pipeline import build_pipelined_predictor
+
+        # --quantize*: the int8 detector in stage 0.
+        qparams = None
+        if args.quantize > 0 or args.quantize_artifact:
+            from jointpose_torch.ops.quant import quantized_model_for
+
+            model, line = quantized_model_for(config, state_dict, args.quantize,
+                                              args.quantize_artifact, train_ds, device)
+            qparams = model.qparams()
+            print(line)
+        predict = build_pipelined_predictor(
+            config, state_dict, devices=[device, device] if device.type == "cpu" else None,
+            n_micro=args.pipeline, qparams=qparams)
+    elif args.quantize > 0 or args.quantize_artifact:
         from jointpose_torch.ops.quant import quantized_model_for
 
         model, line = quantized_model_for(config, state_dict, args.quantize,

@@ -22,6 +22,22 @@ the fault from firing again after the resume).
 
     python -m jointpose_torch.resilience --max-restarts 3 -- \\
         --config flagship --workdir runs/f1
+    python -m jointpose_torch.resilience --nproc-per-node 2 -- \\
+        --config flagship --workdir runs/f2 --mesh-data 2
+
+With ``--nproc-per-node N`` the supervised unit is ``python -m
+torch.distributed.run --standalone --nproc-per-node N -m
+jointpose_torch.train ...``: the launcher ends the whole group when a rank
+fails (a faulted rank leaves its peers' collectives, which then fail too),
+and the supervisor relaunches the group with ``--resume`` on a fresh
+rendezvous port.  The ranks share the workdir's heartbeat file.  The
+launcher exits 1 whatever its ranks' codes, so a group that checkpointed
+on preemption says so in ``<workdir>/preempted.json`` (``mark_preempted``,
+written by rank 0 after the save), and the supervisor resumes it free of
+charge as it does a single process that exits ``EXIT_PREEMPTED``.  On a
+hang the supervisor ends every process below its child, the ranks
+included: the launcher starts each rank in a session of its own, out of
+reach of a signal to its process group.
 
 This module imports no ``torch``: the supervisor and the heartbeat start
 fast, and the supervisor leaves the card to its child.
@@ -40,6 +56,7 @@ import time
 EXIT_PREEMPTED = 85  # exit code of a run that checkpointed on preemption
 EXIT_FAULT = 41  # exit code of an injected fault
 HEARTBEAT_FILE = "heartbeat.json"
+PREEMPTED_FILE = "preempted.json"
 
 
 class Heartbeat:
@@ -111,6 +128,63 @@ class PreemptionHandler:
         sys.exit(EXIT_PREEMPTED)
 
 
+def mark_preempted(workdir: str, step: int) -> None:
+    """Train side, after the preemption checkpoint is whole: record it in
+    ``<workdir>/preempted.json``, where a supervisor that sees only a
+    launcher's exit code finds it."""
+    path = os.path.join(workdir, PREEMPTED_FILE)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"step": int(step), "time": time.time()}, f)
+    os.replace(tmp, path)
+
+
+def _process_tree(pid: int) -> list[tuple[int, str]]:
+    """The processes below ``pid`` (its children, theirs, ...), each with
+    its start time (to tell it from a later process of the same pid), read
+    from ``/proc``; empty where there is none."""
+    children: dict[int, list[int]] = {}
+    started: dict[int, str] = {}
+    try:
+        entries = [e for e in os.listdir("/proc") if e.isdigit()]
+    except OSError:
+        return []
+    for entry in entries:
+        stat = _stat(int(entry))
+        if stat is not None:
+            children.setdefault(int(stat[1]), []).append(int(entry))
+            started[int(entry)] = stat[19]
+    tree, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            tree.append((child, started[child]))
+            todo.append(child)
+    return tree
+
+
+def _stat(pid: int) -> list[str] | None:
+    """The fields of ``/proc/<pid>/stat`` after the command's name (state,
+    ppid, ..., start time at 19), or None for a process that is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return None
+    return stat[stat.rindex(")") + 2:].split()
+
+
+def _kill_survivors(tree: list[tuple[int, str]]) -> None:
+    """SIGKILL every process of ``tree`` that still runs (a zombie takes it
+    harmlessly)."""
+    for pid, started in tree:
+        stat = _stat(pid)
+        if stat is not None and stat[19] == started:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
 def maybe_inject_fault(workdir: str, step: int) -> None:
     """Drill hook: end the process at once at ``JOINTPOSE_FAULT_AT_STEP``,
     once per workdir.
@@ -142,7 +216,8 @@ class Supervisor:
         ``--resume`` is appended for every restart unless present.
       workdir: where the child writes its heartbeat.
       max_restarts: the failure budget (crashes and hang-kills); preemption
-        exits (``EXIT_PREEMPTED``) always resume and cost nothing.
+        exits (``EXIT_PREEMPTED``, or a ``preempted.json`` written during
+        the attempt) always resume and cost nothing.
       heartbeat_timeout: seconds of heartbeat silence after which the child
         is declared hung.  Enforced only once this attempt has beaten, so
         start-up and the first steps (cuDNN's algorithm choice, kernel
@@ -176,6 +251,7 @@ class Supervisor:
         self.env = env
         self.restarts = 0
         self.events: list[dict] = []
+        self.proc: subprocess.Popen | None = None  # the attempt running now
 
     def _log(self, event: str, **kw) -> None:
         rec = {"event": event, "time": time.time(), **kw}
@@ -211,25 +287,39 @@ class Supervisor:
             time.sleep(self.poll_interval)
 
     def _terminate(self, proc: subprocess.Popen) -> None:
-        """SIGTERM (the child checkpoints), then SIGKILL after ``grace``."""
+        """SIGTERM (the child checkpoints; a rank launcher passes it on to
+        its ranks), then, after ``grace``, SIGKILL to the child and to every
+        process that was below it and still runs: a rank stuck in a
+        collective is not left on the card."""
+        tree = _process_tree(proc.pid)
         proc.terminate()
         try:
             proc.wait(timeout=self.grace)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+        _kill_survivors(tree)
+
+    def _preempted_since(self, started: float) -> bool:
+        """Whether the child recorded a preemption checkpoint after
+        ``started`` (``mark_preempted``)."""
+        try:
+            return os.stat(os.path.join(self.workdir, PREEMPTED_FILE)).st_mtime >= started
+        except OSError:
+            return False
 
     def run(self) -> int:
         cmd = list(self.cmd)
         while True:
             self._log("launch", cmd=cmd, restarts=self.restarts)
-            proc = subprocess.Popen(cmd, env=self.env)
+            started = time.time()
+            self.proc = proc = subprocess.Popen(cmd, env=self.env)
             rc, why = self._watch(proc)
             if rc == 0:
                 self._log("done")
                 return 0
             resumed_cmd = cmd if "--resume" in cmd else cmd + ["--resume"]
-            if rc == EXIT_PREEMPTED and why == "exit":
+            if why == "exit" and (rc == EXIT_PREEMPTED or self._preempted_since(started)):
                 # A preemption from outside: the work is saved, resume free
                 # of charge.  A hang-kill exits EXIT_PREEMPTED too (our own
                 # SIGTERM reaches the child's handler); the ``why`` keeps a
@@ -253,6 +343,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--max-restarts", type=int, default=3)
     parser.add_argument("--heartbeat-timeout", type=float, default=1800.0)
     parser.add_argument("--start-timeout", type=float, default=3600.0)
+    parser.add_argument("--nproc-per-node", type=int, default=0,
+                        help="supervise a group of N training processes launched by "
+                             "python -m torch.distributed.run (0: one process)")
     parser.add_argument("train_args", nargs=argparse.REMAINDER,
                         help="arguments for jointpose_torch.train after '--'")
     args = parser.parse_args(argv)
@@ -262,8 +355,11 @@ def main(argv: list[str] | None = None) -> int:
     if "--workdir" not in train_args:
         parser.error("train args must include --workdir")
     workdir = train_args[train_args.index("--workdir") + 1]
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(args.nproc_per_node)] if args.nproc_per_node > 0
+                else [sys.executable])
     sup = Supervisor(
-        [sys.executable, "-m", "jointpose_torch.train", *train_args],
+        [*launcher, "-m", "jointpose_torch.train", *train_args],
         workdir=workdir,
         max_restarts=args.max_restarts,
         heartbeat_timeout=args.heartbeat_timeout,

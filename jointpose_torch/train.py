@@ -1,7 +1,9 @@
-"""Staged training (counterpart of ``jointpose/train.py``, one device).
+"""Staged training (counterpart of ``jointpose/train.py``).
 
     python -m jointpose_torch.train --config flagship --workdir runs/flagship
     python -m jointpose_torch.train --config tiny --workdir runs/tiny --device cpu
+    python -m torch.distributed.run --nproc-per-node 4 -m jointpose_torch.train \
+        --config flagship --workdir runs/f4 --mesh-data 2 --mesh-model 2
 
 ``fit`` runs the whole staged training through the normal entry point:
 datasets, state, detector stage, pairwise priors from the training
@@ -29,9 +31,17 @@ skips a parameter whose ``.grad`` is None and counts steps per
 parameter, so the step gives every parameter a gradient, zeros where
 the loss does not reach it.
 
+Under a mesh of several processes (``parallel/mesh.py``, one process per
+device) every rank runs this loop on its rows of each global batch:
+the same global indices and augmentation draw everywhere, the loss's
+denominators and the gradients summed over 'data' (the head's split
+convs and the MRF's pairwise parameters also over 'model'), rank 0 alone
+writing metrics, figures and checkpoints, a barrier after each save, a
+preemption on any rank seen by all at the step boundary.
+
 Not carried over from the reference's ``fit`` (ROADMAP.md names each):
-the mesh and multi-process branches and the K-step scan
-(``steps_per_dispatch`` is read and ignored: one step per call).
+spatial parallelism and the K-step scan (``steps_per_dispatch`` is read
+and ignored: one step per call).
 Carried over from ``resilience.py``: SIGTERM checkpoints at the next step
 boundary and exits ``resilience.EXIT_PREEMPTED``; the heartbeat is
 written after each step, eval, prior init and save (none before the
@@ -67,7 +77,9 @@ from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose_torch.models.mrf import priors_to_raw_kernels
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.predict import init_state_dict, refuse_unported, resolve_device
-from jointpose_torch.resilience import Heartbeat, PreemptionHandler, maybe_inject_fault
+from jointpose_torch.resilience import (
+    Heartbeat, PreemptionHandler, mark_preempted, maybe_inject_fault,
+)
 
 
 @dataclasses.dataclass
@@ -133,16 +145,18 @@ def make_optimizer(config: Config, model: PoseModel) -> torch.optim.Optimizer:
 
 
 def create_state(
-    config: Config, generator: torch.Generator, device: str | torch.device | None = None
+    config: Config, generator: torch.Generator, device: str | torch.device | None = None,
+    mesh=None,
 ) -> TrainState:
     """Seeded model, optimizer and augmentation generator on ``device``
     (CUDA unless the caller asks for the CPU; raises without CUDA).
 
     ``generator`` is a CPU generator: it draws the weights
-    (``predict.init_state_dict``) and then the augmentation seed.
+    (``predict.init_state_dict``) and then the augmentation seed.  ``mesh``
+    engages the model's tensor parallelism (``PoseModel(mesh=)``).
     """
     device = resolve_device(device)
-    model = PoseModel(config)
+    model = PoseModel(config, mesh=mesh)
     model.load_state_dict(init_state_dict(config, generator))
     model = model.to(device).train()
     seed = int(torch.randint(0, 2**62, (1,), generator=generator))
@@ -164,7 +178,7 @@ def _render_targets(config: Config, joints_xy: torch.Tensor, visible: torch.Tens
     }
 
 
-def make_train_step(config: Config, stage: str) -> Callable:
+def make_train_step(config: Config, stage: str, mesh=None) -> Callable:
     """``step(state, batch) -> (state, metrics)`` for a stage
     ('detector' | 'joint').
 
@@ -175,6 +189,13 @@ def make_train_step(config: Config, stage: str) -> Callable:
     ``aug`` replaces the step's own augmentation draw, so that two runs on
     different devices can warp alike.  After the step each parameter's
     ``.grad`` holds this step's gradient.
+
+    Under a ``mesh`` (``parallel.mesh.Mesh``) ``batch`` is this rank's rows
+    of the global batch (``mesh.shard_batch``): the augmentation is drawn
+    for the global batch (``aug`` too is the global batch's) and sliced,
+    the losses' denominators and the gradients are summed over 'data', the
+    parameters the rank uses in a 'model' slice also over 'model', and the
+    metrics are the global batch's.
     """
     if stage not in ("detector", "joint"):
         raise ValueError(f"unknown stage {stage!r}")
@@ -182,6 +203,9 @@ def make_train_step(config: Config, stage: str) -> Callable:
     freeze_detector = use_mrf and config.train.freeze_detector_in_joint
     lr_fn = make_lr(config)
     t = config.train
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    d = 0 if mesh is None else mesh.coords["data"]
+    distributed = mesh is not None and mesh.size > 1
 
     def step(
         state: TrainState, batch: dict, aug: AugmentParams | None = None
@@ -192,12 +216,15 @@ def make_train_step(config: Config, stage: str) -> Callable:
         joints = batch["joints"].to(device, torch.float32)
         visible = batch["visible"].to(device, torch.float32)
         if config.augment.enabled:
+            rows = images.shape[0]
             if aug is None:
+                # Every rank draws the global batch's augmentation from the
+                # identically seeded generator and takes its rows.
                 aug = random_augment_params(
-                    state.generator, images.shape[0], config.augment, config.data.image_hw
+                    state.generator, rows * n_data, config.augment, config.data.image_hw
                 )
-            else:
-                aug = AugmentParams(*(None if t is None else t.to(device) for t in aug))
+            aug = AugmentParams(*(None if v is None else v[d * rows:(d + 1) * rows].to(device)
+                                  for v in aug))
             images, joints, visible = augment_batch(
                 images, joints, visible, aug, warp_impl=config.augment.warp_impl
             )
@@ -206,10 +233,10 @@ def make_train_step(config: Config, stage: str) -> Callable:
         opt.zero_grad(set_to_none=True)
         # The detector stage's loss does not read the spatial model's output.
         out = model(images, freeze_detector=freeze_detector, detector_only=not use_mrf)
-        det = heatmap_loss(t.detector_loss, out["detector_logits"], targets, visible)
+        det = heatmap_loss(t.detector_loss, out["detector_logits"], targets, visible, mesh)
         metrics = {"detector_loss": det}
         if use_mrf:
-            mrf = mrf_heatmap_loss(t.mrf_loss, out["mrf_log_heatmaps"], targets, visible)
+            mrf = mrf_heatmap_loss(t.mrf_loss, out["mrf_log_heatmaps"], targets, visible, mesh)
             metrics["mrf_loss"] = mrf
             total = mrf if freeze_detector else mrf + det
         else:
@@ -221,6 +248,17 @@ def make_train_step(config: Config, stage: str) -> Callable:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if distributed:
+            # Each rank's loss is its rows' share of the global loss: sums
+            # over 'data' give the global gradient and metrics.  Gradients
+            # of parameters used in a 'model' slice are zero outside it.
+            sliced = model.model_sliced_parameters()
+            named = list(model.named_parameters())
+            mesh.all_reduce_flat([p.grad for n, p in named if n not in sliced], "data")
+            mesh.all_reduce_flat([p.grad for n, p in named if n in sliced], None)
+            values = torch.stack([v.detach().float() for v in metrics.values()])
+            values = mesh.all_reduce(values, "data")
+            metrics = dict(zip(metrics, values))
         metrics["grad_norm"] = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
         if freeze_detector:
             det_before = [p.detach().clone() for p in model.detector.parameters()]
@@ -269,17 +307,32 @@ def fit(
     save_figures: bool = False,
 ) -> FitResult:
     """Run the full staged training on ``device`` (CUDA unless the caller
-    asks for the CPU); returns the final state and eval metrics."""
+    asks for the CPU); returns the final state and eval metrics.
+
+    The mesh is ``config.mesh`` over the process group's world
+    (``parallel.mesh.make_mesh``; one process, one device without a
+    group): every rank of a larger world calls ``fit`` alike."""
     from jointpose_torch.checkpoint import Checkpointer
     from jointpose_torch.data.pipeline import device_cache, epoch_order, epoch_steps, make_dataset
     from jointpose_torch.evaluate import evaluate, make_eval_step
     from jointpose_torch.metrics import MetricLogger, ProfilerHook
+    from jointpose_torch.parallel.mesh import make_mesh, shard_state
     from jointpose_torch.perf import count_cost, roofline_images_per_sec
     from jointpose_torch.priors import estimate_priors
 
     device = resolve_device(device)
     t = config.train
-    logger = MetricLogger(workdir)
+    mesh = make_mesh(config.mesh)
+    n_data, d = mesh.shape["data"], mesh.coords["data"]
+    if t.batch_size % n_data:
+        raise ValueError(
+            f"batch_size {t.batch_size} must be divisible by the mesh data axis ({n_data})")
+    rows = t.batch_size // n_data
+    # Host-side artifacts with one writer (metrics.jsonl, figures, the
+    # profiler's trace) belong to rank 0; checkpoints are written by rank 0
+    # with a barrier after each save (checkpoint.py).
+    is_lead = mesh.rank == 0
+    logger = MetricLogger(workdir, enabled=is_lead)
     # Records the architecture mode; fails fast on a resume whose
     # pool_mode contradicts the saved run's.
     ckpt = Checkpointer(f"{workdir}/{t.checkpoint_dir}", keep=t.keep_checkpoints, config=config)
@@ -288,7 +341,8 @@ def fit(
         budget = config.data.device_cache_gb * 1e9
         train_ds = device_cache(train_ds, budget, device)
         test_ds = device_cache(test_ds, budget, device)
-    state = create_state(config, torch.Generator().manual_seed(t.seed), device=device)
+    state = create_state(config, torch.Generator().manual_seed(t.seed), device=device, mesh=mesh)
+    state = shard_state(state, mesh)
     model = state.model
 
     start_step = 0
@@ -305,7 +359,7 @@ def fit(
     det_steps = t.detector_steps
     joint_steps = t.joint_steps if config.mrf is not None else 0
     total_steps = det_steps + joint_steps
-    step_fns = {stage: make_train_step(config, stage) for stage in ("detector", "joint")}
+    step_fns = {stage: make_train_step(config, stage, mesh) for stage in ("detector", "joint")}
 
     # Deterministic dataset position: the batch of step s is a function of
     # (seed, s), so a resume continues the exact shuffled order with no
@@ -314,14 +368,16 @@ def fit(
     epoch_cache: dict[int, np.ndarray] = {}
 
     def indices_for_step(s: int) -> np.ndarray:
+        """This rank's rows of step s's global batch, which every rank
+        computes alike."""
         epoch, pos = divmod(s, steps_per_epoch)
         order = epoch_cache.get(epoch)
         if order is None:
             order = epoch_order(train_ds.size, t.batch_size, np.random.default_rng(t.seed + epoch))
             epoch_cache.clear()  # only the current epoch is ever needed
             epoch_cache[epoch] = order
-        lo = pos * t.batch_size
-        return order[lo : lo + t.batch_size]
+        lo = pos * t.batch_size + d * rows
+        return order[lo : lo + rows]
 
     # Before the MRF has its prior init its uniform kernels box-blur the
     # unaries into a near-uniform field: evaluating through it says nothing
@@ -340,7 +396,7 @@ def fit(
     def run_eval(step: int) -> dict:
         stage_now = "detector" if step <= det_steps else "joint"
         ev = evaluate(model, test_ds, config, max_batches=eval_max_batches,
-                      eval_step=eval_steps[stage_now])
+                      eval_step=eval_steps[stage_now], mesh=mesh)
         # Which graph produced the score: a detector-stage PDJ says nothing
         # about the full CNN+MRF model.
         ev["eval_stage"] = stage_now
@@ -361,7 +417,7 @@ def fit(
         images per second the card's peaks would allow for it."""
         with count_cost() as cost:
             out = take_step(stage, step)
-        per_img_flops, per_img_bytes = cost.flops / t.batch_size, cost.bytes / t.batch_size
+        per_img_flops, per_img_bytes = cost.flops / rows, cost.bytes / rows
         logger.log(
             step, stage=stage, steps_per_dispatch=1,
             train_step_gflops_per_image=per_img_flops / 1e9,
@@ -373,7 +429,7 @@ def fit(
     # A trace of a window after the run's first steps (cuDNN's algorithm
     # choice and the kernel builds stay out of it).
     profiler = (ProfilerHook(workdir, start_step=start_step + 5, num_steps=profile_steps)
-                if profile_steps > 0 else None)
+                if profile_steps > 0 and is_lead else None)
     costed: set[str] = set()  # stages whose cost was logged (on CUDA only)
 
     def now() -> float:
@@ -396,7 +452,7 @@ def fit(
                 state = init_mrf_from_priors(state, priors)
                 mrf_initialized = True
                 heartbeat.beat(step)  # the prior estimation blocks the loop too
-                if save_figures:
+                if save_figures and is_lead:
                     from jointpose_torch.visualize import save_prior_grid
 
                     save_prior_grid(np.asarray(priors), f"{workdir}/figures/priors.png")
@@ -413,12 +469,16 @@ def fit(
             step += 1
             heartbeat.beat(step)
             maybe_inject_fault(workdir, step)
-            if preemption.preempted:
+            # A preemption of any rank is seen by all at this boundary, so
+            # that no rank waits in a collective that another has left.
+            if mesh.any(preemption.preempted):
                 if ckpt.latest_step() != step:  # an eval may have saved this step
                     ckpt.save(step, state)
                 logger.log(step, preempted=True)
                 logger.close()
                 ckpt.close()
+                if is_lead:  # a rank launcher's exit code does not say it
+                    mark_preempted(workdir, step)
                 print(f"preempted: checkpointed at step {step}", flush=True)
                 preemption.exit_preempted()
 
@@ -448,12 +508,13 @@ def fit(
         from jointpose_torch.ops.heatmaps import model_probs
         from jointpose_torch.visualize import save_heatmap_overlays, save_pdj_curves
 
-        save_pdj_curves(final_eval, f"{workdir}/figures/pdj_curves.png")
         batch = test_ds.get_batch(np.arange(4))
-        with torch.inference_mode():
+        with torch.inference_mode():  # on every rank: a tensor-parallel model runs collectives
             probs = model_probs(model(batch["image"].to(device)))
-        save_heatmap_overlays(batch["image"].cpu().numpy(), probs.cpu().numpy(),
-                              f"{workdir}/figures/heatmaps.png", batch["joints"].cpu().numpy())
+        if is_lead:
+            save_pdj_curves(final_eval, f"{workdir}/figures/pdj_curves.png")
+            save_heatmap_overlays(batch["image"].cpu().numpy(), probs.cpu().numpy(),
+                                  f"{workdir}/figures/heatmaps.png", batch["joints"].cpu().numpy())
 
     logger.close()
     ckpt.close()
@@ -499,18 +560,21 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--check-numerics", action="store_true",
                         help="torch.autograd.set_detect_anomaly: fail at the op that made a NaN")
     parser.add_argument("--mesh-data", type=int, default=None,
-                        help="data-parallel devices; -1 (all), 0 and 1 mean the one device, "
-                             "larger meshes are not ported yet (ROADMAP.md)")
+                        help="data-parallel processes (one per device; -1 = the world over "
+                             "--mesh-model); launch them with python -m torch.distributed.run")
     parser.add_argument("--mesh-model", type=int, default=None,
-                        help="model-axis devices; only 1 (ROADMAP.md)")
+                        help="model-axis processes: channel tensor parallelism on the detector "
+                             "head and source-joint tensor parallelism in the MRF")
     parser.add_argument("--mesh-spatial", action="store_true", help="not ported yet (ROADMAP.md)")
     add_device_flag(parser)
     args = parser.parse_args(argv)
-    refuse_unported([
-        ("--mesh-data", args.mesh_data not in (None, -1, 0, 1)),
-        ("--mesh-model", args.mesh_model not in (None, 1)), ("--mesh-spatial", args.mesh_spatial),
-    ])
+    refuse_unported([("--mesh-spatial", args.mesh_spatial)])
     device = apply_device(args.device)
+    # Joins the process group of a multi-process launch (a no-op alone),
+    # before any work on the device.
+    from jointpose_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    device = init_distributed(device) or device
     if args.check_numerics:
         torch.autograd.set_detect_anomaly(True)
 
@@ -536,9 +600,17 @@ def main(argv: list[str] | None = None) -> None:
     if dd:
         config = config.replace(data=dataclasses.replace(config.data, **dd))
 
-    result = fit(config, args.workdir, eval_max_batches=args.eval_max_batches,
-                 resume=args.resume, profile_steps=args.profile_steps, device=device,
-                 save_figures=args.figures)
+    if args.mesh_data is not None or args.mesh_model is not None:
+        mm = {name: value for name, value in (("data", args.mesh_data), ("model", args.mesh_model))
+              if value is not None}
+        config = config.replace(mesh=dataclasses.replace(config.mesh, **mm))
+
+    try:
+        result = fit(config, args.workdir, eval_max_batches=args.eval_max_batches,
+                     resume=args.resume, profile_steps=args.profile_steps, device=device,
+                     save_figures=args.figures)
+    finally:
+        shutdown_distributed()
     print("final:", {k: v for k, v in result.metrics.items() if k != "pdj_curves"})
 
 

@@ -599,3 +599,68 @@ def test_calibration_runs_without_tf32_and_puts_the_flag_back(cuda):
     assert flagged == tq.calibrate_detector(cfg, state, calib.to(cuda))
     on_cpu = tq.calibrate_detector(cfg, state, calib, device="cpu")
     assert all(abs(flagged[n] - on_cpu[n]) <= 1e-5 * on_cpu[n] for n in on_cpu)
+
+
+# --- the shard-local shapes of the tensor-parallel paths (parallel/) ---------
+# A 'model' rank runs the MRF pass on Kv = ceil(9 / n) of the padded source
+# joints (5 of 10 at n = 2, 3 of 12 at n = 4) and the joint head's wide conv
+# on cout 512 / n; the data axis halves flagship's training batch of 32.
+
+# (B, H, W, Kv, Ka): flagship's coarse grid at 16 rows a data rank; a row
+# of 45 (or 27) values is no multiple of a 16-byte vector.
+SHARD_EPILOGUE_SHAPES = [(16, 30, 45, 5, K), (16, 30, 45, 3, K)]
+
+
+@pytest.mark.parametrize("shape", SHARD_EPILOGUE_SHAPES)
+def test_epilogue_kernels_at_shard_local_shapes(cuda, shape):
+    b, h, w, kv, ka = shape
+    gen = torch.Generator().manual_seed(2)
+    resp = (torch.rand(b, h, w, kv, ka, generator=gen) * 0.01).to(cuda)
+    biases = torch.cat([torch.rand(kv - 1, ka, generator=gen) * 1e-3,
+                        torch.ones(1, ka)]).to(cuda)  # the last source a neutral pad slot
+    g = torch.randn(b, h, w, ka, generator=gen).to(cuda)
+    before = (tme.mrf_epilogue.launches, tme.mrf_epilogue_bwd.launches)
+    out = tme.mrf_epilogue_fwd(resp, biases)
+    dresp, dbias = tme.mrf_epilogue_bwd(resp, biases, g)
+    assert (tme.mrf_epilogue.launches, tme.mrf_epilogue_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert _rel(out, tme.mrf_epilogue_plain(resp, biases)) <= KERNEL_RTOL
+    want_dresp, want_dbias = tme.mrf_epilogue_bwd_plain(resp, biases, g)
+    assert torch.equal(dresp, want_dresp)
+    assert _rel(dbias, want_dbias) <= KERNEL_RTOL
+
+
+# (hw, window, batch, Kv, Ka, peaked): joint's Fourier MRF at batch 8.
+SHARD_FFT_TAIL_CASES = [((60, 90), (45, 67), 8, 5, K, False), ((60, 90), (45, 67), 8, 3, K, False)]
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("hw,win,batch,kv,ka,peaked", SHARD_FFT_TAIL_CASES)
+def test_fft_tail_kernels_at_shard_local_shapes(cuda, hw, win, batch, kv, ka, peaked, precision):
+    pf, kf, tables, biases = _fft_tail_operands(cuda, hw, win, batch, kv, ka, peaked)
+    got = tmff.fused_tail(pf, kf, tables, biases, precision=precision)
+    assert got.shape == (batch, ka, *hw)
+    if precision == "high":
+        assert _rel(got, tmff.fused_tail_plain(pf, kf, tables, biases)) <= FFT_TAIL_RTOL
+    else:
+        emulated = tmff.fused_tail_emulated(pf, kf, tables, biases, passes=1)
+        assert _rel(got, emulated) <= KERNEL_RTOL
+        assert _rel(got, tmff.fused_tail_plain(pf, kf, tables, biases)) <= SINGLE_PASS_RTOL
+
+
+# (B, H, W, kh, Ci, Co): joint's head at batch 8 on cout 512 / 2 and / 4.
+SHARD_TAIL_GEOMETRIES = [(8, 60, 90, 9, 128, 256), (8, 60, 90, 9, 128, 128)]
+
+
+@pytest.mark.parametrize("entry", ["kdft_resident", "kdft"])
+@pytest.mark.parametrize("geom", SHARD_TAIL_GEOMETRIES)
+def test_head_conv_tails_at_shard_local_shapes(cuda, entry, geom):
+    b, h, w, kh, ci, co = geom
+    t, xr, xi, ar, ai = _tail_operands(geom, torch.bfloat16, cuda)
+    assert tfc.tail_body(entry, xr.shape[1], b, ci, co, kh, h, 2) == "ring"
+    fn = getattr(tfc, f"tail_{entry}")
+    before = fn.launches
+    got = fn(xr, xi, ar, ai, t)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert _rel(got, tfc.tail_kdft_plain(xr, xi, ar, ai, t)) <= TAIL_RTOL[torch.bfloat16]

@@ -1,0 +1,365 @@
+"""The port's process mesh and tensor parallelism (jointpose_torch.parallel)
+against the JAX reference on the CPU.
+
+One world of four processes (``python -m torch.distributed.run``, gloo)
+runs every multi-process check once and writes its results; the tests
+hold them against the reference's unsharded results computed here:
+
+- ``make_mesh`` over the world (data-major coordinates, errors);
+- the source-joint TP pass for n_model 2 (a 2x2 mesh) and 4 (1x4),
+  forward, local shapes and the gradients of p, kernels and biases, odd
+  windows only (the reference's even-window VJP is wrong, ADVICE.md);
+- one data-parallel step (data 2, a mesh of ranks {0, 1} and one of
+  {2, 3}), the same step with augmentation (the global draw sliced), and
+  one 2x2 step, against the reference's one-device step on the same
+  converted weights, at ``tests/test_parallel.py``'s tolerances;
+- ``evaluate(mesh=)`` on the 2x2 mesh (its model tensor-parallel) and on a
+  data-4 mesh, with a ragged last batch, against the reference's
+  ``evaluate``.
+
+``pad_source_axis`` and ``param_shardings`` need no world.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jointpose import train as jtrain
+from jointpose.configs import MeshConfig as JaxMeshConfig
+from jointpose.configs import get_config as jax_get_config
+from jointpose.data import augment as ja
+from jointpose.data import pipeline as jpipe
+from jointpose.models.pose import PoseModel as JaxPoseModel
+from jointpose.ops.mrf_xla import mrf_message_pass_xla as jax_pass
+from jointpose.parallel import mesh as jmesh
+from jointpose.parallel import mrf_tp as jtp
+from jointpose import evaluate as jev
+from jointpose_torch.configs import MeshConfig, get_config
+from jointpose_torch.convert import params_from_flax
+from jointpose_torch.models.pose import PoseModel
+from jointpose_torch.parallel import mesh as tmesh
+from jointpose_torch.parallel import mrf_tp as ttp
+
+from test_torch_evaluate import _assert_evals_agree, _setup, _visible_counts
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HI = jax.lax.Precision.HIGHEST
+# tests/test_parallel.py:87-91: the sharded step against one device.
+LOSS_RTOL, PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-3, 2e-5
+# tests/test_parallel.py's TP pass tolerance (atol 1e-5 on log-sums of
+# a few tens); the gradients, of magnitude up to 1/bias, by max|Δ| / max|ref|
+# as tests/test_torch_train.py's GRAD_RTOL.
+TP_ATOL, TP_GRAD_RTOL = 1e-5, 1e-4
+TP_GEOMETRY = {2: ((12, 16), (7, 9)), 4: ((10, 12), (5, 7))}  # n_model: (hw, odd window)
+
+CHILD = r"""
+import dataclasses
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from jointpose_torch.configs import MeshConfig, get_config
+from jointpose_torch.data.augment import AugmentParams
+from jointpose_torch.data.pipeline import from_host_arrays
+from jointpose_torch.evaluate import evaluate
+from jointpose_torch.models.pose import PoseModel
+from jointpose_torch.ops.mrf_xla import mrf_message_pass_xla
+from jointpose_torch.parallel.mesh import Mesh, init_distributed, make_mesh, shard_batch, shard_state
+from jointpose_torch.parallel.mrf_tp import mrf_message_pass_tp
+from jointpose_torch.train import create_state, make_train_step
+
+torch.set_num_threads(2)
+data = sys.argv[1]
+init_distributed("cpu")
+rank = dist.get_rank()
+out = {"rank": rank}
+
+# make_mesh over the world of 4: shapes, coordinates, refusals.
+for name, (d, m) in {"2x2": (-1, 2), "4x1": (4, 1), "1x4": (1, 4)}.items():
+    mesh = make_mesh(MeshConfig(data=d, model=m))
+    out["mesh", name] = (dict(mesh.shape), dict(mesh.coords))
+for d, m in ((3, 2), (1, 1), (-1, 3)):
+    try:
+        make_mesh(MeshConfig(data=d, model=m))
+        out["refused", d, m] = None
+    except ValueError as e:
+        out["refused", d, m] = str(e)
+
+# The source-joint TP pass, n_model 2 on a 2x2 mesh and 4 on a 1x4 mesh.
+tp = np.load(f"{data}/tp.npz")
+for n in (2, 4):
+    mesh = make_mesh(MeshConfig(data=-1, model=n))
+    p, k, b = (torch.from_numpy(tp[f"{x}{n}"]).requires_grad_() for x in "pkb")
+    r = torch.from_numpy(tp[f"r{n}"])
+    shapes = []
+
+    def recording(p_, k_, b_, **kw):
+        shapes.append((tuple(p_.shape), tuple(k_.shape), tuple(b_.shape)))
+        return mrf_message_pass_xla(p_, k_, b_, **kw)
+
+    y = mrf_message_pass_tp(p, k, b, mesh=mesh, base_pass=recording)
+    (y * r).sum().backward()
+    # Kernels and biases are used in this rank's slice only: summed over
+    # 'model', as the trainer sums such gradients.
+    gk, gb = (mesh.all_reduce(t.grad.clone(), "model") for t in (k, b))
+    out["tp", n] = (y.detach().numpy(), p.grad.numpy(), gk.numpy(), gb.numpy(), shapes[0])
+
+# Training steps against one device: data 2 (two meshes of two ranks),
+# the same with augmentation, and 2x2.
+groups = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+g = groups[rank // 2]
+dp = Mesh(2, 1, rank % 2, {None: g, "data": g})
+init = torch.load(f"{data}/init.pt", weights_only=True)
+batch = {k: torch.from_numpy(v) for k, v in np.load(f"{data}/batch.npz").items()}
+draw = AugmentParams(*(torch.from_numpy(v) for v in np.load(f"{data}/draw.npz").values()))
+base = get_config("tiny")
+noaug = base.replace(augment=dataclasses.replace(base.augment, enabled=False),
+                     train=dataclasses.replace(base.train, batch_size=8))
+aug = noaug.replace(augment=dataclasses.replace(noaug.augment, enabled=True,
+                                                crop_frac_range=(0.8, 1.0)))
+for name, cfg, mesh, with_draw in (("dp", noaug, dp, False), ("dp_aug", aug, dp, True),
+                                   ("2x2", noaug, make_mesh(MeshConfig(data=2, model=2)), False)):
+    state = create_state(cfg, torch.Generator().manual_seed(0), device="cpu", mesh=mesh)
+    state.model.load_state_dict(init)
+    state = shard_state(state, mesh)
+    step = make_train_step(cfg, "joint", mesh)
+    state, metrics = step(state, shard_batch(batch, mesh), aug=draw if with_draw else None)
+    out["step", name] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.detach().numpy() for k, v in state.model.named_parameters()},
+                         sorted(state.model.model_sliced_parameters()))
+
+# evaluate(mesh=): the 2x2 mesh with its model tensor-parallel, and data 4.
+arrays = dict(np.load(f"{data}/eval.npz"))
+weights = torch.load(f"{data}/eval_weights.pt", weights_only=True)
+cfg = get_config("tiny")
+for name, mesh in (("2x2", make_mesh(MeshConfig(data=2, model=2))),
+                   ("4x1", make_mesh(MeshConfig(data=4, model=1)))):
+    model = PoseModel(cfg, mesh=mesh)
+    model.load_state_dict(weights)
+    out["eval", name] = evaluate(model.eval(), from_host_arrays(arrays), cfg, mesh=mesh)
+
+torch.save(out, f"{data}/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def _tiny_noaug(get):
+    c = get("tiny")
+    return c.replace(augment=dataclasses.replace(c.augment, enabled=False),
+                     train=dataclasses.replace(c.train, batch_size=8))
+
+
+def _tp_inputs(n):
+    hw, win = TP_GEOMETRY[n]
+    k, b = 9, 4
+    rs = np.random.RandomState(n)
+    logits = rs.randn(b, hw[0] * hw[1], k)
+    p = np.exp(logits) / np.exp(logits).sum(axis=1, keepdims=True)
+    kernels = np.log1p(np.exp(rs.randn(*win, k, k)))
+    biases = np.log1p(np.exp(rs.randn(k, k) - 4.0))
+    # The loss is sum(out * r): a cotangent of unit order everywhere.
+    r = rs.randn(b, *hw, k)
+    return [x.astype(np.float32) for x in (p.reshape(b, *hw, k), kernels, biases, r)]
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Write the inputs, run the world of four, return its ranks' results
+    and what the reference computes from the same inputs."""
+    data = tmp_path_factory.mktemp("parallel")
+    np.savez(data / "tp.npz", **{f"{x}{n}": v for n in TP_GEOMETRY
+                                 for x, v in zip("pkbr", _tp_inputs(n))})
+    jcfg = _tiny_noaug(jax_get_config)
+    jstate = jtrain.create_state(jcfg, JaxPoseModel(jcfg), jax.random.PRNGKey(0))
+    torch.save(params_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params)), data / "init.pt")
+    train_ds, _ = jpipe.make_dataset(jcfg.data)
+    batch = {k: np.asarray(v) for k, v in train_ds.get_batch(jnp.arange(8, dtype=jnp.int32)).items()}
+    np.savez(data / "batch.npz", **batch)
+    jaug = jcfg.replace(augment=dataclasses.replace(jcfg.augment, enabled=True,
+                                                    crop_frac_range=(0.8, 1.0)))
+    draw = ja.random_augment_params(jax.random.PRNGKey(3), 8, jaug.augment, jaug.data.image_hw)
+    np.savez(data / "draw.npz", **{f: np.asarray(v) for f, v in zip(draw._fields, draw)})
+    jcfg_e, _, arrays, jmodel, variables, model = _setup(10, tta=False)
+    np.savez(data / "eval.npz", **arrays)
+    torch.save(model.state_dict(), data / "eval_weights.pt")
+
+    script = data / "child.py"
+    script.write_text(CHILD)
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+         str(script), str(data)],
+        env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    ranks = [torch.load(data / f"rank{r}.pt", weights_only=False) for r in range(4)]
+
+    batch_j = {k: jnp.asarray(v) for k, v in batch.items()}
+    step = jax.jit(jtrain._make_step_body(jcfg, "joint"))
+    ref = {}
+    ref["step"] = step(jstate, batch_j)
+    monkey = jtrain.random_augment_params
+    jtrain.random_augment_params = lambda *a: draw
+    try:
+        ref["step_aug"] = jax.jit(jtrain._make_step_body(jaug, "joint"))(jstate, batch_j)
+    finally:
+        jtrain.random_augment_params = monkey
+    ref["eval"] = (jev.evaluate(variables, jpipe.from_host_arrays(arrays), jcfg_e, jmodel.apply),
+                   _visible_counts(arrays, 10))
+    return ranks, ref
+
+
+def test_make_mesh_shapes_and_errors(world):
+    ranks, _ = world
+    assert tmesh.mesh_shape(MeshConfig(data=-1, model=2), 4) == (2, 2)
+    assert tmesh.mesh_shape(MeshConfig(data=8, model=1), 8) == (8, 1)
+    assert tmesh.mesh_shape(MeshConfig(data=0, model=1), 1) == (1, 1)
+    for cfg, world_size in ((MeshConfig(data=3, model=2), 8), (MeshConfig(data=2), 1),
+                            (MeshConfig(data=-1, model=3), 4)):
+        with pytest.raises(ValueError, match="torch.distributed.run"):
+            tmesh.mesh_shape(cfg, world_size)
+    for r, got in enumerate(ranks):
+        # Data-major, as the reference's reshape(data, model).
+        assert got["mesh", "2x2"] == ({"data": 2, "model": 2}, {"data": r // 2, "model": r % 2})
+        assert got["mesh", "4x1"] == ({"data": 4, "model": 1}, {"data": r, "model": 0})
+        assert got["mesh", "1x4"] == ({"data": 1, "model": 4}, {"data": 0, "model": r})
+        for d, m in ((3, 2), (1, 1), (-1, 3)):
+            assert "does not cover the world of 4" in got["refused", d, m]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_pad_source_axis_matches_reference(n):
+    p, k, b, _ = _tp_inputs(2)
+    want = jtp.pad_source_axis(jnp.asarray(p), jnp.asarray(k), jnp.asarray(b), n)
+    got = ttp.pad_source_axis(torch.from_numpy(p), torch.from_numpy(k), torch.from_numpy(b), n)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0].shape[-1] % n == 0
+
+
+def test_param_shardings_match_reference():
+    jcfg = _tiny_noaug(jax_get_config)
+    params = JaxPoseModel(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 48, 64, 3)))["params"]
+    want = jmesh.param_shardings(params, jmesh.make_mesh(JaxMeshConfig(data=4, model=2)))
+    state_dict = params_from_flax(jax.tree_util.tree_map(np.asarray, params))
+    got = tmesh.param_shardings(state_dict, tmesh.Mesh(4, 2))
+    hwio_to_oihw = {3: 0, 2: 1}
+    flat = {jax.tree_util.keystr(path): s.spec
+            for path, s in jax.tree_util.tree_leaves_with_path(want)}
+    for key, spec in flat.items():
+        parts = [k.strip("'[]") for k in key.split("][")]
+        leaf = parts[-1]
+        name = ".".join(parts[:-1] + ["weight" if leaf == "kernel" else leaf])
+        dims = [i for i, axis in enumerate(spec) if axis == "model"]
+        if not dims:
+            assert got[name] is None, name
+        elif leaf == "kernel":
+            assert got[name] == ("model", hwio_to_oihw[dims[0]]), name
+        else:
+            assert got[name] == ("model", dims[0]), name
+    assert set(flat) and len(flat) == len(got)
+    assert got["detector.head_wide.weight"] == ("model", 0)
+    assert got["detector.head_1x1_0.weight"] == ("model", 1)
+    assert all(v is None for v in tmesh.param_shardings(state_dict, tmesh.Mesh(8, 1)).values())
+
+
+def _reference_tp(n):
+    p, k, b, r = (jnp.asarray(x) for x in _tp_inputs(n))
+    out = jax_pass(p, k, b, precision=HI)
+    grads = jax.grad(lambda *a: jnp.sum(jax_pass(*a, precision=HI) * r),
+                     argnums=(0, 1, 2))(p, k, b)
+    return [np.asarray(out)] + [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_tp_pass_matches_unsharded_reference(world, n):
+    ranks, _ = world
+    want = _reference_tp(n)
+    for got in ranks:
+        *values, shapes = got["tp", n]
+        np.testing.assert_allclose(values[0], want[0], atol=TP_ATOL)
+        for g, w, what in zip(values[1:], want[1:], ("dp", "dkernels", "dbiases")):
+            assert np.abs(w).max() > 1.0, what  # the cotangent reaches every input
+            assert np.abs(g - w).max() / np.abs(w).max() <= TP_GRAD_RTOL, what
+    # The pass ran on slices: Kp = ceil(9 / n) * n sources split n ways.
+    (hw, win), kv = TP_GEOMETRY[n], -(-9 // n)
+    assert ranks[0]["tp", n][-1] == ((4, *hw, kv), (*win, kv, 9), (kv, 9))
+
+
+def test_tp_gradients_are_not_scaled_by_the_model_size(world):
+    """Each model rank holds the whole loss: an all-reduce that also sums
+    in the backward would scale every gradient by n_model."""
+    ranks, _ = world
+    for n in (2, 4):
+        want = _reference_tp(n)
+        for g, w in zip(ranks[0]["tp", n][1:4], want[1:]):
+            ratio = np.linalg.norm(g) / np.linalg.norm(w)
+            assert abs(ratio - 1.0) < 1e-4, (n, ratio)
+
+
+def _assert_step_matches(got, ref, what):
+    metrics, params, _ = got
+    jstate, jmet = ref
+    assert metrics["loss"] == pytest.approx(float(jmet["loss"]), rel=LOSS_RTOL), what
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    assert set(params) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(params[name], w.numpy(), rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                   err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("name", ["dp", "dp_aug", "2x2"])
+def test_sharded_step_matches_single_device_reference(world, name):
+    ranks, ref = world
+    for got in ranks:
+        _assert_step_matches(got["step", name], ref["step_aug" if name == "dp_aug" else "step"],
+                             f"{name}, rank {got['rank']}")
+    sliced = ranks[0]["step", name][2]
+    if name == "2x2":
+        assert sliced == ["detector.head_1x1_0.weight", "detector.head_wide.bias",
+                          "detector.head_wide.weight", "spatial_model.raw_bias",
+                          "spatial_model.raw_kernels"]
+    else:
+        assert sliced == []
+
+
+@pytest.mark.parametrize("name", ["2x2", "4x1"])
+def test_evaluate_over_a_mesh_matches_reference(world, name):
+    ranks, ref = world
+    want, visible = ref["eval"]
+    for got in ranks:
+        assert got["eval", name] == ranks[0]["eval", name]  # every rank the same PDJ
+    got = ranks[0]["eval", name]
+    assert got["num_examples"] == 10.0
+    _assert_evals_agree(got, want, visible)
+
+
+def test_spatial_parallelism_is_not_ported():
+    mesh = tmesh.Mesh(2, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PoseModel(get_config("tiny"), mesh=mesh, spatial=True)
+    # The model axis of 1 engages no tensor parallelism: the one-device model.
+    model = PoseModel(get_config("tiny"), mesh=tmesh.Mesh(4, 1))
+    assert not model.detector.head_tp and not model.spatial_model.tp
+    assert model.model_sliced_parameters() == set()
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_the_trainer_slices_what_param_shardings_names(n_model):
+    mesh = tmesh.Mesh(8 // n_model, n_model)
+    model = PoseModel(get_config("tiny"), mesh=mesh)
+    rule = {name for name, spec in tmesh.param_shardings(model, mesh).items() if spec}
+    assert rule == {"detector.head_wide.weight", "detector.head_wide.bias",
+                    "detector.head_1x1_0.weight"}
+    assert model.detector.head_tp and model.spatial_model.tp
+    # The MRF's two parameters are sliced at the activations (mrf_tp.py).
+    assert model.model_sliced_parameters() == rule | {"spatial_model.raw_kernels",
+                                                      "spatial_model.raw_bias"}

@@ -150,7 +150,10 @@ def test_predict_main_calibrates_like_the_artifact(configs, capsys):
     assert all(r["split"] == "train" for r in _records(root / "calib"))
 
 
-@pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--mesh-model", "2"], ["--pipeline", "2"]])
+# --pipeline is ported (tests/test_torch_pipeline_parallel.py); inference
+# meshes of more than one device come with spatial parallelism.
+@pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--mesh-model", "2"],
+                                   ["--mesh-data", "2", "--mesh-model", "2"]])
 def test_unported_predict_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         predict.main(["--config", "tiny", "--checkpoint", str(tmp_path), "--workdir",
