@@ -96,8 +96,19 @@ the package is missing.  Phases, each fatal on failure:
    parallelism (model 2 and 4: the MRF at 'high' and 'default' and its
    gradients against the unsharded pass, the Fourier head against the
    unsliced one; each sharded forward counted alone on every rank, one
-   launch of its kernel at the shard-local operands); on several cards
-   the ranks take a card each (nccl); then in this process the pipelined
+   launch of its kernel at the shard-local operands); spatial parallelism
+   in the 4-rank world (the trunk's rows over model 2): the 2x2 spatial
+   step against the one-device step at the same bars, every trunk
+   parameter summed over 'model', ``joint``'s spatial forward in fp32 at
+   'high' and 'default' against the unsharded model, a spatial ``fit`` (2 +
+   2 steps) whose rank-0 checkpoint a one-device predictor restores, and
+   the step time a rank and the trunk's device time with and without
+   spatial; on several cards the ranks take a card each (nccl); then in
+   this process the inference meshes (``inference_mesh_phase``: the
+   device-mesh predictor of ``joint`` over 2x2 against one device,
+   ``PoseService(mesh=)``, ``predict.main --mesh-data 2 --mesh-model 2`` as
+   a process and ``evaluate.main --mesh-model 2`` under
+   ``torch.distributed.run``), the pipelined
    predictor of ``joint`` on ``[cuda:0, cuda:0]`` (on several cards split
    over them; n_micro 2 and 4, with and without TTA) against
    ``build_predictor``, with its p50, and rows 1, 2, 3, 3',
@@ -1361,16 +1372,19 @@ def step_config():
     return flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"), compute_dtype="float32")
 
 
-def parallel_step(mesh, device, counters: dict, cudnn: bool) -> dict:
+def parallel_step(mesh, device, counters: dict, cudnn: bool, spatial: bool = False) -> dict:
     """One joint-stage step of ``step_config()`` from seeded weights on this
     rank's rows of the synthetic source's first global batch; with
     ``cudnn=False`` every convolution is PyTorch's own (im2col and a GEMM
-    per image), whose arithmetic per image does not depend on the batch."""
+    per image), whose arithmetic per image does not depend on the batch.
+    ``spatial``: the trunk's image rows split over 'model' too."""
+    from jointpose_torch.configs import MeshConfig
     from jointpose_torch.data.pipeline import make_dataset
     from jointpose_torch.parallel.mesh import shard_batch, shard_state
     from jointpose_torch.train import create_state, make_train_step
 
-    cfg = step_config()
+    cfg = step_config().replace(mesh=MeshConfig(data=mesh.shape["data"], model=mesh.shape["model"],
+                                                spatial=spatial))
     state = create_state(cfg, torch.Generator().manual_seed(PARALLEL_SEED), device=device, mesh=mesh)
     state = shard_state(state, mesh)
     batch = make_dataset(cfg.data, device)[0].get_batch(np.arange(cfg.train.batch_size))
@@ -1386,7 +1400,8 @@ def parallel_step(mesh, device, counters: dict, cudnn: bool) -> dict:
             "grads": {n: p.grad.cpu() for n, p in state.model.named_parameters()},
             "launches": {n: fn.launches for n, fn in counters.items()},
             "rows": int(local["image"].shape[0]),
-            "sliced": sorted(state.model.model_sliced_parameters())}
+            "sliced": sorted(state.model.model_sliced_parameters()),
+            "spatial": state.model.spatial}
 
 
 class _Spy:
@@ -1516,11 +1531,110 @@ def joint_tp_checks(device, counters: dict) -> dict:
     return res
 
 
+def joint_spatial_checks(device, counters: dict, mesh) -> dict:
+    """``joint`` at full width in fp32 over the 2x2 mesh with spatial
+    parallelism (the trunk's rows over model 2, halo exchanges, then the
+    head's channels and the MRF's sources over 'model') against the
+    unsharded model on the same images, at 'high' and 'default': the
+    detector logits and the MRF's log-heatmaps, each forward counted alone."""
+    from jointpose_torch import get_config
+    from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.models.pose import PoseModel
+    from jointpose_torch.predict import init_state_dict
+
+    joint = get_config("joint").replace(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(PARALLEL_SEED)
+    weights = init_state_dict(joint, gen)
+    weights["spatial_model.raw_kernels"] += 0.5 * torch.randn(
+        weights["spatial_model.raw_kernels"].shape, generator=gen)
+    images = torch.randint(0, 256, (BATCH, *joint.data.image_hw, 3), generator=gen,
+                           dtype=torch.uint8).to(device)
+    res = {}
+    for precision in ("high", "default"):
+        cfg = with_mrf_precision(joint, precision)
+        outs = {}
+        for what, sp_mesh in (("unsharded", None), ("spatial", mesh)):
+            model = PoseModel(cfg, mesh=sp_mesh, spatial=sp_mesh is not None)
+            model.load_state_dict(weights)
+            model = model.to(device).eval()
+            check(model.spatial == (sp_mesh is not None), f"the {what} joint model's spatial flag")
+            with torch.inference_mode():
+                model(images)  # warm-up: cuDNN's choice, DFT tables
+                torch.cuda.synchronize(device)
+                reset(counters)
+                out = model(images)
+                torch.cuda.synchronize(device)
+            outs[what] = ({k: v.cpu() for k, v in out.items()},
+                          {n: c.launches for n, c in counters.items() if c.launches})
+        (got, launched), (want, ref) = outs["spatial"], outs["unsharded"]
+        res[precision] = {"logits": rel_err(got["detector_logits"], want["detector_logits"]),
+                          "mrf": rel_err(got["mrf_log_heatmaps"], want["mrf_log_heatmaps"]),
+                          "launches": launched, "unsharded_launches": ref}
+    return res
+
+
+def spatial_timing(mesh, device, steps: int = 5) -> dict:
+    """Per rank: the joint step of ``flagship(mrf.impl='pallas')`` (bf16,
+    global batch 32) over the 2x2 mesh with and without spatial
+    parallelism, wall per step (median of ``steps`` after two warm-ups),
+    and the trunk's time on the device (CUDA events around the fused
+    features of this rank's rows of batch 16, exchanges and gather
+    included; median of 10), in turns."""
+    from jointpose_torch.configs import MeshConfig
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.models.detector import _avg_pyramid, _upsample2x, spatial_features
+    from jointpose_torch.models.pose import unit_images
+    from jointpose_torch.parallel.mesh import shard_batch, shard_state
+    from jointpose_torch.parallel.spatial import ProcessRows
+    from jointpose_torch.train import create_state, make_train_step
+
+    flag = step_config().replace(compute_dtype="bfloat16")
+    batch = make_dataset(flag.data, device)[0].get_batch(np.arange(flag.train.batch_size))
+    local = shard_batch(batch, mesh)
+    out = {}
+    for spatial in (False, True, True, False):
+        what = "spatial" if spatial else "tensor-parallel"
+        cfg = flag.replace(mesh=MeshConfig(data=2, model=2, spatial=spatial))
+        state = shard_state(create_state(cfg, torch.Generator().manual_seed(PARALLEL_SEED),
+                                         device=device, mesh=mesh), mesh)
+        step = make_train_step(cfg, "joint", mesh)
+        walls = []
+        for i in range(steps + 2):
+            torch.cuda.synchronize(device)
+            mesh.any(False)  # the ranks start the step together
+            t0 = time.perf_counter()
+            state, _ = step(state, local)
+            torch.cuda.synchronize(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        det = state.model.detector
+        x = det.normalized(unit_images(local["image"].to(device), torch.bfloat16))
+
+        def trunk():
+            if spatial:
+                return spatial_features([det], x, ProcessRows(mesh))
+            return det.trunk(x) + _upsample2x(det.trunk(_avg_pyramid(x)))
+
+        trunk_ms = []
+        with torch.inference_mode():
+            for i in range(12):
+                mesh.any(False)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                trunk()
+                end.record()
+                end.synchronize()
+                trunk_ms.append(start.elapsed_time(end))
+        out.setdefault(what, []).append({"step_ms": float(np.median(walls[2:])),
+                                         "trunk_ms": float(np.median(trunk_ms[2:]))})
+    return {what: {k: min(r[k] for r in runs) for k in runs[0]} for what, runs in out.items()}
+
+
 def parallel_child(task: str, out: str) -> None:
     """One rank of a world that ``parallel_phase`` launches through
     ``python -m torch.distributed.run``: 'reference' (a world of 1: the
     one-device step), 'data' (2: the data-2 step, then a data-2 ``fit``),
-    'model' (4: the 2x2 step, then ``joint_tp_checks``).  Writes
+    'model' (4: the 2x2 step, ``joint_tp_checks``, the 2x2 spatial step,
+    ``joint_spatial_checks``, ``spatial_timing``, then a spatial ``fit``).  Writes
     ``<out>/<task>_rank<r>.pt``."""
     import torch.distributed as dist
 
@@ -1551,9 +1665,27 @@ def parallel_child(task: str, out: str) -> None:
                       "pdj": result.metrics["pdj_at_05_wrist_elbow"],
                       "launches": {n: fn.launches for n, fn in counters.items()}}
     if task == "model":
+        from jointpose_torch.train import fit
+
         t0 = time.perf_counter()
         res["joint_tp"] = joint_tp_checks(device, counters)
         res["joint_tp_s"] = time.perf_counter() - t0
+        # Spatial parallelism: the trunk's rows over model 2 as well.
+        res["step_spatial"] = parallel_step(mesh, device, counters, cudnn=False, spatial=True)
+        res["step_spatial_cudnn"] = parallel_step(mesh, device, counters, cudnn=True, spatial=True)
+        res["joint_spatial"] = joint_spatial_checks(device, counters, mesh)
+        res["timing"] = spatial_timing(mesh, device)
+        flag = step_config()
+        cfg = flag.replace(compute_dtype="bfloat16", mesh=MeshConfig(data=2, model=2, spatial=True),
+                           train=dataclasses.replace(flag.train, detector_steps=2, joint_steps=2,
+                                                     eval_every=2, log_every=2))
+        reset(counters)
+        t0 = time.perf_counter()
+        result = fit(cfg, os.path.join(out, "fit_spatial"), eval_max_batches=1, device=device)
+        res["fit"] = {"wall_s": time.perf_counter() - t0, "step": result.state.step,
+                      "spatial": result.state.model.spatial,
+                      "pdj": result.metrics["pdj_at_05_wrist_elbow"],
+                      "launches": {n: fn.launches for n, fn in counters.items()}}
     torch.save(res, os.path.join(out, f"{task}_rank{rank}.pt"))
     shutdown_distributed()
 
@@ -1562,6 +1694,190 @@ def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> f
     """max(|got - want| / (atol + rtol |want|)): at most 1 within the tolerance."""
     got, want = got.double(), want.double()
     return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+# ``evaluate.main`` in each rank of a ``torch.distributed.run`` group, with the
+# preset's MRF impl set to the one the checkpoint was trained with (argv[1]),
+# as PREDICT_CHILD does.  Writes the rank's epilogue launches at exit to
+# ``<argv[2]>.<RANK>.json``: the ranks share one stdout, where their lines
+# can interleave.
+EVALUATE_CHILD = """
+import dataclasses, json, os, sys
+import jointpose_torch.configs as configs
+from jointpose_torch import evaluate
+from jointpose_torch.ops.mrf_epilogue import mrf_epilogue
+preset = configs.get_config
+configs.get_config = lambda name: preset(name).replace(
+    mrf=dataclasses.replace(preset(name).mrf, impl=sys.argv[1]))
+evaluate.main(sys.argv[3:])
+with open(f"{sys.argv[2]}.{os.environ['RANK']}.json", "w") as f:
+    json.dump({"mrf_epilogue": mrf_epilogue.launches}, f)
+"""
+
+
+def inference_mesh_phase(joint, fit_cfg, ckpt_dir: str, tmp: str, counters: dict, smi: str) -> dict:
+    """Inference over a 2x2 device mesh in one process (``make_device_mesh``:
+    ``[cuda:0] * 4`` on one card, a card each on four), the trunk's rows
+    over 'model': ``build_predictor(mesh=)`` of ``joint`` at 'default',
+    batch 8, against the one-device predictor (in fp32 the heatmaps held,
+    in bf16 as served the coordinates' agreement and both p50s printed);
+    ``PoseService(mesh=)``; ``predict.main --mesh-data 2 --mesh-model 2`` as
+    a process and ``evaluate.main --mesh-model 2`` under ``python -m
+    torch.distributed.run --nproc-per-node 2``, both on the spatial ``fit``'s
+    checkpoint ``ckpt_dir`` of ``fit_cfg``."""
+    from jointpose_torch.checkpoint import reconcile_config
+    from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.convert import write_initial_checkpoint
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.evaluate import evaluate
+    from jointpose_torch.models.pose import PoseModel
+    from jointpose_torch.parallel.mesh import make_device_mesh
+    from jointpose_torch.predict import build_predictor, init_state_dict, restore_params
+    from jointpose_torch.serve import PoseService
+
+    out: dict = {}
+    mesh = make_device_mesh(2, 2, "cuda")
+    gen = torch.Generator().manual_seed(PARALLEL_SEED)
+    weights = init_state_dict(joint, gen)
+    weights["spatial_model.raw_kernels"] += 0.5 * torch.randn(
+        weights["spatial_model.raw_kernels"].shape, generator=gen)
+    h, w = joint.data.image_hw
+    images = torch.randint(0, 256, (BATCH, h, w, 3), generator=gen, dtype=torch.uint8).cuda()
+
+    def p50_ms(fn) -> float:
+        walls = []
+        for _ in range(PIPE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(images)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    # 1. The device-mesh predictor against one device.
+    served = with_mrf_precision(joint, "default")
+    for dtype in ("float32", "bfloat16"):
+        cfg = served.replace(compute_dtype=dtype)
+        one = build_predictor(cfg, weights)
+        on_mesh = build_predictor(cfg, weights, mesh=mesh, spatial=True)
+        (c1, p1), (c2, p2) = one(images), on_mesh(images)
+        reset(counters)
+        c2, p2 = on_mesh(images)
+        torch.cuda.synchronize()
+        launched = {n: c.launches for n, c in counters.items() if c.launches}
+        res = {"prob_rel": rel_err(p2.float(), p1.float())[0],
+               "coords_equal": ((c2 - c1).abs() <= PIPE_COORD_ATOL).float().mean().item(),
+               "p50_ms": p50_ms(on_mesh), "one_device_p50_ms": p50_ms(one), "launches": launched}
+        out[f"predictor {dtype}"] = res
+        held = dtype == "float32"
+        print(f"inference mesh: build_predictor of joint at 'default' ({dtype}), batch {BATCH}, over "
+              f"{mesh} (the trunk's rows over model 2, spatial): heatmaps rel err {res['prob_rel']:.3e} "
+              f"against the one-device predictor ({'limit %g' % SINGLE_PASS_RTOL if held else 'not held'}), "
+              f"{res['coords_equal']:.4f} of the coordinates within {PIPE_COORD_ATOL:g} px; launches "
+              f"{launched}; p50 {res['p50_ms']:.3f} ms against one device's "
+              f"{res['one_device_p50_ms']:.3f} ms (no claim); on {smi}")
+        if held:
+            check(res["prob_rel"] <= SINGLE_PASS_RTOL, "the device-mesh predictor strays in fp32")
+        check(launched.get("mrf_fft_tail_1pass") == mesh.shape["data"],
+              f"the device-mesh predictor launched {launched}, not the single-pass tail once a data row")
+
+    # 2. PoseService over the mesh: requests padded to buckets of 2 and 8.
+    joint_dir = os.path.join(tmp, "joint_mesh")
+    write_initial_checkpoint(joint, joint_dir, weights)
+    cfg = with_mrf_precision(reconcile_config(joint, joint_dir), "default")
+    service = PoseService(cfg, joint_dir, batch_size=BATCH, step=0, mesh=mesh, batch_buckets=[2])
+    direct = build_predictor(cfg, weights, mesh=mesh, spatial=True)
+    sizes, worst, dispatches = (1, 3, 8, 5), 0.0, service.stats["dispatches"]
+    try:
+        reset(counters)
+        for n in sizes:
+            batch = images[:n].cpu().numpy()
+            got = _pred_coords(service.predict(batch))
+            bucket = 2 if n <= 2 else BATCH
+            padded = np.concatenate([batch, np.zeros((bucket - n, h, w, 3), np.uint8)])
+            want = direct(torch.from_numpy(padded))[0][:n].cpu().numpy()
+            worst = max(worst, float(np.abs(got - want).max()))
+        torch.cuda.synchronize()
+        launched = counters["mrf_fft_tail_1pass"].launches
+    finally:
+        service.close()
+    dispatches = service.stats["dispatches"] - dispatches
+    print(f"inference mesh: PoseService(mesh={mesh}, batch_size={BATCH}, batch_buckets=[2]) at "
+          f"'default': {len(sizes)} requests of {list(sizes)} uint8 images in {dispatches} dispatches, "
+          f"coordinates max {worst:.2e} px from build_predictor(mesh=) on the padded batches; "
+          f"single-pass tail launches {launched} with those of build_predictor (a data row each)")
+    check(worst <= PIPE_COORD_ATOL, "PoseService(mesh=) answers unlike build_predictor(mesh=)")
+    check(dispatches == len(sizes) and launched == 2 * mesh.shape["data"] * len(sizes),
+          f"PoseService(mesh=): {dispatches} dispatches, {launched} single-pass tail launches")
+    out["service"] = {"max_px": worst, "dispatches": dispatches}
+
+    # 3. The CLIs on the spatial fit's checkpoint.
+    fit_served = with_mrf_precision(reconcile_config(fit_cfg, ckpt_dir), "default")
+    state, step = restore_params(fit_served, ckpt_dir)
+    _, test_ds = make_dataset(fit_served.data)
+    num = 2 * BATCH
+    workdir = os.path.join(tmp, "predict_mesh")
+    text, child_s = _child(["-c", PREDICT_CHILD, fit_cfg.mrf.impl, "--config", fit_cfg.name,
+                            "--checkpoint", ckpt_dir, "--workdir", workdir, "--num", str(num),
+                            "--batch-size", str(BATCH), "--mesh-data", "2", "--mesh-model", "2"],
+                           "predict.main --mesh-data 2 --mesh-model 2")
+    launches = json.loads(text.split("launches ", 1)[1].splitlines()[0])
+    with open(os.path.join(workdir, "predictions.jsonl")) as f:
+        got = np.array([list(json.loads(line)["joints"].values()) for line in f], np.float32)
+    batch = test_ds.get_batch(np.arange(num))["image"]
+    on_mesh = build_predictor(fit_served, state, mesh=mesh, spatial=True)
+    want = np.concatenate([on_mesh(batch[i:i + BATCH])[0].cpu().numpy() for i in range(0, num, BATCH)])
+    one = np.concatenate([build_predictor(fit_served, state)(batch[i:i + BATCH])[0].cpu().numpy()
+                          for i in range(0, num, BATCH)])
+    diff = float(np.abs(got - want).max())
+    same = float((np.abs(got - one) <= PIPE_COORD_ATOL).mean())
+    print(f"inference mesh: predict.main --mesh-data 2 --mesh-model 2 on the spatial fit's checkpoint "
+          f"({fit_cfg.name}, mrf.impl={fit_cfg.mrf.impl!r}, step {step}) as a process: {len(got)} "
+          f"records in {child_s:.1f} s, max {diff:.2e} px from build_predictor(mesh=) in this process "
+          f"(limit 1e-3), {same:.4f} of the coordinates within {PIPE_COORD_ATOL:g} px of the one-device "
+          f"predictor's (not held: bf16 convs on row shards), epilogue launches {launches['mrf_epilogue']}")
+    check(len(got) == num and diff <= 1e-3, f"predict.main over the mesh: records {len(got)}, {diff} px")
+    check(launches["mrf_epilogue"] == 2 * (num // BATCH),
+          f"predict.main over the mesh launched the epilogue {launches['mrf_epilogue']} times")
+    out["predict_main"] = {"max_px": diff, "one_device_equal": same, "s": child_s}
+
+    script = os.path.join(tmp, "evaluate_child.py")
+    with open(script, "w") as f:
+        f.write(EVALUATE_CHILD)
+    metrics_path = os.path.join(tmp, "evaluate_mesh.json")
+    launches_path = os.path.join(tmp, "evaluate_launches")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         script, fit_cfg.mrf.impl, launches_path, "--config", fit_cfg.name, "--checkpoint", ckpt_dir,
+         "--mesh-model", "2", "--max-batches", "2", "--json-out", metrics_path],
+        capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    eval_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"evaluate.main under torch.distributed.run exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    rank_launches = []
+    for rank in range(2):
+        with open(f"{launches_path}.{rank}.json") as f:
+            rank_launches.append(json.load(f)["mrf_epilogue"])
+    with open(metrics_path) as f:
+        ev = json.load(f)
+    model = PoseModel(fit_cfg)
+    model.load_state_dict(state)
+    one_ev = evaluate(model.cuda().eval(), test_ds, fit_cfg, max_batches=2)
+    print(f"inference mesh: evaluate.main --mesh-model 2 --max-batches 2 under torch.distributed.run "
+          f"--nproc-per-node 2 on the spatial fit's checkpoint: {ev['num_examples']:.0f} examples, "
+          f"PDJ@0.05 wrist/elbow {ev['pdj_at_05_wrist_elbow']:.4f} against one device's "
+          f"{one_ev['pdj_at_05_wrist_elbow']:.4f} (not held: bf16), epilogue launches per rank "
+          f"{rank_launches}, {eval_s:.1f} s with start-up")
+    check(ev["num_examples"] == one_ev["num_examples"] == 2 * fit_cfg.train.batch_size,
+          f"evaluate.main over the mesh scored {ev['num_examples']} examples")
+    check(0.0 <= ev["pdj_at_05_wrist_elbow"] <= 1.0, "evaluate.main over the mesh: PDJ")
+    check(rank_launches == [2, 2], f"evaluate.main's ranks launched the epilogue {rank_launches} times")
+    out["evaluate_main"] = {"pdj": ev["pdj_at_05_wrist_elbow"], "one_device_pdj":
+                            one_ev["pdj_at_05_wrist_elbow"], "s": eval_s}
+    return out
 
 
 def parallel_phase(joint, counters: dict, smi: str) -> dict:
@@ -1573,7 +1889,11 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
     step and the 2x2 step of ``step_config()`` at the global batch of 32,
     held against each other at the reference's tolerance; a data-2 ``fit``
     whose rank-0 checkpoint a one-device predictor restores; ``joint``
-    under tensor parallelism (``joint_tp_checks``).  Then, in this process,
+    under tensor parallelism (``joint_tp_checks``); in the 4-rank world
+    the 2x2 step with spatial parallelism, ``joint``'s spatial forward
+    (``joint_spatial_checks``), a spatial ``fit`` and the step and trunk
+    times (``spatial_timing``).  The inference meshes on the spatial fit's
+    checkpoint (``inference_mesh_phase``).  Then, in this process,
     the two-stage pipelined predictor of ``joint`` on ``[cuda:0, cuda:0]``
     against ``build_predictor``, and the kernels at the paths' shard-local
     shapes against their plain versions.  Returns the numbers it printed."""
@@ -1613,7 +1933,13 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
         probe = torch.randint(0, 256, (BATCH, h, w, 3), generator=torch.Generator().manual_seed(9),
                               dtype=torch.uint8).cuda()
         coords, probs = build_predictor(cfg_fit, state_dict)(probe)
+        # The rank-0 checkpoint of the spatial fit (the 'model' world) on one
+        # device, then inference over a device mesh and the mesh CLIs on it.
+        sp_dir = os.path.join(tmp, "fit_spatial", "checkpoints")
+        sp_state, sp_step = restore_params(cfg_fit, sp_dir)
+        sp_coords, sp_probs = build_predictor(cfg_fit, sp_state)(probe)
         torch.cuda.synchronize()
+        summary["inference_mesh"] = inference_mesh_phase(joint, cfg_fit, sp_dir, tmp, counters, smi)
 
     # 1. The sharded steps against the one-device step, with PyTorch's own
     # convolutions on both sides (parallel_step), held in full.  With
@@ -1654,12 +1980,13 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
     ref, ref_cudnn = ranks["reference"][0]["step"], ranks["reference"][0]["step_cudnn"]
     n_params = sum(w.numel() for w in ref["params"].values())
     flips = int(FLIP_SHARE * n_params)
-    for task, what in (("data", "data 2"), ("model", "2x2 (data 2 x model 2)")):
+    for task, key, what in (("data", "step", "data 2"), ("model", "step", "2x2 (data 2 x model 2)"),
+                            ("model", "step_spatial", "2x2 spatial (the trunk's rows over model 2)")):
         for r, res in enumerate(ranks[task]):
-            got = res["step"]
+            got = res[key]
             c = compare(got, ref)
             if r == 0:
-                c_cudnn = compare(res["step_cudnn"], ref_cudnn)
+                c_cudnn = compare(res[f"{key}_cudnn"], ref_cudnn)
                 print(f"parallel step {what} (flagship, mrf.impl='pallas', fp32, global batch "
                       f"{cfg.train.batch_size}, {got['rows']} rows a rank, PyTorch's convolutions): "
                       f"loss {got['metrics']['loss']:.7f} against one device's "
@@ -1668,8 +1995,9 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
                       f"start-up; on {smi}")
                 print(f"parallel step {what} with cuDNN's convolutions (loss and gradients "
                       f"held, parameters printed): {line(c_cudnn)}")
-                summary[f"step_{task}"] = {"held": c, "cudnn": c_cudnn, "launches": got["launches"]}
-            for variant, c_ in (("", c), (" (cuDNN)", compare(res["step_cudnn"], ref_cudnn))):
+                summary[f"{key}_{task}"] = {"held": c, "cudnn": c_cudnn, "launches": got["launches"]}
+            check(got["spatial"] == (key == "step_spatial"), f"the {what} step's spatial flag")
+            for variant, c_ in (("", c), (" (cuDNN)", compare(res[f"{key}_cudnn"], ref_cudnn))):
                 check(c_["loss_rel"] <= STEP_LOSS_RTOL,
                       f"the {what} step's loss{variant} strays on rank {r}")
                 check(c_["grad"][0] <= STEP_GRAD_RTOL, f"the {what} step's {c_['grad'][1]} "
@@ -1680,14 +2008,17 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
             check(c["ill_beyond"] <= flips, f"the {what} step left "
                   f"{c['ill_beyond']} parameters beyond the tolerance on rank {r}")
             for name in ("shear_warp", "mrf_epilogue", "mrf_epilogue_bwd"):
-                for variant in ("step", "step_cudnn"):
+                for variant in (key, f"{key}_cudnn"):
                     check(res[variant]["launches"][name] == 1,
                           f"the {what} {variant} launched {name} "
                           f"{res[variant]['launches'][name]} times on rank {r}")
-    check(ranks["model"][0]["step"]["sliced"] == sorted(
-        ["detector.head_wide.weight", "detector.head_wide.bias", "detector.head_1x1_0.weight",
-         "spatial_model.raw_kernels", "spatial_model.raw_bias"]),
-        "the 2x2 step did not slice the head and the MRF")
+    tp_sliced = ["detector.head_wide.weight", "detector.head_wide.bias",
+                 "detector.head_1x1_0.weight", "spatial_model.raw_kernels", "spatial_model.raw_bias"]
+    check(ranks["model"][0]["step"]["sliced"] == sorted(tp_sliced),
+          "the 2x2 step did not slice the head and the MRF")
+    trunk = [n for n in ref["params"] if n.startswith("detector.trunk")]
+    check(len(trunk) == 6 and ranks["model"][0]["step_spatial"]["sliced"] == sorted(tp_sliced + trunk),
+          "the spatial step does not sum every trunk parameter over 'model'")
 
     # 2. The data-2 fit and its checkpoint on one device.
     fits = [res["fit"] for res in ranks["data"]]
@@ -1766,6 +2097,56 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
                       f"the {what} joint head (model {n}) launched {run['launches']} with operands "
                       f"{run['shapes']} on rank {r}, not {kernel} once at batch {BATCH}, Co {channels}")
     summary["joint_tp"] = {str(key): v for key, v in tp[0].items()}
+
+    # 3b. Spatial parallelism in the 'model' world: joint's forward, the
+    # spatial fit and its checkpoint on one device, the step and trunk times.
+    sp = [res["joint_spatial"] for res in ranks["model"]]
+    for precision in ("high", "default"):
+        run = sp[0][precision]
+        limit = KERNEL_RTOL if precision == "high" else SINGLE_PASS_RTOL
+        kernel = "mrf_fft_tail" if precision == "high" else "mrf_fft_tail_1pass"
+        print(f"parallel joint spatial 2x2 (the trunk's rows over model 2, fp32, TF32 off), "
+              f"precision {precision!r}, batch {BATCH}: detector logits rel err {run['logits'][0]:.3e} "
+              f"(limit {CONV_RTOL:g}), MRF log-heatmaps rel err {run['mrf'][0]:.3e} (limit {limit:g}) "
+              f"against the unsharded model; the spatial forward launched {run['launches']} on rank 0, "
+              f"the unsharded one {run['unsharded_launches']}")
+        for r, res in enumerate(sp):
+            run = res[precision]
+            check(run["logits"][0] <= CONV_RTOL and run["mrf"][0] <= limit,
+                  f"joint spatial at {precision!r} strays on rank {r}")
+            check(run["launches"] == {kernel: 1} and run["unsharded_launches"] == {kernel: 1},
+                  f"joint spatial at {precision!r} launched {run['launches']} on rank {r}, not "
+                  f"{kernel} once")
+    summary["joint_spatial"] = sp[0]
+    fits = [res["fit"] for res in ranks["model"]]
+    check(all(f["step"] == 4 and f["spatial"] for f in fits) and len({f["pdj"] for f in fits}) == 1,
+          f"the spatial fit's ranks disagree: {fits}")
+    check(sp_step == 4, f"the spatial fit's checkpoint is at step {sp_step}")
+    check(tuple(sp_coords.shape) == (BATCH, 9, 2) and bool(torch.isfinite(sp_coords).all())
+          and bool(((sp_probs.sum(dim=(1, 2)) - 1).abs() < 1e-3).all()),
+          "the restored spatial fit predicts no valid heatmaps")
+    launches = fits[0]["launches"]
+    print(f"parallel fit 2x2 spatial (flagship, mrf.impl='pallas', bf16, 2 + 2 steps at global "
+          f"batch {cfg_fit.train.batch_size}, evals at steps 2 and 4): {fits[0]['wall_s']:.1f} s in the "
+          f"ranks, final PDJ@0.05 wrist/elbow {fits[0]['pdj']:.4f} on every rank; launches per rank "
+          f"{launches}; the rank-0 checkpoint (step {sp_step}) restored by a one-device "
+          f"build_predictor: coordinates of image 0 {sp_coords[0].cpu().numpy().round(2).tolist()}")
+    for name, n in (("shear_warp", 4), ("mrf_epilogue_bwd", 2)):
+        check(launches[name] == n, f"the spatial fit launched {name} {launches[name]} times, not {n}")
+    check(launches["mrf_epilogue"] >= 2, "the spatial fit's joint stage did not launch the epilogue")
+    summary["fit_spatial"] = {"wall_s": fits[0]["wall_s"], "launches": launches}
+    timing = [res["timing"] for res in ranks["model"]]
+    shared = torch.cuda.device_count() == 1
+    print(f"parallel 2x2 step time a rank (flagship, mrf.impl='pallas', bf16, global batch "
+          f"{cfg_fit.train.batch_size}; the better of two turns, median of 5 steps) and the trunk's "
+          f"device time (rows of batch 16, exchanges and gather included), spatial against "
+          f"tensor-parallel, by rank: "
+          + "; ".join(f"rank {r}: step {t['spatial']['step_ms']:.3f} ms against "
+                      f"{t['tensor-parallel']['step_ms']:.3f}, trunk {t['spatial']['trunk_ms']:.3f} ms "
+                      f"against {t['tensor-parallel']['trunk_ms']:.3f}" for r, t in enumerate(timing))
+          + (" (the four ranks share one card over gloo: no claim)" if shared else "")
+          + f"; on {smi}")
+    summary["spatial_timing"] = timing
 
     # 4. The pipelined predictor on the one card, two streams, as served.
     # Held against build_predictor on the same microbatches (the same

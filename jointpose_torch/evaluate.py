@@ -1,5 +1,5 @@
 """PDJ evaluation with flip-averaged TTA (counterpart of
-``jointpose/evaluate.py``, one device).
+``jointpose/evaluate.py``).
 
 PDJ@t (percentage of detected joints): a joint is detected if the decoded
 peak of its heatmap lies within t × torso diameter of the ground truth,
@@ -14,6 +14,13 @@ probability space.
     python -m jointpose_torch.evaluate --config tiny \\
         --checkpoint runs/tiny/checkpoints [--best] [--tta] [--device cpu] \\
         [--quantize-artifact int8.npz] [--curves pdj.png]
+
+Over a mesh of processes, one per device, the model's 'model' axis split
+(the trunk's image rows, the head's channels, the MRF's source joints) and
+each batch over 'data'; rank 0 prints and writes:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m jointpose_torch.evaluate \\
+        --config eval_tta --checkpoint runs/joint/checkpoints --mesh-data 2 --mesh-model 2
 """
 
 from __future__ import annotations
@@ -189,9 +196,6 @@ def evaluate(
 
 def main(argv: list[str] | None = None) -> None:
     import argparse
-    import dataclasses
-    import json
-    import os
 
     parser = argparse.ArgumentParser(description="jointpose_torch PDJ evaluation")
     parser.add_argument("--config", default="eval_tta")
@@ -211,10 +215,11 @@ def main(argv: list[str] | None = None) -> None:
                         help="matmul precision inside the MRF message pass (the preset's "
                              "unless given; 'default' is one TF32 pass on the card)")
     parser.add_argument("--mesh-data", type=int, default=0,
-                        help="data-parallel devices; -1, 0 and 1 mean the one device, larger "
-                             "meshes are not ported yet (ROADMAP.md)")
+                        help="data-parallel processes (one per device; 0 or -1 = the world over "
+                             "--mesh-model); launch them with python -m torch.distributed.run")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="model-axis devices; only 1 (ROADMAP.md)")
+                        help="model-axis processes: the detector trunk's image rows (halo "
+                             "exchanges), the head's channels and the MRF's source joints")
     parser.add_argument("--quantize-artifact", default=None, metavar="NPZ",
                         help="evaluate a prebuilt int8 artifact (python -m "
                              "jointpose_torch.quantize) instead of calibrating: the exact "
@@ -233,14 +238,33 @@ def main(argv: list[str] | None = None) -> None:
     add_device_flag(parser)
     args = parser.parse_args(argv)
 
+    from jointpose_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    device = apply_device(args.device)
+    # Joins the process group of a multi-process launch (a no-op alone).
+    device = init_distributed(device) or device
+    try:
+        _main(args, device)
+    finally:
+        shutdown_distributed()
+
+
+def _main(args, device: torch.device) -> None:
+    import dataclasses
+    import json
+    import os
+
     from jointpose_torch.checkpoint import reconcile_config
-    from jointpose_torch.configs import get_config, with_mrf_precision
+    from jointpose_torch.configs import MeshConfig, get_config, with_mrf_precision
     from jointpose_torch.data.pipeline import device_cache, make_dataset
     from jointpose_torch.models.pose import PoseModel
-    from jointpose_torch.predict import refuse_unported, restore_params
+    from jointpose_torch.parallel.mesh import make_mesh
+    from jointpose_torch.predict import restore_params
 
-    refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
-    device = apply_device(args.device)
+    mesh = make_mesh(MeshConfig(data=args.mesh_data, model=args.mesh_model))
+    quantized = args.quantize > 0 or bool(args.quantize_artifact)
+    if quantized and mesh.size > 1:
+        raise SystemExit("--quantize is exclusive with --mesh-data/--mesh-model")
     config = get_config(args.config)
     if args.tta is not None:
         config = config.replace(eval_flip_tta=args.tta)
@@ -257,17 +281,20 @@ def main(argv: list[str] | None = None) -> None:
     ds = train_ds if args.split == "train" else test_ds
     if config.data.device_cache_gb > 0:
         ds = device_cache(ds, config.data.device_cache_gb * 1e9, device)
-    if args.quantize > 0 or args.quantize_artifact:
+    if quantized:
         from jointpose_torch.ops.quant import quantized_model_for
 
         model, line = quantized_model_for(config, state_dict, args.quantize,
                                           args.quantize_artifact, train_ds, device)
         print(line)
     else:
-        model = PoseModel(config)
+        model = PoseModel(config, mesh=mesh, spatial=True)
         model.load_state_dict(state_dict)
         model = model.to(device).eval()
-    ev = evaluate(model, ds, config, max_batches=args.max_batches, uint8_ingest=args.uint8_ingest)
+    ev = evaluate(model, ds, config, max_batches=args.max_batches, uint8_ingest=args.uint8_ingest,
+                  mesh=mesh)
+    if mesh.rank != 0:
+        return
 
     print(f"checkpoint step {step}, {args.split} split, {int(ev['num_examples'])} examples")
     for name, v in ev["pdj_at_05"].items():

@@ -10,6 +10,12 @@
 Internally NCHW; the public ``Detector.forward`` takes NHWC images and
 returns (B, H/stride, W/stride, K) fp32 logits, as the reference does.
 Parameters are fp32 and cast to the compute dtype at each conv.
+
+Spatial parallelism (``spatial=True`` with a mesh whose 'model' axis is
+larger than 1): the trunk runs on this rank's image rows, each conv's rows
+padded by a halo exchange (``parallel/spatial.py``) and its columns by
+SAME; the fused features are gathered by rows before the head.
+``spatial_features`` runs the same trunk over the devices of one process.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from jointpose_torch.ops.fft_conv import FFTConv
 from jointpose_torch.ops.mrf_xla import same_pad
 from jointpose_torch.parallel.mesh import param_shardings
 from jointpose_torch.parallel.mrf_tp import enter_model_region, leave_model_region, model_slice
+from jointpose_torch.parallel.spatial import ProcessRows, halo_rows
 
 
 def resolve_head_conv_impl(cfg: DetectorConfig) -> str:
@@ -55,14 +62,18 @@ class Conv(nn.Module):
         self.kernel = kernel
         self.stride = stride
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, rows_padded: bool = False) -> torch.Tensor:
+        return self.conv(x, self.weight, self.bias, rows_padded)
 
-    def conv(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    def conv(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+             rows_padded: bool = False) -> torch.Tensor:
         """The conv with given parameters (a channel slice of the module's,
-        under tensor parallelism); no bias for ``bias=None``."""
+        under tensor parallelism); no bias for ``bias=None``.  With
+        ``rows_padded`` the rows of ``x`` already hold their halos and only
+        the columns are padded."""
         h, w = x.shape[-2:]
-        (ht, hb), (wl, wr) = same_pad(h, self.kernel, self.stride), same_pad(w, self.kernel, self.stride)
+        ht, hb = (0, 0) if rows_padded else same_pad(h, self.kernel, self.stride)
+        wl, wr = same_pad(w, self.kernel, self.stride)
         w_ = weight.to(x.dtype)
         b_ = None if bias is None else bias.to(x.dtype)
         if ht == hb and wl == wr:
@@ -111,6 +122,24 @@ class Trunk(nn.Module):
                 x = _pool2x2(x)
         return x
 
+    @staticmethod
+    def forward_rows(trunks: list["Trunk"], shards: list[torch.Tensor], rows,
+                     height: int) -> list[torch.Tensor]:
+        """The trunk on row shards of a map ``height`` rows tall: shard j
+        through ``trunks[j]`` (the same weights, on its device), each conv's
+        halos exchanged by ``rows`` (``parallel/spatial.py``)."""
+        first = trunks[0]
+        for i, pooled in enumerate(first.pooled):
+            conv = getattr(first, f"conv{i}")
+            shards = rows.halo(shards, *halo_rows(height, conv.kernel, conv.stride))
+            shards = [F.relu(getattr(t, f"conv{i}")(s, rows_padded=True))
+                      for t, s in zip(trunks, shards)]
+            height = -(-height // conv.stride)
+            if pooled and not first.stride_conv:
+                shards = [_pool2x2(s) for s in shards]
+                height = -(-height // 2)
+        return shards
+
 
 class Detector(nn.Module):
     """Multi-resolution fully-convolutional part detector.
@@ -122,13 +151,13 @@ class Detector(nn.Module):
     def __init__(self, cfg: DetectorConfig, num_joints: int, dtype: torch.dtype = torch.float32,
                  mesh=None, spatial: bool = False):
         super().__init__()
-        if spatial:
-            raise NotImplementedError(
-                "spatial parallelism (the trunk's rows over 'model'): not ported yet; see ROADMAP.md")
+        if spatial and mesh is None:
+            raise ValueError("spatial parallelism needs a mesh whose 'model' axis takes the rows")
         head_conv = FFTConv if resolve_head_conv_impl(cfg) == "fft" else Conv
         self.config = cfg
         self.dtype = dtype
         self.mesh = mesh
+        self.spatial = spatial
         if cfg.share_trunk:
             self.trunk = Trunk(cfg)
         else:
@@ -157,28 +186,47 @@ class Detector(nn.Module):
     def stride(cfg: DetectorConfig) -> int:
         return 2 ** sum(cfg.trunk_pool)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
+    @staticmethod
+    def alignment(cfg: DetectorConfig) -> int:
+        """What the image's height and width must divide by: the heatmap
+        stride, twice that with the half-resolution branch."""
         stride = Detector.stride(cfg)
-        need = stride * 2 if cfg.multires else stride
+        return stride * 2 if cfg.multires else stride
+
+    def trunks(self) -> tuple[str, str | None]:
+        """Names of the full-resolution and half-resolution trunks (None
+        without multires)."""
+        cfg = self.config
+        if cfg.share_trunk:
+            return "trunk", "trunk" if cfg.multires else None
+        return "trunk_full", "trunk_half" if cfg.multires else None
+
+    def normalized(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images in [0, 1] -> NCHW in [-1, 1], compute dtype."""
+        cfg = self.config
+        need = Detector.alignment(cfg)
         h, w = images.shape[1], images.shape[2]
         if h % need or w % need:
             raise ValueError(
                 f"input {h}x{w} must be divisible by {need} "
-                f"(heatmap stride {stride}{', multires' if cfg.multires else ''})"
+                f"(heatmap stride {Detector.stride(cfg)}{', multires' if cfg.multires else ''})"
             )
         x = (images.to(self.dtype) - 0.5) * 2.0
-        x = x.permute(0, 3, 1, 2)  # NCHW
-        if cfg.share_trunk:
-            full = self.trunk(x)
-            if cfg.multires:
-                half = self.trunk(_avg_pyramid(x))
+        return x.permute(0, 3, 1, 2)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.normalized(images)
+        if self.spatial:
+            full = spatial_features([self], x, ProcessRows(self.mesh))
         else:
-            full = self.trunk_full(x)
-            if cfg.multires:
-                half = self.trunk_half(_avg_pyramid(x))
-        if cfg.multires:
-            full = full + _upsample2x(half)
+            name_full, name_half = self.trunks()
+            full = getattr(self, name_full)(x)
+            if name_half is not None:
+                full = full + _upsample2x(getattr(self, name_half)(_avg_pyramid(x)))
+        return self.head(full)
+
+    def head(self, full: torch.Tensor) -> torch.Tensor:
+        """The fused NCHW trunk features -> (B, Hm, Wm, K) fp32 logits."""
         if self.head_tp:
             y, first = self._head_tp(full), 1
         else:
@@ -202,3 +250,26 @@ class Detector(nn.Module):
         part = F.conv2d(y.float(), proj.weight[:, sl].to(y.dtype).float())
         z = leave_model_region(part, self.mesh) + proj.bias.to(y.dtype).float()[:, None, None]
         return F.relu(z.to(y.dtype))
+
+
+def spatial_features(detectors: list[Detector], x: torch.Tensor, rows) -> torch.Tensor:
+    """The fused trunk features of the normalized NCHW images ``x`` with
+    their rows split over ``rows``' shards (``parallel/spatial.py``: one
+    per process, or one per device through ``detectors[j]``, the same
+    weights on shard j's device), gathered by rows: the full-height map.
+    The rows must divide by the stride alignment times the shards."""
+    need = Detector.alignment(detectors[0].config)
+    h = x.shape[2]
+    if h % (need * rows.n):
+        raise ValueError(
+            f"spatial sharding needs rows {h} divisible by "
+            f"{need * rows.n} (stride alignment x {rows.n} shards)"
+        )
+    shards = rows.split(x)
+    name_full, name_half = detectors[0].trunks()
+    full = Trunk.forward_rows([getattr(d, name_full) for d in detectors], shards, rows, h)
+    if name_half is not None:
+        half = Trunk.forward_rows([getattr(d, name_half) for d in detectors],
+                                  [_avg_pyramid(s) for s in shards], rows, h // 2)
+        full = [f + _upsample2x(g) for f, g in zip(full, half)]
+    return rows.gather(full)

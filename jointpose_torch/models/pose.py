@@ -25,20 +25,32 @@ def _unaries(config: Config, logits: torch.Tensor) -> torch.Tensor:
     return logits.clamp_min(0.0)
 
 
+def unit_images(images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Raw uint8 RGB -> ``dtype`` in [0, 1], on the images' device; float
+    images pass through."""
+    if images.dtype != torch.uint8:
+        return images
+    # A fill on the device, not a copy from the host: a CUDA graph can
+    # capture it.
+    return images.to(dtype) * torch.full((), 1.0 / 255.0, dtype=dtype, device=images.device)
+
+
 class PoseModel(nn.Module):
     """``mesh`` (``parallel.mesh.Mesh``): tensor parallelism over its
     'model' axis, engaged only when that axis is larger than 1 (the head's
     split convs, the MRF's source joints); the parameters are the same
-    either way.  ``spatial=True`` (the trunk's rows over 'model') is not
-    ported yet."""
+    either way.  ``spatial=True`` also splits the trunk's image rows over
+    'model' (``parallel/spatial.py``), again only when that axis is larger
+    than 1."""
 
     def __init__(self, config: Config, mesh=None, spatial: bool = False):
         super().__init__()
         self.config = config
         self.mesh = mesh
         self.dtype = getattr(torch, config.compute_dtype)
+        self.spatial = spatial and mesh is not None and mesh.shape["model"] > 1
         self.detector = Detector(config.detector, config.num_joints, dtype=self.dtype,
-                                 mesh=mesh, spatial=spatial)
+                                 mesh=mesh, spatial=self.spatial)
         self.spatial_model = (
             SpatialModel(config.mrf, config.num_joints, dtype=self.dtype, mesh=mesh)
             if config.mrf is not None else None
@@ -52,6 +64,9 @@ class PoseModel(nn.Module):
             names = {n for n, rule in param_shardings(self, self.mesh).items() if rule}
         if self.spatial_model is not None and self.spatial_model.tp:  # sliced activations
             names |= {"spatial_model.raw_kernels", "spatial_model.raw_bias"}
+        if self.spatial:  # the trunk sees this rank's rows only
+            names |= {f"detector.{n}" for n, _ in self.detector.named_parameters()
+                      if n.startswith("trunk")}
         return names
 
     def forward(
@@ -65,13 +80,7 @@ class PoseModel(nn.Module):
         never runs.  ``detector_only`` returns the detector logits alone,
         without running the spatial model (evaluation before the spatial
         model has its prior init)."""
-        if images.dtype == torch.uint8:
-            # A fill on the device, not a copy from the host: a CUDA graph
-            # can capture it.
-            images = images.to(self.dtype) * torch.full(
-                (), 1.0 / 255.0, dtype=self.dtype, device=images.device
-            )
-        logits = self.detector(images)
+        logits = self.detector(unit_images(images, self.dtype))
         if freeze_detector:
             logits = logits.detach()
         out = {"detector_logits": logits}

@@ -20,6 +20,8 @@ axis gets a process group of the ranks that differ only along it.
   OUTPUT-channel slice and the following 1x1 conv an INPUT-channel slice
   (``param_shardings``, the reference's rule and names), and the MRF
   message pass a slice of its source joints (``parallel/mrf_tp.py``).
+  With ``MeshConfig.spatial`` the trunk also computes a slice of the
+  image's rows (``parallel/spatial.py``).
 
 Storage is replicated, compute is sliced: every rank keeps the whole
 parameters and optimizer moments and computes only its slice, so
@@ -27,6 +29,20 @@ parameters and optimizer moments and computes only its slice, so
 one-device layout, and a mesh run's checkpoint restores on one device and
 the reverse.  A 1x1 mesh holds no process group and every collective on
 it is the identity, so the one-device path is unchanged.
+
+Inference in one process (``predict``, ``serve``) takes a ``DeviceMesh``
+instead: a (data, model) grid of devices that one process drives, as the
+pipelined predictor takes a device list.  The batch splits over 'data';
+each data row's trunk splits its image rows over the row's devices; the
+head, the MRF and the decode run on the row's first device.
+
+The reference's sharding objects have no counterparts of their own:
+PyTorch applies a layout to a tensor rather than annotating it.
+``batch_sharding`` is what ``shard_batch`` applies, ``replicated`` what
+``shard_params`` makes of the parameters (a broadcast from rank 0), and
+``spatial_image_sharding`` and ``gather_rows`` (``spatial_gather_sharding``)
+are functions of ``parallel/spatial.py`` that take this rank's rows and
+gather them.
 """
 
 from __future__ import annotations
@@ -79,6 +95,10 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh(data={self.shape[DATA_AXIS]}, model={self.shape[MODEL_AXIS]}, rank={self.rank})"
+
+    def has_group(self, axis: str | None) -> bool:
+        """Whether this rank holds a process group over ``axis``."""
+        return axis in self._groups
 
     def all_reduce(self, x: torch.Tensor, axis: str | None = None,
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -140,6 +160,40 @@ def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
                 if rank in ranks:
                     groups[axis] = group
     return Mesh(data, model, rank, groups)
+
+
+class DeviceMesh:
+    """A ('data', 'model') grid of devices driven by one process: row d of
+    the grid is ``row(d)``, data-major as ``make_mesh``.  A device may
+    repeat (``[cuda:0] * 4`` on one card, ``["cpu"] * 4``)."""
+
+    def __init__(self, devices, data: int, model: int):
+        self.devices = [torch.device(d) for d in devices]
+        if data < 1 or model < 1 or len(self.devices) != data * model:
+            raise ValueError(f"a {data}x{model} device mesh needs {data * model} devices, "
+                             f"got {len(self.devices)}")
+        self.shape = {DATA_AXIS: data, MODEL_AXIS: model}
+
+    def row(self, d: int) -> list[torch.device]:
+        m = self.shape[MODEL_AXIS]
+        return self.devices[d * m:(d + 1) * m]
+
+    def __repr__(self) -> str:
+        return (f"DeviceMesh(data={self.shape[DATA_AXIS]}, model={self.shape[MODEL_AXIS]}, "
+                f"devices={[str(d) for d in self.devices]})")
+
+
+def make_device_mesh(data: int, model: int, device: str | torch.device) -> DeviceMesh:
+    """A ``data`` x ``model`` device mesh of ``device``'s type: on CUDA the
+    process's cards in turn (one card repeats), on the CPU the CPU."""
+    device = torch.device(device)
+    n = data * model
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        devices = [torch.device("cuda", i % cards) for i in range(n)]
+    else:
+        devices = [device] * n
+    return DeviceMesh(devices, data, model)
 
 
 def shard_batch(batch: Mapping[str, torch.Tensor], mesh: Mesh) -> dict[str, torch.Tensor]:

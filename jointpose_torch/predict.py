@@ -13,12 +13,15 @@ CLI: restore a checkpoint, predict a split, write ``predictions.jsonl``
 (one record per example) and, with ``--figures``, heatmap overlays; with
 ``--quantize N`` / ``--quantize-artifact NPZ`` through the int8 detector
 of ``ops/quant.py``; with ``--pipeline N_MICRO`` through the two-stage
-pipelined predictor of ``parallel/pipeline.py`` (meshes of more than one
-device are not ported yet, ROADMAP.md):
+pipelined predictor of ``parallel/pipeline.py``; with ``--mesh-data D
+--mesh-model M`` over a D x M device mesh (``parallel/mesh.DeviceMesh``):
+the batch split over 'data', the trunk's image rows over 'model'
+(``parallel/spatial.py``):
 
     python -m jointpose_torch.predict --config flagship \\
         --checkpoint runs/flagship/checkpoints --workdir out/ \\
-        [--split test] [--num 64] [--figures] [--quantize-artifact int8.npz] [--device cpu]
+        [--split test] [--num 64] [--figures] [--quantize-artifact int8.npz] \\
+        [--mesh-data 2 --mesh-model 2] [--device cpu]
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ import torch
 
 from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config
-from jointpose_torch.models.pose import PoseModel
+from jointpose_torch.models.detector import spatial_features
+from jointpose_torch.models.pose import PoseModel, make_logits_tail_fn, unit_images
 from jointpose_torch.ops.heatmaps import decode_probs, model_probs
+from jointpose_torch.parallel.spatial import DeviceRows
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -45,18 +50,73 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return device
 
 
-def build_predictor(config: Config, state_dict: dict, device: str | torch.device | None = None):
+def build_predictor(config: Config, state_dict: dict, device: str | torch.device | None = None,
+                    mesh=None, spatial: bool = False):
     """Return fn: images (B, H, W, 3) -> (coords (B, K, 2), probs (B, Hm, Wm, K)).
 
     ``images`` are uint8 RGB or float in [0, 1], on any device; they are
     moved to the predictor's device.  Coordinates are image pixels (x, y).
     With ``config.eval_flip_tta`` the heatmaps are averaged with those of
     the mirrored images.
+
+    With ``mesh`` (a ``parallel.mesh.DeviceMesh``) the batch splits over
+    its 'data' axis, which must divide it, and with ``spatial`` (and a
+    'model' axis larger than 1) each data row's trunk splits the image rows
+    over the row's devices (``DeviceMeshModel``); the results land on the
+    mesh's first device.
     """
+    if mesh is not None:
+        return predictor_for(config, DeviceMeshModel(config, state_dict, mesh, spatial),
+                             mesh.devices[0])
     device = resolve_device(device)
     model = PoseModel(config)
     model.load_state_dict(state_dict)
     return predictor_for(config, model.to(device).eval(), device)
+
+
+class DeviceMeshModel:
+    """``PoseModel``'s forward over a ``DeviceMesh`` in one process:
+    images -> the output dict, on the mesh's first device.
+
+    Data row d of the mesh takes rows [d B/D, (d+1) B/D) of the batch.  With
+    ``spatial`` and a 'model' axis larger than 1 its trunk runs on the
+    row's devices, each on a slice of the image rows with halos copied
+    from its neighbours (``models.detector.spatial_features``); the head
+    and the MRF run on the row's first device.  Without ``spatial`` the
+    whole model runs on the row's first device.  Each distinct device
+    holds one copy of the weights."""
+
+    def __init__(self, config: Config, state_dict: dict, mesh, spatial: bool = False):
+        for device in mesh.devices:
+            resolve_device(device)
+        self.mesh = mesh
+        self.spatial = spatial and mesh.shape["model"] > 1
+        self.models: dict[torch.device, PoseModel] = {}
+        for device in dict.fromkeys(mesh.devices):
+            model = PoseModel(config)
+            model.load_state_dict(state_dict)
+            self.models[device] = model.to(device).eval()
+        self.tails = {d: make_logits_tail_fn(config, m) for d, m in self.models.items()}
+
+    def __call__(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+        n_data = self.mesh.shape["data"]
+        if images.shape[0] % n_data:
+            raise ValueError(f"batch {images.shape[0]} does not divide over the mesh data axis "
+                             f"({n_data})")
+        rows = images.shape[0] // n_data
+        outs = []
+        for d in range(n_data):
+            row = self.mesh.row(d)
+            chunk = images[d * rows:(d + 1) * rows].to(row[0])
+            if self.spatial:
+                det = [self.models[dev].detector for dev in row]
+                x = det[0].normalized(unit_images(chunk, det[0].dtype))
+                out = self.tails[row[0]](det[0].head(spatial_features(det, x, DeviceRows(row))))
+            else:
+                out = self.models[row[0]](chunk)
+            outs.append(out)
+        first = self.mesh.devices[0]
+        return {k: torch.cat([o[k].to(first) for o in outs]) for k in outs[0]}
 
 
 def predictor_for(config: Config, model: torch.nn.Module, device: torch.device):
@@ -132,15 +192,6 @@ def restore_params(
     return state_dict, int(step)
 
 
-def refuse_unported(flags: list[tuple[str, bool]]) -> None:
-    """Raise ``NotImplementedError`` naming every flag that is set and not
-    ported yet (meshes of more than one device in inference, spatial
-    parallelism)."""
-    unported = [flag for flag, on in flags if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not ported yet; see ROADMAP.md")
-
-
 def main(argv: list[str] | None = None) -> None:
     import argparse
     import json
@@ -163,10 +214,11 @@ def main(argv: list[str] | None = None) -> None:
                         help="override the trunk downsampling mode (normally adopted from the "
                              "checkpoint's metadata)")
     parser.add_argument("--mesh-data", type=int, default=0,
-                        help="data-parallel devices; -1, 0 and 1 mean the one device, larger "
-                             "meshes are not ported yet (ROADMAP.md)")
+                        help="data-parallel inference over this many devices (0 = one device; "
+                             "must divide the batch size)")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="model-axis devices; only 1 (ROADMAP.md)")
+                        help="model-axis devices: split the detector trunk's image rows over "
+                             "them (halos copied between devices); composes with --mesh-data")
     parser.add_argument("--mrf-precision", choices=["high", "default"], default="default",
                         help="MRF message-pass matmul precision; inference defaults to "
                              "'default' (on the card one TF32 pass in the Fourier paths)")
@@ -182,12 +234,17 @@ def main(argv: list[str] | None = None) -> None:
                              "instead of calibrating")
     add_device_flag(parser)
     args = parser.parse_args(argv)
-    if args.pipeline > 0:
-        if args.mesh_data > 1 or args.mesh_model > 1:
+    on_mesh = args.mesh_data > 1 or args.mesh_model > 1
+    if on_mesh:
+        if args.batch_size % max(args.mesh_data, 1):
+            raise SystemExit(f"--mesh-data {args.mesh_data} must divide --batch-size "
+                             f"{args.batch_size}")
+        if args.pipeline > 0:
             raise SystemExit("--pipeline is exclusive with --mesh-data/--mesh-model")
-        if args.batch_size % args.pipeline:
-            raise SystemExit(f"--pipeline {args.pipeline} must divide --batch-size {args.batch_size}")
-    refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
+        if args.quantize > 0 or args.quantize_artifact:
+            raise SystemExit("--quantize is exclusive with --mesh-data/--mesh-model")
+    if args.pipeline > 0 and args.batch_size % args.pipeline:
+        raise SystemExit(f"--pipeline {args.pipeline} must divide --batch-size {args.batch_size}")
 
     from jointpose_torch import skeleton
     from jointpose_torch.checkpoint import reconcile_config
@@ -222,6 +279,12 @@ def main(argv: list[str] | None = None) -> None:
                                           args.quantize_artifact, train_ds, device)
         predict = predictor_for(config, model, device)
         print(line)
+    elif on_mesh:
+        from jointpose_torch.parallel.mesh import make_device_mesh
+
+        mesh = make_device_mesh(max(args.mesh_data, 1), args.mesh_model, device)
+        print(f"inference over {mesh}")
+        predict = build_predictor(config, state_dict, mesh=mesh, spatial=args.mesh_model > 1)
     else:
         predict = build_predictor(config, state_dict, device)
 

@@ -26,11 +26,13 @@ API:
 With ``--quantize N`` or ``--quantize-artifact NPZ`` the int8 detector of
 ``ops/quant.py`` replaces the float one, in front of the same MRF tail.
 
+With ``--mesh-data D --mesh-model M`` each batch is served over a D x M
+device mesh (``parallel/mesh.DeviceMesh``, ``predict.build_predictor``):
+split over 'data', the trunk's image rows over 'model'.
+
 CLI:  python -m jointpose_torch.serve --config joint \\
           --checkpoint runs/joint/checkpoints --port 8471 \\
-          [--quantize-artifact int8.npz] [--device cpu]
-
-Not ported yet (ROADMAP.md): meshes of more than one device (``--mesh-*``).
+          [--quantize-artifact int8.npz] [--mesh-data 2 --mesh-model 2] [--device cpu]
 """
 
 from __future__ import annotations
@@ -80,7 +82,11 @@ class PoseService:
     callers share dispatches.  ``device`` is the CUDA device unless the
     caller asks for the CPU.  ``quantize_calib`` (training images to
     calibrate on) or ``quantize_artifact`` (a ``quantize`` npz) puts the
-    int8 detector of ``ops/quant.py`` in place of the float one.
+    int8 detector of ``ops/quant.py`` in place of the float one.  ``mesh``
+    (a ``parallel.mesh.DeviceMesh``, exclusive with the int8 detector)
+    serves each batch over its devices, the trunk's rows split over its
+    'model' axis; every bucket must divide its 'data' axis, and the batches
+    go to its first device.
     """
 
     def __init__(self, config: Config, checkpoint_dir: str, batch_size: int,
@@ -97,11 +103,9 @@ class PoseService:
         quantized = quantize_calib > 0 or bool(quantize_artifact)
         if mesh is not None and quantized:
             raise ValueError("quantized serving is exclusive with mesh serving")
-        if mesh is not None:
-            raise NotImplementedError("PoseService(mesh=): not ported yet; see ROADMAP.md")
         self.config = config
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.devices[0])
         # Batch-size buckets: a lone 1-image request pads to the smallest
         # bucket that fits instead of the full serving batch.  Each bucket
         # costs one warm-up per input type at startup; the largest bucket
@@ -112,6 +116,11 @@ class PoseService:
                 f"batch_buckets {buckets} must lie in [1, batch_size={batch_size}]"
             )
         self._buckets = buckets + [batch_size]
+        if mesh is not None:
+            bad = [b for b in self._buckets if b % mesh.shape["data"]]
+            if bad:
+                raise ValueError(f"batch buckets {bad} do not divide the mesh data axis "
+                                 f"({mesh.shape['data']})")
         params, self.step = restore_params(config, checkpoint_dir, step, best=best)
         if quantized:
             from jointpose_torch.ops.quant import quantized_model_for
@@ -120,7 +129,8 @@ class PoseService:
                                            device=self.device)
             self._predict = predictor_for(config, model, self.device)
         else:
-            self._predict = build_predictor(config, params, device=self.device)
+            self._predict = build_predictor(config, params, device=self.device, mesh=mesh,
+                                            spatial=mesh is not None)
         # Warm both accepted input types at every bucket, so that the first
         # request of each shape finds the DFT tables, the kernels built and
         # cuDNN's algorithms chosen.
@@ -425,26 +435,32 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--max-inflight", type=int, default=2,
                         help="device batches launched but not yet finished (1 = synchronous)")
     parser.add_argument("--mesh-data", type=int, default=0,
-                        help="data-parallel devices; -1, 0 and 1 mean the one device, "
-                             "larger meshes are not ported yet (ROADMAP.md)")
+                        help="data-parallel devices: split each serving batch over this many "
+                             "devices (0/1 = off; must divide --batch-size)")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="spatial-parallel devices; only 1 (ROADMAP.md)")
+                        help="spatial-parallel devices: split the detector trunk's image rows "
+                             "over this many devices")
     add_device_flag(parser)
     args = parser.parse_args(argv)
 
     from jointpose_torch.checkpoint import reconcile_config
     from jointpose_torch.configs import with_mrf_precision
-    from jointpose_torch.predict import refuse_unported
 
-    refuse_unported([("--mesh-data", args.mesh_data > 1), ("--mesh-model", args.mesh_model > 1)])
     device = apply_device(args.device)
+    mesh = None
+    if args.mesh_data > 1 or args.mesh_model > 1:
+        from jointpose_torch.parallel.mesh import make_device_mesh
+
+        if args.batch_size % max(args.mesh_data, 1):
+            parser.error(f"--mesh-data {args.mesh_data} must divide --batch-size {args.batch_size}")
+        mesh = make_device_mesh(max(args.mesh_data, 1), args.mesh_model, device)
 
     config = reconcile_config(get_config(args.config), args.checkpoint, args.pool_mode)
     config = with_mrf_precision(config, args.mrf_precision)
     buckets = ([int(b) for b in args.batch_buckets.split(",") if b.strip()]
                if args.batch_buckets else None)
     service = PoseService(
-        config, args.checkpoint, args.batch_size, step=args.step,
+        config, args.checkpoint, args.batch_size, step=args.step, mesh=mesh,
         batch_wait_ms=args.batch_wait_ms, quantize_calib=args.quantize,
         quantize_artifact=args.quantize_artifact, batch_buckets=buckets,
         max_queue_images=args.max_queue_images, max_inflight=args.max_inflight,

@@ -3,7 +3,7 @@
     python -m jointpose_torch.train --config flagship --workdir runs/flagship
     python -m jointpose_torch.train --config tiny --workdir runs/tiny --device cpu
     python -m torch.distributed.run --nproc-per-node 4 -m jointpose_torch.train \
-        --config flagship --workdir runs/f4 --mesh-data 2 --mesh-model 2
+        --config flagship --workdir runs/f4 --mesh-data 2 --mesh-model 2 [--mesh-spatial]
 
 ``fit`` runs the whole staged training through the normal entry point:
 datasets, state, detector stage, pairwise priors from the training
@@ -35,13 +35,14 @@ Under a mesh of several processes (``parallel/mesh.py``, one process per
 device) every rank runs this loop on its rows of each global batch:
 the same global indices and augmentation draw everywhere, the loss's
 denominators and the gradients summed over 'data' (the head's split
-convs and the MRF's pairwise parameters also over 'model'), rank 0 alone
+convs and the MRF's pairwise parameters also over 'model', and under
+``MeshConfig.spatial`` the trunk's, whose rows are split over 'model'),
+rank 0 alone
 writing metrics, figures and checkpoints, a barrier after each save, a
 preemption on any rank seen by all at the step boundary.
 
-Not carried over from the reference's ``fit`` (ROADMAP.md names each):
-spatial parallelism and the K-step scan (``steps_per_dispatch`` is read
-and ignored: one step per call).
+Not carried over from the reference's ``fit`` (ROADMAP.md): the K-step
+scan (``steps_per_dispatch`` is read and ignored: one step per call).
 Carried over from ``resilience.py``: SIGTERM checkpoints at the next step
 boundary and exits ``resilience.EXIT_PREEMPTED``; the heartbeat is
 written after each step, eval, prior init and save (none before the
@@ -76,7 +77,7 @@ from jointpose_torch.data.targets import image_to_heatmap_coords, render_gaussia
 from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose_torch.models.mrf import priors_to_raw_kernels
 from jointpose_torch.models.pose import PoseModel
-from jointpose_torch.predict import init_state_dict, refuse_unported, resolve_device
+from jointpose_torch.predict import init_state_dict, resolve_device
 from jointpose_torch.resilience import (
     Heartbeat, PreemptionHandler, mark_preempted, maybe_inject_fault,
 )
@@ -153,10 +154,12 @@ def create_state(
 
     ``generator`` is a CPU generator: it draws the weights
     (``predict.init_state_dict``) and then the augmentation seed.  ``mesh``
-    engages the model's tensor parallelism (``PoseModel(mesh=)``).
+    engages the model's tensor parallelism (``PoseModel(mesh=)``) and, with
+    ``config.mesh.spatial``, its spatial parallelism; both only where the
+    'model' axis is larger than 1.
     """
     device = resolve_device(device)
-    model = PoseModel(config, mesh=mesh)
+    model = PoseModel(config, mesh=mesh, spatial=config.mesh.spatial)
     model.load_state_dict(init_state_dict(config, generator))
     model = model.to(device).train()
     seed = int(torch.randint(0, 2**62, (1,), generator=generator))
@@ -565,10 +568,11 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--mesh-model", type=int, default=None,
                         help="model-axis processes: channel tensor parallelism on the detector "
                              "head and source-joint tensor parallelism in the MRF")
-    parser.add_argument("--mesh-spatial", action="store_true", help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--mesh-spatial", action="store_true",
+                        help="with --mesh-model > 1, also split the detector trunk's image rows "
+                             "over 'model' (halo exchanges)")
     add_device_flag(parser)
     args = parser.parse_args(argv)
-    refuse_unported([("--mesh-spatial", args.mesh_spatial)])
     device = apply_device(args.device)
     # Joins the process group of a multi-process launch (a no-op alone),
     # before any work on the device.
@@ -600,9 +604,11 @@ def main(argv: list[str] | None = None) -> None:
     if dd:
         config = config.replace(data=dataclasses.replace(config.data, **dd))
 
-    if args.mesh_data is not None or args.mesh_model is not None:
-        mm = {name: value for name, value in (("data", args.mesh_data), ("model", args.mesh_model))
-              if value is not None}
+    if args.mesh_data is not None or args.mesh_model is not None or args.mesh_spatial:
+        mm: dict[str, Any] = {"spatial": args.mesh_spatial}
+        mm.update((name, value) for name, value in (("data", args.mesh_data),
+                                                    ("model", args.mesh_model))
+                  if value is not None)
         config = config.replace(mesh=dataclasses.replace(config.mesh, **mm))
 
     try:

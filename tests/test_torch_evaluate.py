@@ -224,6 +224,8 @@ def test_evaluate_main_scores_the_int8_model(tmp_path, capsys):
     with open(tmp_path / "a.json") as f, open(tmp_path / "c.json") as g:
         a, c = json.load(f), json.load(g)
     assert a == c and a["num_examples"] == 8.0 and 0.0 <= a["pdj_at_05_wrist_elbow"] <= 1.0
+    # A mesh is one process per device: without a launcher one process holds
+    # a mesh of one (evaluate.main over the launcher: tests/test_torch_parallel.py).
     for flags in (["--mesh-data", "2"], ["--mesh-model", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="torch.distributed.run"):
             tev.main(["--config", "tiny", "--checkpoint", ckpt, "--device", "cpu", *flags])

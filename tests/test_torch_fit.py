@@ -162,13 +162,11 @@ def test_fit_caches_a_host_split_on_the_device(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     # --figures (tests/test_torch_visualize.py), profile_steps
-    # (tests/test_torch_metrics.py) and meshes over processes
-    # (tests/test_torch_multihost.py) are ported; spatial parallelism is not.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--config", "tiny", "--workdir", str(tmp_path), "--device", "cpu",
-                     "--mesh-spatial"])
+    # (tests/test_torch_metrics.py), meshes over processes
+    # (tests/test_torch_multihost.py) and spatial parallelism
+    # (tests/test_torch_parallel.py) are ported.
     # A mesh is one process per device: one process holds a mesh of one.
-    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"]):
+    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"], ["--mesh-model", "2", "--mesh-spatial"]):
         with pytest.raises(ValueError, match="torch.distributed.run"):
             ttrain.main(["--config", "tiny", "--workdir", str(tmp_path), "--device", "cpu", *flags])
 

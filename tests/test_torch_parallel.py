@@ -10,17 +10,21 @@ hold them against the reference's unsharded results computed here:
   forward, local shapes and the gradients of p, kernels and biases, odd
   windows only (the reference's even-window VJP is wrong, ADVICE.md);
 - one data-parallel step (data 2, a mesh of ranks {0, 1} and one of
-  {2, 3}), the same step with augmentation (the global draw sliced), and
-  one 2x2 step, against the reference's one-device step on the same
-  converted weights, at ``tests/test_parallel.py``'s tolerances;
-- ``evaluate(mesh=)`` on the 2x2 mesh (its model tensor-parallel) and on a
-  data-4 mesh, with a ragged last batch, against the reference's
-  ``evaluate``.
+  {2, 3}), the same step with augmentation (the global draw sliced), one
+  2x2 step and one 2x2 step with spatial parallelism (the trunk's rows over
+  'model', halo exchanges), against the reference's one-device step on the
+  same converted weights, at ``tests/test_parallel.py``'s tolerances;
+- ``evaluate(mesh=)`` on the 2x2 mesh (its model tensor-parallel, and also
+  spatial) and on a data-4 mesh, with a ragged last batch, against the
+  reference's ``evaluate``;
+- ``evaluate.main`` under the launcher (--mesh-data 2 --mesh-model 2) on a
+  written checkpoint, against ``evaluate.main`` in one process.
 
 ``pad_source_axis`` and ``param_shardings`` need no world.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -41,8 +45,9 @@ from jointpose.ops.mrf_xla import mrf_message_pass_xla as jax_pass
 from jointpose.parallel import mesh as jmesh
 from jointpose.parallel import mrf_tp as jtp
 from jointpose import evaluate as jev
+from jointpose_torch import evaluate as tev
 from jointpose_torch.configs import MeshConfig, get_config
-from jointpose_torch.convert import params_from_flax
+from jointpose_torch.convert import params_from_flax, write_initial_checkpoint
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.parallel import mesh as tmesh
 from jointpose_torch.parallel import mrf_tp as ttp
@@ -66,6 +71,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from jointpose_torch import evaluate as tev
 from jointpose_torch.configs import MeshConfig, get_config
 from jointpose_torch.data.augment import AugmentParams
 from jointpose_torch.data.pipeline import from_host_arrays
@@ -125,8 +131,10 @@ noaug = base.replace(augment=dataclasses.replace(base.augment, enabled=False),
                      train=dataclasses.replace(base.train, batch_size=8))
 aug = noaug.replace(augment=dataclasses.replace(noaug.augment, enabled=True,
                                                 crop_frac_range=(0.8, 1.0)))
+spatial = noaug.replace(mesh=MeshConfig(data=2, model=2, spatial=True))
 for name, cfg, mesh, with_draw in (("dp", noaug, dp, False), ("dp_aug", aug, dp, True),
-                                   ("2x2", noaug, make_mesh(MeshConfig(data=2, model=2)), False)):
+                                   ("2x2", noaug, make_mesh(MeshConfig(data=2, model=2)), False),
+                                   ("2x2_spatial", spatial, make_mesh(spatial.mesh), False)):
     state = create_state(cfg, torch.Generator().manual_seed(0), device="cpu", mesh=mesh)
     state.model.load_state_dict(init)
     state = shard_state(state, mesh)
@@ -136,18 +144,22 @@ for name, cfg, mesh, with_draw in (("dp", noaug, dp, False), ("dp_aug", aug, dp,
                          {k: v.detach().numpy() for k, v in state.model.named_parameters()},
                          sorted(state.model.model_sliced_parameters()))
 
-# evaluate(mesh=): the 2x2 mesh with its model tensor-parallel, and data 4.
+# evaluate(mesh=): the 2x2 mesh with its model tensor-parallel (and also
+# spatial), and data 4.
 arrays = dict(np.load(f"{data}/eval.npz"))
 weights = torch.load(f"{data}/eval_weights.pt", weights_only=True)
 cfg = get_config("tiny")
-for name, mesh in (("2x2", make_mesh(MeshConfig(data=2, model=2))),
-                   ("4x1", make_mesh(MeshConfig(data=4, model=1)))):
-    model = PoseModel(cfg, mesh=mesh)
+for name, mesh, sp in (("2x2", make_mesh(MeshConfig(data=2, model=2)), False),
+                       ("2x2_spatial", make_mesh(MeshConfig(data=2, model=2)), True),
+                       ("4x1", make_mesh(MeshConfig(data=4, model=1)), False)):
+    model = PoseModel(cfg, mesh=mesh, spatial=sp)
     model.load_state_dict(weights)
     out["eval", name] = evaluate(model.eval(), from_host_arrays(arrays), cfg, mesh=mesh)
 
 torch.save(out, f"{data}/rank{rank}.pt")
-dist.destroy_process_group()
+# evaluate.main over the launcher's world (it leaves the process group).
+tev.main(["--config", "tiny", "--checkpoint", f"{data}/ckpt", "--step", "0", "--device", "cpu",
+          "--mesh-data", "2", "--mesh-model", "2", "--json-out", f"{data}/eval_main.json"])
 """
 
 
@@ -190,6 +202,7 @@ def world(tmp_path_factory):
     jcfg_e, _, arrays, jmodel, variables, model = _setup(10, tta=False)
     np.savez(data / "eval.npz", **arrays)
     torch.save(model.state_dict(), data / "eval_weights.pt")
+    write_initial_checkpoint(get_config("tiny"), str(data / "ckpt"), model.state_dict())
 
     script = data / "child.py"
     script.write_text(CHILD)
@@ -214,6 +227,13 @@ def world(tmp_path_factory):
         jtrain.random_augment_params = monkey
     ref["eval"] = (jev.evaluate(variables, jpipe.from_host_arrays(arrays), jcfg_e, jmodel.apply),
                    _visible_counts(arrays, 10))
+    with open(data / "eval_main.json") as f:
+        ranks[0]["eval_main"] = json.load(f)
+    one = data / "eval_one.json"
+    tev.main(["--config", "tiny", "--checkpoint", str(data / "ckpt"), "--step", "0", "--device",
+              "cpu", "--json-out", str(one)])
+    with open(one) as f:
+        ref["eval_main"] = json.load(f)
     return ranks, ref
 
 
@@ -316,22 +336,27 @@ def _assert_step_matches(got, ref, what):
                                    err_msg=f"{what}: {name}")
 
 
-@pytest.mark.parametrize("name", ["dp", "dp_aug", "2x2"])
+@pytest.mark.parametrize("name", ["dp", "dp_aug", "2x2", "2x2_spatial"])
 def test_sharded_step_matches_single_device_reference(world, name):
     ranks, ref = world
     for got in ranks:
         _assert_step_matches(got["step", name], ref["step_aug" if name == "dp_aug" else "step"],
                              f"{name}, rank {got['rank']}")
     sliced = ranks[0]["step", name][2]
+    tp = ["detector.head_1x1_0.weight", "detector.head_wide.bias", "detector.head_wide.weight",
+          "spatial_model.raw_bias", "spatial_model.raw_kernels"]
     if name == "2x2":
-        assert sliced == ["detector.head_1x1_0.weight", "detector.head_wide.bias",
-                          "detector.head_wide.weight", "spatial_model.raw_bias",
-                          "spatial_model.raw_kernels"]
+        assert sliced == tp
+    elif name == "2x2_spatial":
+        # Each rank's trunk sees its rows only: every trunk parameter's
+        # gradient is summed over 'model' too.
+        trunk = [f"detector.trunk.conv{i}.{w}" for i in range(2) for w in ("bias", "weight")]
+        assert sliced == sorted(tp + trunk)
     else:
         assert sliced == []
 
 
-@pytest.mark.parametrize("name", ["2x2", "4x1"])
+@pytest.mark.parametrize("name", ["2x2", "2x2_spatial", "4x1"])
 def test_evaluate_over_a_mesh_matches_reference(world, name):
     ranks, ref = world
     want, visible = ref["eval"]
@@ -342,13 +367,25 @@ def test_evaluate_over_a_mesh_matches_reference(world, name):
     _assert_evals_agree(got, want, visible)
 
 
+def test_evaluate_main_over_the_launcher_matches_one_process(world):
+    ranks, ref = world
+    got, want = ranks[0]["eval_main"], ref["eval_main"]
+    assert got["num_examples"] == want["num_examples"] == 8.0
+    np.testing.assert_allclose(got["pdj_curves"], want["pdj_curves"], atol=1e-6)
+
+
 def test_spatial_parallelism_is_not_ported():
-    mesh = tmesh.Mesh(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseModel(get_config("tiny"), mesh=mesh, spatial=True)
-    # The model axis of 1 engages no tensor parallelism: the one-device model.
-    model = PoseModel(get_config("tiny"), mesh=tmesh.Mesh(4, 1))
-    assert not model.detector.head_tp and not model.spatial_model.tp
+    """Spatial parallelism is ported: ``spatial=True`` splits the trunk's
+    rows where the 'model' axis is larger than 1, and every trunk
+    parameter is then summed over 'model'; on a model axis of 1 it engages
+    nothing, like tensor parallelism."""
+    model = PoseModel(get_config("tiny"), mesh=tmesh.Mesh(2, 2), spatial=True)
+    assert model.spatial and model.detector.spatial
+    trunk = {f"detector.{n}" for n, _ in model.detector.named_parameters() if n.startswith("trunk")}
+    assert len(trunk) == 4 and trunk <= model.model_sliced_parameters()
+    # The model axis of 1 engages no parallelism: the one-device model.
+    model = PoseModel(get_config("tiny"), mesh=tmesh.Mesh(4, 1), spatial=True)
+    assert not model.spatial and not model.detector.head_tp and not model.spatial_model.tp
     assert model.model_sliced_parameters() == set()
 
 

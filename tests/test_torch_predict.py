@@ -147,9 +147,10 @@ def test_flip_tta_predictor_matches_reference(path):
 
 
 def test_unported_options_raise(tmp_path):
-    """MRF precision 'default' and quantized serving are ported: the model
-    builds and serves.  What is not ported yet (meshes of more than one
-    device) raises, naming ROADMAP.md."""
+    """MRF precision 'default', quantized serving and meshes of more than one
+    device are ported: the model builds and serves, and the mesh flags reach
+    the service (tests/test_torch_spatial.py), which refuses a mesh with the
+    int8 detector as the reference does."""
     from jointpose_torch import serve
 
     cfg = with_mrf_precision(get_config("tiny"), "default")
@@ -160,8 +161,10 @@ def test_unported_options_raise(tmp_path):
     assert coords.shape == (1, cfg.num_joints, 2)
     with pytest.raises(ValueError, match="precision"):
         PoseModel(cfg.replace(mrf=dataclasses.replace(cfg.mrf, precision="bf16")))
-    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"],
-                  ["--quantize-artifact", "q.npz", "--mesh-data", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"]):
+        with pytest.raises(FileNotFoundError, match="checkpoint"):  # past the mesh flags
             serve.main(["--config", "tiny", "--checkpoint", str(tmp_path), "--device", "cpu",
                         *flags])
+    with pytest.raises(ValueError, match="exclusive"):
+        serve.main(["--config", "tiny", "--checkpoint", str(tmp_path), "--device", "cpu",
+                    "--quantize-artifact", "q.npz", "--mesh-data", "2"])

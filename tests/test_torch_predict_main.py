@@ -150,14 +150,23 @@ def test_predict_main_calibrates_like_the_artifact(configs, capsys):
     assert all(r["split"] == "train" for r in _records(root / "calib"))
 
 
-# --pipeline is ported (tests/test_torch_pipeline_parallel.py); inference
-# meshes of more than one device come with spatial parallelism.
+# --pipeline (tests/test_torch_pipeline_parallel.py) and inference meshes of
+# more than one device are ported: a mesh over ["cpu"] * (data x model)
+# writes the one-device records; the reference's refusals stand.
 @pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--mesh-model", "2"],
                                    ["--mesh-data", "2", "--mesh-model", "2"]])
-def test_unported_predict_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict.main(["--config", "tiny", "--checkpoint", str(tmp_path), "--workdir",
-                      str(tmp_path), "--device", "cpu", *flags])
+def test_unported_predict_flags_raise(configs, capsys, flags):
+    root, _, _, _, tdir = configs
+    common = ["--config", "tiny", "--checkpoint", tdir, "--num", str(N_TEST), "--batch-size",
+              "2", "--device", "cpu"]
+    predict.main([*common, "--workdir", str(root / "one")])
+    name = "mesh" + "_".join(flags)
+    predict.main([*common, "--workdir", str(root / name), *flags])
+    assert "inference over DeviceMesh" in capsys.readouterr().out
+    _assert_records_agree(_records(root / name), _records(root / "one"))
+    for extra in (["--batch-size", "3"], ["--pipeline", "2"], ["--quantize", "2"]):
+        with pytest.raises(SystemExit):
+            predict.main([*common, "--workdir", str(root / "x"), "--mesh-data", "2", *extra])
 
 
 def test_one_device_mesh_flags_predict(configs):

@@ -93,13 +93,10 @@ def test_one_device_mesh_trains(tmp_path, mesh, capsys):
 
 def test_larger_meshes_still_raise(tmp_path):
     # One process per device: a mesh larger than the world of processes
-    # raises, naming the launcher; spatial parallelism is not ported.
-    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"]):
+    # raises, naming the launcher, with spatial parallelism too.
+    for flags in (["--mesh-data", "2"], ["--mesh-model", "2"], ["--mesh-data", "2", "--mesh-spatial"]):
         with pytest.raises(ValueError, match="torch.distributed.run"):
             train.main(["--config", "tiny", "--workdir", str(tmp_path), "--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--config", "tiny", "--workdir", str(tmp_path), "--device", "cpu",
-                    "--mesh-data", "2", "--mesh-spatial"])
 
 
 STUB = """
