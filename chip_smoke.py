@@ -47,7 +47,17 @@ the package is missing.  Phases, each fatal on failure:
    jointpose_torch.quantize`` on it and ``predict.main`` as a process
    without and with ``--quantize-artifact`` (records equal to the
    in-process predictors', through the epilogue kernel), and resume for 2
-   more steps;
+   more steps (``fit`` takes its steps in dispatches of up to 3 there,
+   cut at the logs: one CUDA graph each once a stage is warm); then the
+   K-step dispatch (``kstep_phase``, two processes of this script with
+   ``--kstep-child``): 2 dispatches of 4 joint steps by graph against 8
+   eager single steps from one state, bit-equal under deterministic
+   algorithms (AdamW; momentum SGD with dispatches of 2), the launches of
+   the epilogue forward and backward and the warp 1 a step at replay, a
+   CPU-written step-0 checkpoint resumed into the graph form, the step
+   time eager and by graph in turns, and ``fit``'s images/s and cost
+   records at steps_per_dispatch 1 and 10, with and without
+   deterministic algorithms;
 8. observability and operations (``observe_phase``): ``fit`` of the same
    config, 4 + 6 steps, with a profiler window of steps 5-7 (its trace,
    read by ``devtime.parse_trace``, holds the path's three kernels as often
@@ -597,6 +607,203 @@ def fit_phase(config, counters: dict, smi: str) -> None:
           f"images; resume took 2 steps and kept the kernels' prior init; on {smi}")
 
 
+# The K-step dispatch's size in the bit-equality check, and in its timing
+# (the default steps_per_dispatch).
+KSTEP_K = 4
+KSTEP_TIMED_K = 10
+
+
+def _opt_tensors(state) -> list[torch.Tensor]:
+    return [v for p in state.model.parameters() for v in state.optimizer.state[p].values()
+            if torch.is_tensor(v)]
+
+
+def _same_state(a, b) -> bool:
+    """Bit-equal parameters, optimizer state, step and generator state."""
+    return (a.step == b.step
+            and all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+            and all(torch.equal(u, v) for u, v in zip(_opt_tensors(a), _opt_tensors(b)))
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def kstep_child(mode: str) -> None:
+    """One process of the kstep phase (``kstep_phase``): the K-step dispatch
+    of ``flagship`` with ``mrf.impl='pallas'`` at full width (batch 32,
+    240x360, the synthetic source on the card, augmentation on), ``mode``
+    'deterministic' (PyTorch's deterministic algorithms, set before any
+    work on the card; the parent sets CUBLAS_WORKSPACE_CONFIG) or 'default'.
+
+    From two states made alike: one warm-up dispatch of KSTEP_K steps (the
+    stage's first, eager by rule) against KSTEP_K single steps, then 2
+    dispatches by graph against 2 x KSTEP_K eager single steps, the launch
+    counts of the graph dispatches read; under 'deterministic' the two
+    ends must be bit-equal (parameters, AdamW's state, the generator, the
+    last metrics), and the same for momentum SGD (fused, tensor lr) with
+    dispatches of 2.  Then, in turns, the step time of single eager steps
+    and of dispatches of KSTEP_TIMED_K by graph, and ``fit`` (30 + 30
+    steps, logs every 10) at steps_per_dispatch 1 and KSTEP_TIMED_K, its
+    logged images/s and its per-stage cost records.  Prints one line
+    ``kstep {json}``."""
+    deterministic = mode == "deterministic"
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+    from jointpose_torch import get_config
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.train import create_state, fit, make_train_multistep, make_train_step
+
+    flag = get_config("flagship")
+    cfg = flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"))
+    tb = cfg.train.batch_size
+    check(cfg.augment.enabled and cfg.augment.warp_impl == "shear" and tb == 32
+          and cfg.data.image_hw == (240, 360) and cfg.data.source == "synthetic"
+          and cfg.train.optimizer == "adamw", "the kstep phase is not flagship at full width")
+    counters = kernel_counters()
+    train_ds, _ = make_dataset(cfg.data)
+
+    def indices(first: int, n: int) -> np.ndarray:
+        return np.stack([np.arange(s * tb, (s + 1) * tb) % train_ds.size
+                         for s in range(first, first + n)])
+
+    result: dict = {"mode": mode}
+    for optimizer, k in (("adamw", KSTEP_K), ("momentum", 2)):
+        c = cfg.replace(train=dataclasses.replace(cfg.train, optimizer=optimizer))
+        step = make_train_step(c, "joint")
+        multi = make_train_multistep(c, "joint", train_ds.get_batch, k)
+        eager = create_state(c, torch.Generator().manual_seed(7))
+        graphed = create_state(c, torch.Generator().manual_seed(7))
+        graphed, _ = multi(graphed, indices(0, k))  # the stage's first dispatch: eager
+        for s in range(k):
+            eager, _ = step(eager, train_ds.get_batch(indices(s, 1)[0]))
+        torch.cuda.synchronize()
+        check(not graphed.graphs.graphs, "the stage's first dispatch was captured")
+        reset(counters)
+        for first in (k, 2 * k):
+            graphed, got = multi(graphed, indices(first, k))
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for s in range(k, 3 * k):
+            eager, want = step(eager, train_ds.get_batch(indices(s, 1)[0]))
+        torch.cuda.synchronize()
+        check(len(graphed.graphs.graphs) == 1, f"{optimizer}: no graph was captured")
+        per_step = {"shear_warp": 1, "mrf_epilogue": 1, "mrf_epilogue_bwd": 1}
+        want_launches = {name: 2 * k * per_step.get(name, 0) for name in counters}
+        check(launches == want_launches,
+              f"{optimizer}: the graph dispatches launched {launches}, not {want_launches}")
+        same = _same_state(graphed, eager) and all(torch.equal(got[n], want[n]) for n in want)
+        worst = max(rel_err(p, q)[0] for p, q in zip(graphed.model.parameters(),
+                                                     eager.model.parameters()))
+        print(f"kstep {optimizer} ({mode} algorithms): 2 dispatches of {k} steps by graph against "
+              f"{2 * k} eager single steps from one state: "
+              f"{'bit-equal' if same else 'NOT bit-equal'} (parameters, optimizer state, generator, "
+              f"step, last metrics; worst parameter rel err {worst:.3e}); launches of the graph "
+              f"dispatches {launches}")
+        if deterministic:
+            check(same, f"{optimizer}: the graph form is not bit-equal to eager single steps")
+        result[optimizer] = {"bit_equal": same, "worst_rel_err": worst, "launches": launches}
+        if optimizer == "adamw":
+            timed_eager, timed_graph = eager, graphed
+        del eager, graphed
+
+    # The step time, single eager steps against dispatches by graph, in turns.
+    step = make_train_step(cfg, "joint")
+    multi = make_train_multistep(cfg, "joint", train_ds.get_batch, KSTEP_TIMED_K)
+    first = 3 * KSTEP_K
+    t_capture = timed_ms(lambda: multi(timed_graph, indices(first, KSTEP_TIMED_K)))
+    first += KSTEP_TIMED_K
+
+    def eager_steps() -> None:
+        for s in range(first, first + KSTEP_TIMED_K):
+            step(timed_eager, train_ds.get_batch(indices(s, 1)[0]))
+
+    def graph_dispatch() -> None:
+        multi(timed_graph, indices(first, KSTEP_TIMED_K))
+
+    turns = [timed_ms(fn) / KSTEP_TIMED_K
+             for fn in (eager_steps, graph_dispatch, graph_dispatch, eager_steps)]
+    result["step_ms"] = {"eager": min(turns[0], turns[3]), "graph": min(turns[1], turns[2]),
+                         "turns": turns, "capture_and_first_replay_ms": t_capture}
+    print(f"kstep step time ({mode} algorithms), flagship batch {tb} with its batch generated, in "
+          f"turns eager / graph / graph / eager: {' / '.join(f'{t:.3f}' for t in turns)} ms a step "
+          f"(dispatches of {KSTEP_TIMED_K}); capture and first replay {t_capture:.1f} ms")
+    del timed_eager, timed_graph
+    torch.cuda.empty_cache()
+
+    if deterministic:
+        # A step-0 checkpoint written on the CPU, as tools/orbax_to_torch.py
+        # writes it, resumes on the card: the CPU's optimizer state dict
+        # (float rates, not capturable) loaded into the card's, then graphs.
+        from jointpose_torch.convert import write_initial_checkpoint
+        from jointpose_torch.predict import init_state_dict
+
+        c = cfg.replace(train=dataclasses.replace(cfg.train, detector_steps=12, joint_steps=0,
+                                                  log_every=4, eval_every=12, steps_per_dispatch=4))
+        with tempfile.TemporaryDirectory() as workdir:
+            write_initial_checkpoint(c, os.path.join(workdir, c.train.checkpoint_dir),
+                                     init_state_dict(c, torch.Generator().manual_seed(9)))
+            resumed = fit(c, workdir, eval_max_batches=1, resume=True)
+        groups = resumed.state.optimizer.param_groups
+        check(resumed.state.step == 12 and len(resumed.state.graphs.graphs) == 1
+              and all(torch.is_tensor(g["lr"]) and g["capturable"] for g in groups)
+              and all(bool(torch.isfinite(p).all()) for p in resumed.state.model.parameters()),
+              "a CPU-written step-0 checkpoint did not resume into the graph form on the card")
+        print("kstep: a step-0 checkpoint written on the CPU resumed on the card, 12 steps in "
+              "dispatches of 4 (the last two by graph), the optimizer's rates tensors again")
+        del resumed
+
+    # fit at steps_per_dispatch 1 and KSTEP_TIMED_K: the logged images/s.
+    det = joint = 30
+    result["fit"] = {}
+    for k in (1, KSTEP_TIMED_K):
+        c = cfg.replace(train=dataclasses.replace(cfg.train, detector_steps=det, joint_steps=joint,
+                                                  log_every=10, eval_every=det + joint,
+                                                  steps_per_dispatch=k))
+        with tempfile.TemporaryDirectory() as workdir:
+            reset(counters)
+            fit(c, workdir, eval_max_batches=1)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            records = read_records(workdir)
+        want = {"shear_warp": det + joint, "mrf_epilogue_bwd": joint, "mrf_epilogue": joint + 1}
+        for name, n in want.items():
+            check(launches[name] == n, f"fit at steps_per_dispatch {k}: {name} launched "
+                  f"{launches[name]} times, not {n}")
+        costs = [(r["step"], r["stage"], r["steps_per_dispatch"]) for r in records
+                 if "roofline_images_per_sec" in r]
+        check(costs == [(0, "detector", k), (det, "joint", k)],
+              f"fit at steps_per_dispatch {k} logged stage costs {costs}")
+        rates = {stage: [r["images_per_sec"] for r in records
+                         if r.get("stage") == stage and "images_per_sec" in r]
+                 for stage in ("detector", "joint")}
+        result["fit"][k] = rates
+        print(f"kstep fit ({mode} algorithms) at steps_per_dispatch {k}: images/s per log interval "
+              f"of 10 steps, detector {[round(x, 1) for x in rates['detector']]}, joint "
+              f"{[round(x, 1) for x in rates['joint']]} (each stage's first interval holds its "
+              f"warm-up, the second its capture); stage cost records {costs}; launches {launches}")
+    print("kstep " + json.dumps(result))
+
+
+def kstep_phase(smi: str) -> dict:
+    """The K-step dispatch on the card (``kstep_child``), once under
+    deterministic algorithms and once with PyTorch's defaults, each in a
+    process of its own."""
+    results = {}
+    for mode, env in (("deterministic", {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}), ("default", {})):
+        out, secs = _child([os.path.abspath(__file__), "--kstep-child", mode],
+                           f"the kstep child ({mode})", env=env)
+        print(out, end="")
+        line = next(x for x in out.splitlines() if x.startswith("kstep {"))
+        results[mode] = json.loads(line[len("kstep "):])
+        print(f"kstep child ({mode} algorithms) took {secs:.1f} s; on {smi}")
+    d, f = results["deterministic"]["fit"], results["default"]["fit"]
+    print(f"kstep: fit's last logged interval of each stage, images/s, deterministic / default "
+          f"algorithms: steps_per_dispatch 1 detector {d['1']['detector'][-1]:.1f} / "
+          f"{f['1']['detector'][-1]:.1f}, joint {d['1']['joint'][-1]:.1f} / "
+          f"{f['1']['joint'][-1]:.1f}; steps_per_dispatch {KSTEP_TIMED_K} detector "
+          f"{d[str(KSTEP_TIMED_K)]['detector'][-1]:.1f} / {f[str(KSTEP_TIMED_K)]['detector'][-1]:.1f}, "
+          f"joint {d[str(KSTEP_TIMED_K)]['joint'][-1]:.1f} / {f[str(KSTEP_TIMED_K)]['joint'][-1]:.1f}; "
+          f"on {smi}")
+    return results
+
+
 # A sitecustomize for the children of the supervised-fit check: the
 # interpreter's own sitecustomize first, then cuDNN's and PyTorch's
 # deterministic algorithms for the whole process.
@@ -1086,11 +1293,13 @@ print("launches " + json.dumps({"mrf_epilogue": mrf_epilogue.launches}))
 """
 
 
-def _child(args: list[str], what: str) -> tuple[str, float]:
-    """Run ``python <args>`` from the repository root; its output and seconds."""
+def _child(args: list[str], what: str, env: dict | None = None) -> tuple[str, float]:
+    """Run ``python <args>`` from the repository root, ``env`` added to the
+    environment; its output and seconds."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, *args], capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env={**os.environ, **(env or {})})
     check(proc.returncode == 0,
           f"{what} exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     return proc.stdout, time.perf_counter() - t0
@@ -2350,12 +2559,17 @@ def main() -> int:
                         help="compare them with an .npz written by --save-joint")
     parser.add_argument("--parallel-child", nargs=2, metavar=("TASK", "DIR"),
                         help=argparse.SUPPRESS)  # a rank of the parallel phase's worlds
+    parser.add_argument("--kstep-child", choices=["deterministic", "default"],
+                        help=argparse.SUPPRESS)  # a process of the kstep phase
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     if opts.parallel_child:
         parallel_child(*opts.parallel_child)
+        return 0
+    if opts.kstep_child:
+        kstep_child(opts.kstep_child)
         return 0
     from jointpose_torch import _build, get_config
     from jointpose_torch.data.augment import inverse_affine, random_augment_params
@@ -2757,6 +2971,7 @@ def main() -> int:
         check(trained["launches"][name] == n,
               f"flagship training: {name} launched {trained['launches'][name]} times, not {n}")
     fit_phase(flag_cfg, counters, smi)
+    kstep_phase(smi)
     observe_phase(flag_cfg, joint, counters, smi)
     served_default = serve_phase(joint, flag_cfg, counters, smi)
     deploy_phase(joint, counters, smi)

@@ -14,8 +14,10 @@ images and (B, H, W, K) heatmaps.
 - ``jointpose_torch.data``    — the synthetic source (generated on the
                                 device), the FLIC loader, the batch
                                 pipeline, augmentation and targets.
-- ``jointpose_torch.train``   — the training step and ``fit`` (staged
-                                training, evals, checkpoints, resume).
+- ``jointpose_torch.train``   — the training step, the K-step dispatch
+                                (one CUDA graph on the card) and ``fit``
+                                (staged training, evals, checkpoints,
+                                resume).
 - ``jointpose_torch.priors``, ``evaluate``, ``metrics``, ``checkpoint``
                               — what ``fit`` is made of.
 - ``jointpose_torch.predict`` — ``build_predictor``, ``restore_params``,

@@ -10,7 +10,8 @@ Two directories back the lifecycle, as in the reference:
   restores.  Its ``metrics.json`` holds the scalar metrics.
 
 A checkpoint is one file ``state.pt`` holding the model's ``state_dict``,
-the optimizer's, the step and the augmentation generator's state.  It is
+the optimizer's, the step and the augmentation generator's state, device
+and seed (a state restored on another kind of device reseeds there).  It is
 written under a temporary name and renamed, so a crash never leaves a
 half-written step directory.  ``run_config.json`` beside the two
 directories records the run's config with the reference's keys, so the
@@ -172,6 +173,8 @@ class Checkpointer:
             "optimizer": state.optimizer.state_dict(),
             "step": int(step),
             "generator": state.generator.get_state(),
+            "generator_device": state.generator.device.type,
+            "generator_seed": state.generator.initial_seed(),
         }
         os.makedirs(self._latest, exist_ok=True)
         tmp = os.path.join(self._latest, f".tmp-{step}-{os.getpid()}")
@@ -226,7 +229,15 @@ class Checkpointer:
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
-        state.generator.set_state(payload["generator"].cpu())
+        device_kind = state.generator.device.type
+        if payload.get("generator_device", device_kind) == device_kind:
+            state.generator.set_state(payload["generator"].cpu())
+        else:
+            # A generator's state is its device's engine (the CPU's Mersenne
+            # twister, CUDA's Philox counter) and cannot cross: the stream
+            # starts again from the saved generator's seed, which is exact
+            # for a step-0 checkpoint (convert.write_initial_checkpoint).
+            state.generator.manual_seed(payload["generator_seed"])
         return state
 
     def restore_subtree(self, names: tuple[str, ...] = ("model",), step: int | None = None,

@@ -15,6 +15,7 @@ the reference's distributions and ranges; its stream differs from
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -81,6 +82,15 @@ def random_augment_params(
     )
 
 
+@functools.cache
+def _flip_perm(device: torch.device) -> torch.Tensor:
+    """``skeleton.FLIP_PERM`` on ``device``, copied from the host once per
+    device (a copy on every step could not be captured in a CUDA graph),
+    outside inference mode."""
+    with torch.inference_mode(False):
+        return torch.tensor(skeleton.FLIP_PERM, device=device)
+
+
 def _forward_affine(params: AugmentParams, image_hw: tuple[int, int]):
     """(B, 2, 2) matrix and (B, 2) offset of the forward map dst = A src + b.
 
@@ -126,7 +136,7 @@ def transform_joints(
     h, w = image_hw
     a, b = _forward_affine(params, image_hw)
     out = _apply_affine(a, b, joints_xy)
-    perm = torch.tensor(skeleton.FLIP_PERM, device=out.device)
+    perm = _flip_perm(out.device)
     f = params.flip[:, None, None]
     out = (1 - f) * out + f * out[:, perm, :]
     fv = params.flip[:, None]

@@ -27,6 +27,7 @@ here they are independent draws.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -59,6 +60,17 @@ _LIMB_COLORS = np.asarray(
     dtype=np.float32,
 )
 _HEAD_COLOR = (0.95, 0.85, 0.7)
+
+
+@functools.cache
+def _render_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The limbs' joint pairs, their colours and the head's colour on
+    ``device``, copied from the host once per device: a copy on every batch
+    could not be captured in a CUDA graph.  Made outside inference mode, so
+    that a first batch drawn under it leaves tensors any later step can use."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(_LIMB_IDX).to(device), torch.from_numpy(_LIMB_COLORS).to(device),
+                torch.tensor(_HEAD_COLOR, device=device))
 
 # Streams of the generator: one per group of draws.
 _POSE, _BACKGROUND, _NOISE = 0, 1, 2
@@ -179,7 +191,7 @@ def render_from_draws(
     )
 
     limb_w = 0.018 * w  # capsule half-width in px
-    idx = torch.from_numpy(_LIMB_IDX).to(dev)
+    idx, colors, head_color = _render_tables(dev)
     p1 = joints_xy[:, idx[:, 0]][..., None, None]  # (B, L, 2, 1, 1)
     p2 = joints_xy[:, idx[:, 1]][..., None, None]
     dx, dy = p2[:, :, 0] - p1[:, :, 0], p2[:, :, 1] - p1[:, :, 1]  # (B, L, 1, 1)
@@ -188,7 +200,6 @@ def render_from_draws(
     px, py = p1[:, :, 0] + t * dx, p1[:, :, 1] + t * dy
     d2 = (gx - px) ** 2 + (gy - py) ** 2
     masks = torch.exp(-d2 / (2.0 * limb_w * limb_w))  # (B, L, H, W)
-    colors = torch.from_numpy(_LIMB_COLORS).to(dev)
     limb_rgb = torch.einsum("blhw,lc->bhwc", masks, colors)
     alpha = masks.sum(dim=1).clamp(0.0, 1.0)[..., None]
 
@@ -198,7 +209,7 @@ def render_from_draws(
     d2 = (gx - nose[:, 0, None, None]) ** 2 + (gy - nose[:, 1, None, None]) ** 2
     head = torch.exp(-d2 / (2.0 * head_r * head_r))[..., None]
 
-    img = bg * (1 - alpha) + limb_rgb + head * torch.tensor(_HEAD_COLOR, device=dev)
+    img = bg * (1 - alpha) + limb_rgb + head * head_color
     return (img + 0.02 * noise).clamp(0.0, 1.0).float()
 
 

@@ -17,6 +17,8 @@ driven alone:
     state = create_state(config, torch.Generator().manual_seed(0))   # on the GPU
     step = make_train_step(config, "joint")
     state, metrics = step(state, {"image": u8, "joints": xy, "visible": vis})
+    multi = make_train_multistep(config, "joint", train_ds.get_batch, k=10)
+    state, metrics = multi(state, indices)   # (10, batch) int: 10 steps, the last one's metrics
 
 One step: draw the augmentation, warp the batch and transform its
 joints, render the Gaussian targets, take the detector loss (plus the
@@ -39,22 +41,30 @@ convs and the MRF's pairwise parameters also over 'model', and under
 ``MeshConfig.spatial`` the trunk's, whose rows are split over 'model'),
 rank 0 alone
 writing metrics, figures and checkpoints, a barrier after each save, a
-preemption on any rank seen by all at the step boundary.
+preemption on any rank seen by all at the dispatch boundary.
 
-Not carried over from the reference's ``fit`` (ROADMAP.md): the K-step
-scan (``steps_per_dispatch`` is read and ignored: one step per call).
-Carried over from ``resilience.py``: SIGTERM checkpoints at the next step
-boundary and exits ``resilience.EXIT_PREEMPTED``; the heartbeat is
-written after each step, eval, prior init and save (none before the
-first step), and ``JOINTPOSE_FAULT_AT_STEP`` is checked after each step,
-so that ``python -m jointpose_torch.resilience`` supervises the run.
-``profile_steps`` (``--profile-steps``) traces steps ``start + 5`` to
-``start + 4 + profile_steps`` under ``metrics.ProfilerHook`` into
-``<workdir>/profile/``.  On CUDA the first step of each stage runs under
-``perf.count_cost`` and logs the step's GFLOP and MB per image and the
-bound ``roofline_images_per_sec`` (the reference logs it on the TPU
-alone).  ``save_figures`` (``--figures``) writes the prior grid after the
-prior init and the PDJ curves and heatmap overlays at the end, under
+``fit`` takes up to ``steps_per_dispatch`` steps in one dispatch
+(``make_train_multistep`` for on-device sources, ``make_train_multistep_arrays``
+for a host-resident split), never across a log, eval, stage or end
+boundary, as the reference's ``fit`` does; K steps in one dispatch are
+bit-identical to K single steps.  Which form a dispatch takes is a rule
+(``graph_dispatch``): one CUDA graph of the K steps, captured once per
+multi-step function and replayed, on CUDA in a world of one process; K
+eager steps on the CPU, in a world of several ranks and under anomaly
+detection.  Carried over from ``resilience.py``: SIGTERM checkpoints at
+the next dispatch boundary and exits ``resilience.EXIT_PREEMPTED``; the
+heartbeat is written after each dispatch, eval, prior init and save (none
+before the first dispatch), and ``JOINTPOSE_FAULT_AT_STEP`` is checked
+after each dispatch, so that ``python -m jointpose_torch.resilience``
+supervises the run.  ``profile_steps`` (``--profile-steps``) traces steps
+``start + 5`` to ``start + 4 + profile_steps`` under
+``metrics.ProfilerHook`` into ``<workdir>/profile/``, one step a dispatch
+inside that window.  On CUDA the first step of each stage runs alone
+under ``perf.count_cost`` and logs the step's GFLOP and MB per image, the
+bound ``roofline_images_per_sec`` and the stage's first dispatch size
+``steps_per_dispatch`` (the reference logs it on the TPU alone).
+``save_figures`` (``--figures``) writes the prior grid after the prior
+init and the PDJ curves and heatmap overlays at the end, under
 ``<workdir>/figures/``.
 """
 
@@ -73,6 +83,7 @@ import torch
 from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config, get_config
 from jointpose_torch.data.augment import AugmentParams, augment_batch, random_augment_params
+from jointpose_torch.data.pipeline import as_index
 from jointpose_torch.data.targets import image_to_heatmap_coords, render_gaussian_heatmaps
 from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose_torch.models.mrf import priors_to_raw_kernels
@@ -91,6 +102,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int  # updates applied so far; the LR schedule reads it
     generator: torch.Generator  # augmentation draws, on the model's device
+    # The CUDA graphs of the K-step dispatches taken on this state.
+    graphs: DispatchGraphs = dataclasses.field(default_factory=lambda: DispatchGraphs())
 
 
 def make_lr(config: Config) -> Callable[[int], float]:
@@ -126,7 +139,15 @@ def make_lr(config: Config) -> Callable[[int], float]:
 def make_optimizer(config: Config, model: PoseModel) -> torch.optim.Optimizer:
     """AdamW, or momentum SGD on weight-decayed gradients, over two param
     groups: the spatial model's parameters carry ``mrf_lr_mult``, the
-    rest 1.  A step sets each group's lr to its multiple of ``make_lr``."""
+    rest 1.  A step sets each group's lr to its multiple of ``make_lr``.
+
+    On CUDA each group's lr is a 0-d float32 tensor on the card that a step
+    writes in place (AdamW ``capturable``, SGD ``fused``: their updates take
+    a tensor lr without reading it on the host), so that a CUDA graph of
+    steps reads the rates of its replay; on the CPU it is a float.  A
+    ``load_state_dict`` keeps this optimizer's lr tensors and flags (the
+    loaded rates copied in), whichever device wrote the state.
+    """
     t = config.train
     spatial = [p for n, p in model.named_parameters() if n.startswith("spatial_model.")]
     rest = [p for n, p in model.named_parameters() if not n.startswith("spatial_model.")]
@@ -134,15 +155,37 @@ def make_optimizer(config: Config, model: PoseModel) -> torch.optim.Optimizer:
     groups = [{"params": rest, "lr_mult": 1.0}]
     if spatial:
         groups.append({"params": spatial, "lr_mult": mult})
+    device = next(model.parameters()).device
+    on_card = device.type == "cuda"
+    if on_card:
+        for group in groups:
+            group["lr"] = torch.tensor(t.learning_rate, dtype=torch.float32, device=device)
     if t.optimizer == "adamw":
-        return torch.optim.AdamW(
-            groups, lr=t.learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=t.weight_decay
+        opt = torch.optim.AdamW(
+            groups, lr=t.learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=t.weight_decay,
+            capturable=on_card,
         )
-    if t.optimizer == "momentum":
-        return torch.optim.SGD(
-            groups, lr=t.learning_rate, momentum=t.momentum, weight_decay=t.weight_decay
+    elif t.optimizer == "momentum":
+        opt = torch.optim.SGD(
+            groups, lr=t.learning_rate, momentum=t.momentum, weight_decay=t.weight_decay,
+            fused=on_card or None,
         )
-    raise ValueError(f"unknown optimizer {t.optimizer!r}")
+    else:
+        raise ValueError(f"unknown optimizer {t.optimizer!r}")
+    own = [{k: g[k] for k in ("lr", "capturable", "fused", "foreach") if k in g}
+           for g in opt.param_groups]
+
+    def keep_route(optimizer: torch.optim.Optimizer) -> None:
+        for group, mine in zip(optimizer.param_groups, own):
+            loaded = float(group["lr"])
+            group.update(mine)
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(loaded)
+            else:
+                group["lr"] = loaded
+
+    opt.register_load_state_dict_post_hook(keep_route)
+    return opt
 
 
 def create_state(
@@ -181,37 +224,22 @@ def _render_targets(config: Config, joints_xy: torch.Tensor, visible: torch.Tens
     }
 
 
-def make_train_step(config: Config, stage: str, mesh=None) -> Callable:
-    """``step(state, batch) -> (state, metrics)`` for a stage
-    ('detector' | 'joint').
-
-    ``batch`` = {'image' (B, H, W, 3) uint8 or float in [0, 1], 'joints'
-    (B, K, 2) image pixels (x, y), 'visible' (B, K)}, on any device.
-    ``metrics``: 'detector_loss', 'mrf_loss' (joint stage), 'loss' and
-    'grad_norm' (the global norm over all gradients), as 0-d tensors.
-    ``aug`` replaces the step's own augmentation draw, so that two runs on
-    different devices can warp alike.  After the step each parameter's
-    ``.grad`` holds this step's gradient.
-
-    Under a ``mesh`` (``parallel.mesh.Mesh``) ``batch`` is this rank's rows
-    of the global batch (``mesh.shard_batch``): the augmentation is drawn
-    for the global batch (``aug`` too is the global batch's) and sliced,
-    the losses' denominators and the gradients are summed over 'data', the
-    parameters the rank uses in a 'model' slice also over 'model', and the
-    metrics are the global batch's.
-    """
+def _make_step_body(config: Config, stage: str, mesh=None) -> Callable:
+    """``body(state, batch, lr, aug=None) -> (state, metrics)``: one step
+    at learning rate ``lr`` (a float, or a 0-d tensor on the card for an
+    optimizer whose groups hold tensor rates), shared by the single step
+    and the K-step dispatches (the reference's ``_make_step_body``)."""
     if stage not in ("detector", "joint"):
         raise ValueError(f"unknown stage {stage!r}")
     use_mrf = stage == "joint" and config.mrf is not None
     freeze_detector = use_mrf and config.train.freeze_detector_in_joint
-    lr_fn = make_lr(config)
     t = config.train
     n_data = 1 if mesh is None else mesh.shape["data"]
     d = 0 if mesh is None else mesh.coords["data"]
     distributed = mesh is not None and mesh.size > 1
 
-    def step(
-        state: TrainState, batch: dict, aug: AugmentParams | None = None
+    def body(
+        state: TrainState, batch: dict, lr, aug: AugmentParams | None = None
     ) -> tuple[TrainState, dict]:
         model, opt = state.model, state.optimizer
         device = next(model.parameters()).device
@@ -265,9 +293,11 @@ def make_train_step(config: Config, stage: str, mesh=None) -> Callable:
         metrics["grad_norm"] = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
         if freeze_detector:
             det_before = [p.detach().clone() for p in model.detector.parameters()]
-        lr = lr_fn(state.step)
         for group in opt.param_groups:
-            group["lr"] = lr * group["lr_mult"]
+            if torch.is_tensor(group["lr"]):
+                group["lr"].copy_(lr * group["lr_mult"])
+            else:
+                group["lr"] = lr * group["lr_mult"]
         opt.step()
         if freeze_detector:
             # Exact freeze: AdamW's decoupled decay would still move the
@@ -278,7 +308,242 @@ def make_train_step(config: Config, stage: str, mesh=None) -> Callable:
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    return body
+
+
+def _learning_rates(optimizer: torch.optim.Optimizer, lr_fn: Callable[[int], float], first: int,
+                    k: int):
+    """The rates of updates ``first`` to ``first + k - 1``: floats for groups
+    that hold float rates, a (k,) float32 tensor on their device for groups
+    that hold 0-d tensors (``make_optimizer`` on CUDA)."""
+    values = [lr_fn(s) for s in range(first, first + k)]
+    lr = optimizer.param_groups[0]["lr"]
+    if not torch.is_tensor(lr):
+        return values
+    return torch.tensor(values, dtype=torch.float32).to(lr.device)
+
+
+def make_train_step(config: Config, stage: str, mesh=None) -> Callable:
+    """``step(state, batch) -> (state, metrics)`` for a stage
+    ('detector' | 'joint').
+
+    ``batch`` = {'image' (B, H, W, 3) uint8 or float in [0, 1], 'joints'
+    (B, K, 2) image pixels (x, y), 'visible' (B, K)}, on any device.
+    ``metrics``: 'detector_loss', 'mrf_loss' (joint stage), 'loss' and
+    'grad_norm' (the global norm over all gradients), as 0-d tensors.
+    ``aug`` replaces the step's own augmentation draw, so that two runs on
+    different devices can warp alike.  After the step each parameter's
+    ``.grad`` holds this step's gradient.
+
+    Under a ``mesh`` (``parallel.mesh.Mesh``) ``batch`` is this rank's rows
+    of the global batch (``mesh.shard_batch``): the augmentation is drawn
+    for the global batch (``aug`` too is the global batch's) and sliced,
+    the losses' denominators and the gradients are summed over 'data', the
+    parameters the rank uses in a 'model' slice also over 'model', and the
+    metrics are the global batch's.
+    """
+    body = _make_step_body(config, stage, mesh)
+    lr_fn = make_lr(config)
+
+    def step(
+        state: TrainState, batch: dict, aug: AugmentParams | None = None
+    ) -> tuple[TrainState, dict]:
+        return body(state, batch, _learning_rates(state.optimizer, lr_fn, state.step, 1)[0], aug)
+
     return step
+
+
+def graph_dispatch(device: torch.device, mesh=None) -> bool:
+    """Which form a K-step dispatch takes, by rule: one CUDA graph of the K
+    steps on CUDA in a world of one process (``mesh`` None or of size 1);
+    K eager steps on the CPU, over a mesh of several ranks (their
+    collectives are not captured) and under
+    ``torch.autograd.set_detect_anomaly`` (``--check-numerics``: its checks
+    read values on the host, which a capture cannot).  A capture that
+    fails raises: no dispatch falls back to eager steps."""
+    return (device.type == "cuda" and (mesh is None or mesh.size == 1)
+            and not torch.is_anomaly_enabled())
+
+
+def make_train_multistep(
+    config: Config, stage: str, get_batch: Callable, k: int, mesh=None
+) -> Callable:
+    """K train steps in one dispatch for an on-device source (counterpart
+    of the reference's ``make_train_multistep``).
+
+    ``multi_step(state, indices)``: ``indices`` (K, rows) int holds this
+    rank's rows of each step's global batch, and ``get_batch`` (the
+    synthetic source, or a split ``device_cache`` holds) generates each
+    step's batch inside the dispatch.  Returns the state after the K steps
+    and the last step's metrics, bit-identical to K calls of
+    ``make_train_step`` (the augmentation draw and the learning rate follow
+    ``state.step`` there too).  The dispatch's form follows
+    ``graph_dispatch``.
+    """
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    body = _make_step_body(config, stage, mesh)
+    lr_fn = make_lr(config)
+
+    def multi_step(state: TrainState, indices) -> tuple[TrainState, dict]:
+        indices = as_index(indices)
+        if indices.dim() != 2 or indices.shape[0] != k:
+            raise ValueError(f"indices must be ({k}, rows), got {tuple(indices.shape)}")
+        return _dispatch(multi_step, state, stage, k, mesh, body, lr_fn, {"indices": indices},
+                         lambda inputs, i: get_batch(inputs["indices"][i]))
+
+    return multi_step
+
+
+def make_train_multistep_arrays(config: Config, stage: str, k: int, mesh=None) -> Callable:
+    """K train steps in one dispatch for a host-resident split (counterpart
+    of the reference's ``make_train_multistep_arrays``).
+
+    ``multi_step(state, batches)``: ``batches`` is ``make_train_step``'s
+    batch with a leading axis of K on each tensor ((K, rows, H, W, 3)
+    images, uint8 or float, ...), best in pinned memory on CUDA: each tensor
+    crosses to the device in one copy, uint8 images as uint8.  Returns the
+    state after the K steps and the last step's metrics, bit-identical to K
+    calls of ``make_train_step``; the form follows ``graph_dispatch``.
+    """
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    body = _make_step_body(config, stage, mesh)
+    lr_fn = make_lr(config)
+
+    def multi_step(state: TrainState, batches: dict) -> tuple[TrainState, dict]:
+        if any(v.shape[0] != k for v in batches.values()):
+            raise ValueError(f"each batch tensor must lead with {k} steps")
+        return _dispatch(multi_step, state, stage, k, mesh, body, lr_fn, dict(batches),
+                         lambda inputs, i: {name: v[i] for name, v in inputs.items()})
+
+    return multi_step
+
+
+def _dispatch(key, state, stage, k, mesh, body, lr_fn, inputs, batch_of):
+    device = next(state.model.parameters()).device
+    if graph_dispatch(device, mesh):
+        return state.graphs.run(key, state, stage, k, body, lr_fn, inputs, batch_of)
+    return _eager_steps(state, k, body, lr_fn, inputs, batch_of)
+
+
+def _eager_steps(state, k, body, lr_fn, inputs, batch_of):
+    """The K steps one after another; each tensor of ``inputs`` crosses to
+    the device once."""
+    device = next(state.model.parameters()).device
+    inputs = {name: v.to(device, non_blocking=True) for name, v in inputs.items()}
+    lrs = _learning_rates(state.optimizer, lr_fn, state.step, k)
+    for i in range(k):
+        state, metrics = body(state, batch_of(inputs, i), lrs[i])
+    return state, metrics
+
+
+def _graph_anchors(state: TrainState) -> list[int]:
+    """Where the tensors live that a captured dispatch reads and updates in
+    place across replays: the parameters, the optimizer's state and rates,
+    and the generator."""
+    opt = state.optimizer
+    tensors = [p for g in opt.param_groups for p in g["params"]]
+    tensors += [g["lr"] for g in opt.param_groups if torch.is_tensor(g["lr"])]
+    tensors += [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v)]
+    return [id(state.generator), *(t.data_ptr() for t in tensors)]
+
+
+class DispatchGraphs:
+    """The graph form of the K-step dispatch: one ``torch.cuda.CUDAGraph``
+    per multi-step function, captured at its first dispatch once its stage
+    is warm, then replayed; all of a state's graphs share one memory pool
+    and one capture stream.
+
+    - A stage's first dispatch runs eagerly, on the capture stream: it
+      creates the optimizer's state (a capture would record its creation
+      and replay it) and sets cuDNN and cuBLAS up for that stream.
+    - A capture records the K steps' launches on the card and nothing on
+      the host: the state's step count and the kernels' launch counters
+      are put back afterwards; each replay advances the step count by K,
+      adds the launches the capture recorded to the counters, and
+      advances the augmentation generator (registered with the graph) as
+      K eager steps would.
+    - The host fills the graph's static inputs (indices or batches) and
+      its K learning rates before each replay, and clones the last step's
+      metrics after it; each parameter's ``.grad`` is then the graph's
+      gradient of the last step.
+    - When what the graphs read in place was replaced (a
+      ``load_state_dict`` of the optimizer, a new parameter tensor), they
+      are thrown away and the stages warmed again.
+    """
+
+    def __init__(self):
+        self.graphs: dict = {}
+        self.warm: set[str] = set()
+        self.anchors: list[int] | None = None
+        self.stream = None
+        self.pool = None
+
+    def run(self, key, state, stage, k, body, lr_fn, inputs, batch_of):
+        device = next(state.model.parameters()).device
+        with torch.cuda.device(device):
+            if self.stream is None:
+                self.stream, self.pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
+            if _graph_anchors(state) != self.anchors:
+                self.graphs.clear()
+                self.warm.clear()
+            if stage not in self.warm:
+                current = torch.cuda.current_stream()
+                self.stream.wait_stream(current)
+                with torch.cuda.stream(self.stream):
+                    out = _eager_steps(state, k, body, lr_fn, inputs, batch_of)
+                current.wait_stream(self.stream)
+                self.warm.add(stage)
+                self.anchors = _graph_anchors(state)
+                return out
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = _CapturedDispatch(
+                    state, k, body, inputs, batch_of, self.stream, self.pool)
+            return graph.replay(state, lr_fn, inputs)
+
+
+class _CapturedDispatch:
+    """One captured K-step dispatch and its static tensors."""
+
+    def __init__(self, state, k, body, inputs, batch_of, stream, pool):
+        from jointpose_torch.ops import launch_counters
+
+        device = next(state.model.parameters()).device
+        self.inputs = {name: torch.empty(v.shape, dtype=v.dtype, device=device)
+                       for name, v in inputs.items()}
+        self.lrs = torch.zeros(k, dtype=torch.float32, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.generator)
+        self.counters = launch_counters()
+        before = [getattr(holder, name) for holder, name in self.counters]
+        first = state.step
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                for i in range(k):
+                    state, metrics = body(state, batch_of(self.inputs, i), self.lrs[i])
+            self.launches = [getattr(holder, name) - n
+                             for (holder, name), n in zip(self.counters, before)]
+        finally:
+            state.step = first
+            for (holder, name), n in zip(self.counters, before):
+                setattr(holder, name, n)
+        self.metrics = metrics
+        self.grads = [p.grad for p in state.model.parameters()]
+
+    def replay(self, state, lr_fn, inputs):
+        k = self.lrs.numel()
+        for name, v in inputs.items():
+            self.inputs[name].copy_(v, non_blocking=True)
+        self.lrs.copy_(_learning_rates(state.optimizer, lr_fn, state.step, k))
+        self.graph.replay()
+        state.step += k
+        for (holder, name), n in zip(self.counters, self.launches):
+            setattr(holder, name, getattr(holder, name) + n)
+        for p, g in zip(state.model.parameters(), self.grads):
+            p.grad = g
+        return state, {name: v.clone() for name, v in self.metrics.items()}
 
 
 def init_mrf_from_priors(state: TrainState, priors) -> TrainState:
@@ -410,24 +675,52 @@ def fit(
         heartbeat.beat(step)  # an eval blocks the loop
         return ev
 
-    def take_step(stage: str, step: int):
-        return step_fns[stage](state, train_ds.get_batch(indices_for_step(step)))
+    # An on-device source (synthetic, or a split device_cache holds)
+    # generates each step's batch inside the dispatch from its indices; a
+    # host-resident split stages the dispatch's batches in host memory,
+    # pinned on CUDA, and each tensor crosses to the device in one copy.
+    fused = not train_ds.host_resident
+    multi_fns: dict[tuple[str, int], Callable] = {}
 
-    def counted_step(stage: str, step: int):
-        """The step under ``perf.count_cost``, logged as the reference's
-        per-stage cost record: what the step (its batch generated on the
-        card included) reads, writes and multiplies, per image, and the
-        images per second the card's peaks would allow for it."""
+    def staged(batches: list[dict]) -> dict:
+        out = {}
+        for key in batches[0]:
+            parts = [b[key] for b in batches]
+            buf = torch.empty((len(parts), *parts[0].shape), dtype=parts[0].dtype,
+                              pin_memory=device.type == "cuda")
+            out[key] = torch.stack(parts, out=buf)
+        return out
+
+    def take_steps(stage: str, first: int, chunk: int):
+        """Steps ``first`` to ``first + chunk - 1`` of ``stage`` in one dispatch."""
+        if chunk == 1:
+            return step_fns[stage](state, train_ds.get_batch(indices_for_step(first)))
+        fn = multi_fns.get((stage, chunk))
+        if fn is None:
+            fn = multi_fns[stage, chunk] = (
+                make_train_multistep(config, stage, train_ds.get_batch, chunk, mesh) if fused
+                else make_train_multistep_arrays(config, stage, chunk, mesh))
+        steps = range(first, first + chunk)
+        if fused:
+            return fn(state, np.stack([indices_for_step(s) for s in steps]))
+        return fn(state, staged([train_ds.get_batch(indices_for_step(s)) for s in steps]))
+
+    def counted_steps(stage: str, first: int, chunk: int):
+        """A stage's first dispatch, its first step alone under
+        ``perf.count_cost``, logged as the reference's per-stage cost record:
+        what one step (its batch generated on the card included) reads,
+        writes and multiplies, per image, the images per second the card's
+        peaks would allow for it, and the dispatch's size."""
         with count_cost() as cost:
-            out = take_step(stage, step)
+            out = take_steps(stage, first, 1)
         per_img_flops, per_img_bytes = cost.flops / rows, cost.bytes / rows
         logger.log(
-            step, stage=stage, steps_per_dispatch=1,
+            first, stage=stage, steps_per_dispatch=chunk,
             train_step_gflops_per_image=per_img_flops / 1e9,
             train_step_mb_per_image=per_img_bytes / 1e6,
             roofline_images_per_sec=roofline_images_per_sec(per_img_flops, per_img_bytes),
         )
-        return out
+        return take_steps(stage, first + 1, chunk - 1) if chunk > 1 else out
 
     # A trace of a window after the run's first steps (cuDNN's algorithm
     # choice and the kernel builds stay out of it).
@@ -440,10 +733,27 @@ def fit(
             torch.cuda.synchronize(device)
         return time.time()
 
+    k_dispatch = max(t.steps_per_dispatch, 1)
+
+    def dispatch_size(step: int) -> int:
+        """Up to ``steps_per_dispatch`` steps, never across a log, eval,
+        stage or end boundary (the reference's chunking); a profiled window
+        takes one step a dispatch, so that each of its steps is a range of
+        its own in the trace."""
+        bounds = [(step // t.log_every + 1) * t.log_every,
+                  (step // t.eval_every + 1) * t.eval_every,
+                  det_steps if step < det_steps else total_steps, total_steps]
+        k = k_dispatch
+        if profiler is not None:
+            bounds += [profiler.start_step, profiler.stop_step]
+            if profiler.start_step <= step < profiler.stop_step:
+                k = 1
+        return min(k, min(b for b in bounds if b > step) - step)
+
     step = start_step
     t_last, n_last = now(), step
     final_eval: dict = {}
-    # SIGTERM -> checkpoint at the next step boundary and exit EXIT_PREEMPTED,
+    # SIGTERM -> checkpoint at the next dispatch boundary and exit EXIT_PREEMPTED,
     # from which --resume goes on (jointpose_torch/resilience.py).
     preemption = PreemptionHandler().install()
     try:
@@ -459,17 +769,18 @@ def fit(
                     from jointpose_torch.visualize import save_prior_grid
 
                     save_prior_grid(np.asarray(priors), f"{workdir}/figures/priors.png")
-            run = take_step
+            chunk = dispatch_size(step)
+            run = take_steps
             if device.type == "cuda" and stage not in costed:
                 costed.add(stage)
-                run = counted_step
+                run = counted_steps
             if profiler is not None:
                 profiler.on_step(step)
                 with profiler.annotation(step):
-                    state, metrics = run(stage, step)
+                    state, metrics = run(stage, step, chunk)
             else:
-                state, metrics = run(stage, step)
-            step += 1
+                state, metrics = run(stage, step, chunk)
+            step += chunk
             heartbeat.beat(step)
             maybe_inject_fault(workdir, step)
             # A preemption of any rank is seen by all at this boundary, so
@@ -535,7 +846,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--learning-rate", type=float, default=None)
     parser.add_argument("--lr-schedule", choices=["constant", "cosine"], default=None)
     parser.add_argument("--steps-per-dispatch", type=int, default=None,
-                        help="accepted for the reference's command lines; one step per call here")
+                        help="train steps per dispatch (default: the config's): one CUDA graph of "
+                             "them on the card in a world of one process, eager steps otherwise")
     parser.add_argument("--mrf-lr-mult", type=float, default=None,
                         help="LR multiplier for the spatial model's parameters")
     parser.add_argument("--mrf-loss", choices=["mse", "ce"], default=None,

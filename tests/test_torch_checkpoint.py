@@ -172,3 +172,22 @@ def test_write_initial_checkpoint_is_step_zero_with_the_given_weights(tmp_path):
     state = tckpt.Checkpointer(str(tmp_path)).restore(
         create_state(cfg, torch.Generator().manual_seed(0), device="cpu"))
     assert state.step == 0 and not state.optimizer.state_dict()["state"]
+
+
+def test_a_generator_state_from_another_device_kind_reseeds(tmp_path):
+    """A generator's state belongs to its device's engine: a checkpoint
+    whose generator ran on another kind of device (here a payload marked
+    'cuda', whose Philox state is 16 bytes) restores by reseeding from the
+    saved seed, the stream a fresh run on this device draws at step 0."""
+    cfg = _cfg()
+    weights = init_state_dict(cfg, torch.Generator().manual_seed(4))
+    write_initial_checkpoint(cfg, str(tmp_path), weights)
+    path = os.path.join(str(tmp_path), "latest", "0", tckpt.STATE_FILE)
+    payload = torch.load(path, weights_only=True)
+    fresh = create_state(cfg, torch.Generator().manual_seed(cfg.train.seed), device="cpu")
+    assert payload["generator_seed"] == fresh.generator.initial_seed()
+    torch.save({**payload, "generator": torch.zeros(16, dtype=torch.uint8),
+                "generator_device": "cuda"}, path)
+    state = create_state(cfg, torch.Generator().manual_seed(1), device="cpu")
+    state = tckpt.Checkpointer(str(tmp_path)).restore(state)
+    assert torch.equal(state.generator.get_state(), fresh.generator.get_state())

@@ -9,8 +9,9 @@ parameters of the same two invocations in one process at the reference's
 tolerance (rtol 1e-4, atol 2e-5) and on its final PDJ exactly.
 
 A supervised two-process run (``python -m jointpose_torch.resilience
---nproc-per-node 2``) with a fault injected at step 6 loses its group,
-is relaunched with ``--resume`` from the step-4 checkpoint, and ends on
+--nproc-per-node 2``; dispatches of 2 steps, so that step 6 is a dispatch
+boundary, where the drills act) with a fault injected at step 6 loses
+its group, is relaunched with ``--resume`` from the step-4 checkpoint, and ends on
 the unbroken two-process run's parameters exactly.  So does a group
 whose rank 1 is preempted (a SIGTERM) at step 6, free of the failure
 budget though the launcher exits 1, and one whose rank 1 hangs at step
@@ -104,7 +105,8 @@ def test_supervised_two_process_fit_resumes_after_a_fault(unbroken, tmp_path):
     workdir = str(tmp_path / "sup")
     _run([sys.executable, "-m", "jointpose_torch.resilience", "--nproc-per-node", "2",
           "--max-restarts", "1", "--", *BASE, "--workdir", workdir, "--mesh-data", "2",
-          "--joint-steps", "4", "--eval-every", "4"], JOINTPOSE_FAULT_AT_STEP="6")
+          "--joint-steps", "4", "--eval-every", "4", "--steps-per-dispatch", "2"],
+         JOINTPOSE_FAULT_AT_STEP="6")
     with open(os.path.join(workdir, "supervisor.jsonl")) as f:
         events = [json.loads(line) for line in f]
     assert [e["event"] for e in events] == ["launch", "failure", "launch", "done"]
@@ -148,7 +150,8 @@ def _supervise_drill(tmp_path, drill, **kw):
     sup = resilience.Supervisor(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
          str(script), *BASE, "--workdir", workdir, "--mesh-data", "2", "--joint-steps", "4",
-         "--eval-every", "4"], workdir=workdir, max_restarts=1, env=_env(DRILL=drill), **kw)
+         "--eval-every", "4", "--steps-per-dispatch", "2"], workdir=workdir, max_restarts=1,
+        env=_env(DRILL=drill), **kw)
     rcs = []
     runner = threading.Thread(target=lambda: rcs.append(sup.run()))
     runner.start()

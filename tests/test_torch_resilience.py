@@ -196,8 +196,10 @@ def test_the_fault_fires_once_per_workdir(tmp_path, monkeypatch):
 
 def test_supervised_fit_survives_a_fault_and_ends_bit_equal(tmp_path):
     """``python -m jointpose_torch.resilience`` over ``tiny`` on the CPU: the
-    fault at step 5 kills the child, the restart resumes from the step-4
-    checkpoint and ends on the parameters of an unbroken run."""
+    fault set for step 5 kills the child at the first dispatch boundary at
+    or past it (step 8: the run takes its steps in dispatches of 4, cut at
+    the evals), the restart resumes from the step-4 checkpoint and ends on
+    the parameters of an unbroken run."""
     from jointpose_torch.checkpoint import Checkpointer
 
     def command(workdir, *pre):
@@ -217,7 +219,7 @@ def test_supervised_fit_survives_a_fault_and_ends_bit_equal(tmp_path):
         events = [json.loads(line) for line in f]
     assert [(e["event"], e.get("rc")) for e in events] == [
         ("launch", None), ("failure", 41), ("launch", None), ("done", None)]
-    assert "injecting fault at step 5" in outs[0] and "resumed from step 4" in outs[0]
+    assert "injecting fault at step 8" in outs[0] and "resumed from step 4" in outs[0]
     assert outs[0].count("estimating pairwise priors") == 2  # step 4 predates the prior init
 
     got, want = (Checkpointer(os.path.join(w, "checkpoints")).restore_subtree()["model"]
