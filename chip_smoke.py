@@ -124,7 +124,16 @@ the package is missing.  Phases, each fatal on failure:
    ``build_predictor``, with its p50, and rows 1, 2, 3, 3',
    4, 6 and 7 at the shard-local shapes against their plain versions,
    timed (``shard_kernel_checks``); each world's launch counts are read
-   from its ranks;
+   from its ranks; then the K-step dispatch over an nccl mesh, a card a
+   rank (``nccl_kstep_phase``, worlds of this script with
+   ``--nccl-kstep-child`` under ``python -m torch.distributed.run``; on
+   one card it prints one line and runs nothing): on every rank of data 4,
+   2x2 and 2x2 spatial, 2 dispatches of 4 by graph, their collectives
+   captured, bit-equal to 8 eager single steps under deterministic
+   algorithms, the launches 1 a step, every process group of the capture
+   warmed by an eager collective; a rank's step time eager and by graph
+   in turns and ``fit``'s images/s at steps_per_dispatch 1 and 10 over
+   data 1, 2 and 4 and 2x2;
 12. time each kernel and its plain version at the main-path shape, the
    epilogue forward also against its first design and an empty launch,
    in turns: the two forms of the Fourier MRF tail, the fused shear warp
@@ -626,6 +635,94 @@ def _same_state(a, b) -> bool:
             and torch.equal(a.generator.get_state(), b.generator.get_state()))
 
 
+def _step_turns(cfg, train_ds, indices, eager, graphed, first: int, mesh=None) -> dict:
+    """A joint step's time with its batch generated, in turns: KSTEP_TIMED_K
+    single eager steps of ``eager`` against one dispatch of KSTEP_TIMED_K by
+    graph of ``graphed`` (whose joint stage is warm), eager / graph / graph
+    / eager, each turn in ms a step; the dispatch that captures (and
+    replays once) is timed apart, before the turns.  Steps from ``first``;
+    over ``mesh`` the ranks start each turn together."""
+    from jointpose_torch.train import make_train_multistep, make_train_step
+
+    step = make_train_step(cfg, "joint", mesh)
+    multi = make_train_multistep(cfg, "joint", train_ds.get_batch, KSTEP_TIMED_K, mesh)
+
+    def together(fn) -> float:
+        torch.cuda.synchronize()
+        if mesh is not None:
+            mesh.any(False)
+        return timed_ms(fn)
+
+    t_capture = together(lambda: multi(graphed, indices(first, KSTEP_TIMED_K)))
+    first += KSTEP_TIMED_K
+
+    def eager_steps() -> None:
+        for s in range(first, first + KSTEP_TIMED_K):
+            step(eager, train_ds.get_batch(indices(s, 1)[0]))
+
+    def graph_dispatch() -> None:
+        multi(graphed, indices(first, KSTEP_TIMED_K))
+
+    turns = [together(fn) / KSTEP_TIMED_K
+             for fn in (eager_steps, graph_dispatch, graph_dispatch, eager_steps)]
+    return {"eager": min(turns[0], turns[3]), "graph": min(turns[1], turns[2]), "turns": turns,
+            "capture_and_first_replay_ms": t_capture}
+
+
+def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True) -> dict:
+    """``fit`` of ``cfg`` (30 + 30 steps, logs every 10) at
+    steps_per_dispatch 1 and KSTEP_TIMED_K, under ``root``: for each size
+    this process's launches and captures, and on the ``lead`` rank (the one
+    that writes the metrics) the logged images/s of each stage and the
+    per-stage cost records.  The launches and the cost records are held."""
+    import jointpose_torch.train as train_mod
+
+    captures = []
+
+    class Counted(train_mod._CapturedDispatch):
+        def __init__(self, *args):
+            super().__init__(*args)
+            captures.append(1)
+
+    det = joint = 30
+    out: dict = {}
+    plain, train_mod._CapturedDispatch = train_mod._CapturedDispatch, Counted
+    try:
+        for k in (1, KSTEP_TIMED_K):
+            c = cfg.replace(train=dataclasses.replace(cfg.train, detector_steps=det,
+                                                      joint_steps=joint, log_every=10,
+                                                      eval_every=det + joint,
+                                                      steps_per_dispatch=k))
+            workdir = os.path.join(root, f"fit_{k}")
+            reset(counters)
+            captures.clear()
+            result = train_mod.fit(c, workdir, eval_max_batches=1, device=device)
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            want = {"shear_warp": det + joint, "mrf_epilogue_bwd": joint,
+                    "mrf_epilogue": joint + 1}
+            check(result.state.step == det + joint
+                  and all(launches[n] == v for n, v in want.items()),
+                  f"fit at steps_per_dispatch {k} ended at step {result.state.step} with "
+                  f"launches {launches}, not {want}")
+            res = {"launches": launches, "captured": len(captures)}
+            if lead:
+                records = read_records(workdir)
+                res["costs"] = [(r["step"], r["stage"], r["steps_per_dispatch"]) for r in records
+                                if "roofline_images_per_sec" in r]
+                check(res["costs"] == [(0, "detector", k), (det, "joint", k)],
+                      f"fit at steps_per_dispatch {k} logged stage costs {res['costs']}")
+                res["rates"] = {stage: [r["images_per_sec"] for r in records
+                                        if r.get("stage") == stage and "images_per_sec" in r]
+                                for stage in ("detector", "joint")}
+            out[k] = res
+            del result
+            torch.cuda.empty_cache()
+    finally:
+        train_mod._CapturedDispatch = plain
+    return out
+
+
 def kstep_child(mode: str) -> None:
     """One process of the kstep phase (``kstep_phase``): the K-step dispatch
     of ``flagship`` with ``mrf.impl='pallas'`` at full width (batch 32,
@@ -639,11 +736,9 @@ def kstep_child(mode: str) -> None:
     counts of the graph dispatches read; under 'deterministic' the two
     ends must be bit-equal (parameters, AdamW's state, the generator, the
     last metrics), and the same for momentum SGD (fused, tensor lr) with
-    dispatches of 2.  Then, in turns, the step time of single eager steps
-    and of dispatches of KSTEP_TIMED_K by graph, and ``fit`` (30 + 30
-    steps, logs every 10) at steps_per_dispatch 1 and KSTEP_TIMED_K, its
-    logged images/s and its per-stage cost records.  Prints one line
-    ``kstep {json}``."""
+    dispatches of 2.  Then the step time in turns (``_step_turns``) and
+    ``fit`` at steps_per_dispatch 1 and KSTEP_TIMED_K (``_fit_rates``).
+    Prints one line ``kstep {json}``."""
     deterministic = mode == "deterministic"
     if deterministic:
         torch.use_deterministic_algorithms(True)
@@ -705,26 +800,12 @@ def kstep_child(mode: str) -> None:
         del eager, graphed
 
     # The step time, single eager steps against dispatches by graph, in turns.
-    step = make_train_step(cfg, "joint")
-    multi = make_train_multistep(cfg, "joint", train_ds.get_batch, KSTEP_TIMED_K)
-    first = 3 * KSTEP_K
-    t_capture = timed_ms(lambda: multi(timed_graph, indices(first, KSTEP_TIMED_K)))
-    first += KSTEP_TIMED_K
-
-    def eager_steps() -> None:
-        for s in range(first, first + KSTEP_TIMED_K):
-            step(timed_eager, train_ds.get_batch(indices(s, 1)[0]))
-
-    def graph_dispatch() -> None:
-        multi(timed_graph, indices(first, KSTEP_TIMED_K))
-
-    turns = [timed_ms(fn) / KSTEP_TIMED_K
-             for fn in (eager_steps, graph_dispatch, graph_dispatch, eager_steps)]
-    result["step_ms"] = {"eager": min(turns[0], turns[3]), "graph": min(turns[1], turns[2]),
-                         "turns": turns, "capture_and_first_replay_ms": t_capture}
+    turns = result["step_ms"] = _step_turns(cfg, train_ds, indices, timed_eager, timed_graph,
+                                            3 * KSTEP_K)
     print(f"kstep step time ({mode} algorithms), flagship batch {tb} with its batch generated, in "
-          f"turns eager / graph / graph / eager: {' / '.join(f'{t:.3f}' for t in turns)} ms a step "
-          f"(dispatches of {KSTEP_TIMED_K}); capture and first replay {t_capture:.1f} ms")
+          f"turns eager / graph / graph / eager: "
+          f"{' / '.join(f'{t:.3f}' for t in turns['turns'])} ms a step (dispatches of "
+          f"{KSTEP_TIMED_K}); capture and first replay {turns['capture_and_first_replay_ms']:.1f} ms")
     del timed_eager, timed_graph
     torch.cuda.empty_cache()
 
@@ -751,33 +832,14 @@ def kstep_child(mode: str) -> None:
         del resumed
 
     # fit at steps_per_dispatch 1 and KSTEP_TIMED_K: the logged images/s.
-    det = joint = 30
-    result["fit"] = {}
-    for k in (1, KSTEP_TIMED_K):
-        c = cfg.replace(train=dataclasses.replace(cfg.train, detector_steps=det, joint_steps=joint,
-                                                  log_every=10, eval_every=det + joint,
-                                                  steps_per_dispatch=k))
-        with tempfile.TemporaryDirectory() as workdir:
-            reset(counters)
-            fit(c, workdir, eval_max_batches=1)
-            launches = {name: fn.launches for name, fn in counters.items()}
-            records = read_records(workdir)
-        want = {"shear_warp": det + joint, "mrf_epilogue_bwd": joint, "mrf_epilogue": joint + 1}
-        for name, n in want.items():
-            check(launches[name] == n, f"fit at steps_per_dispatch {k}: {name} launched "
-                  f"{launches[name]} times, not {n}")
-        costs = [(r["step"], r["stage"], r["steps_per_dispatch"]) for r in records
-                 if "roofline_images_per_sec" in r]
-        check(costs == [(0, "detector", k), (det, "joint", k)],
-              f"fit at steps_per_dispatch {k} logged stage costs {costs}")
-        rates = {stage: [r["images_per_sec"] for r in records
-                         if r.get("stage") == stage and "images_per_sec" in r]
-                 for stage in ("detector", "joint")}
-        result["fit"][k] = rates
+    with tempfile.TemporaryDirectory() as root:
+        result["fit"] = _fit_rates(cfg, root, counters)
+    for k, f in result["fit"].items():
         print(f"kstep fit ({mode} algorithms) at steps_per_dispatch {k}: images/s per log interval "
-              f"of 10 steps, detector {[round(x, 1) for x in rates['detector']]}, joint "
-              f"{[round(x, 1) for x in rates['joint']]} (each stage's first interval holds its "
-              f"warm-up, the second its capture); stage cost records {costs}; launches {launches}")
+              f"of 10 steps, detector {[round(x, 1) for x in f['rates']['detector']]}, joint "
+              f"{[round(x, 1) for x in f['rates']['joint']]} (each stage's first interval holds its "
+              f"warm-up, the second its capture); stage cost records {f['costs']}; launches "
+              f"{f['launches']}")
     print("kstep " + json.dumps(result))
 
 
@@ -793,7 +855,8 @@ def kstep_phase(smi: str) -> dict:
         line = next(x for x in out.splitlines() if x.startswith("kstep {"))
         results[mode] = json.loads(line[len("kstep "):])
         print(f"kstep child ({mode} algorithms) took {secs:.1f} s; on {smi}")
-    d, f = results["deterministic"]["fit"], results["default"]["fit"]
+    d, f = ({k: v["rates"] for k, v in results[mode]["fit"].items()}
+            for mode in ("deterministic", "default"))
     print(f"kstep: fit's last logged interval of each stage, images/s, deterministic / default "
           f"algorithms: steps_per_dispatch 1 detector {d['1']['detector'][-1]:.1f} / "
           f"{f['1']['detector'][-1]:.1f}, joint {d['1']['joint'][-1]:.1f} / "
@@ -802,6 +865,250 @@ def kstep_phase(smi: str) -> dict:
           f"joint {d[str(KSTEP_TIMED_K)]['joint'][-1]:.1f} / {f[str(KSTEP_TIMED_K)]['joint'][-1]:.1f}; "
           f"on {smi}")
     return results
+
+
+# The nccl_kstep phase's meshes, (data, model, spatial): the bit-equality
+# meshes need four cards (with two or three the phase takes data 2), the
+# timed ones as many as their size.
+NCCL_EQUAL_MESHES = ((4, 1, False), (2, 2, False), (2, 2, True))
+NCCL_TIMED_MESHES = ((1, 1, False), (2, 1, False), (4, 1, False), (2, 2, False))
+
+
+def _mesh_name(data: int, model: int, spatial: bool) -> str:
+    return f"{data}x{model}" + ("s" if spatial else "")
+
+
+def _parse_meshes(names: str) -> list[tuple[int, int, bool]]:
+    return [(*(int(x) for x in n.rstrip("s").split("x")), n.endswith("s"))
+            for n in names.split(",")]
+
+
+def nccl_kstep_child(task: str, out: str) -> None:
+    """One rank of a world that ``nccl_kstep_phase`` launches through
+    ``python -m torch.distributed.run``, a card a rank (nccl): the K-step
+    dispatch of ``flagship(mrf.impl='pallas')`` at full width (global batch
+    32, 240x360, the synthetic source on the card, augmentation on) over
+    each mesh of ``task`` = '<kind>:<mesh>,...', a mesh '<data>x<model>'
+    with 's' for spatial, each covering the world.
+
+    'equal' (PyTorch's deterministic algorithms, set before any work on
+    the card; the parent sets CUBLAS_WORKSPACE_CONFIG): from two states
+    made alike, one warm-up dispatch of KSTEP_K steps (the stage's first,
+    eager by rule) against KSTEP_K single steps, then 2 dispatches by graph
+    against 2 x KSTEP_K eager single steps, the launch counts of the graph
+    dispatches read, and which process groups ran a collective eagerly and
+    under the capture.  'time' (PyTorch's defaults): the step time in
+    turns (``_step_turns``), then ``fit`` at steps_per_dispatch 1 and
+    KSTEP_TIMED_K (``_fit_rates``).  Writes
+    ``<out>/<kind>_<mesh>_rank<r>.json``."""
+    kind, names = task.split(":")
+    if kind == "equal":
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    import torch.distributed as dist
+
+    from jointpose_torch import get_config
+    from jointpose_torch.configs import MeshConfig
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.parallel.mesh import (
+        init_distributed, make_mesh, shard_state, shutdown_distributed,
+    )
+    from jointpose_torch.train import (
+        create_state, graph_dispatch, make_train_multistep, make_train_step,
+    )
+
+    device = init_distributed()
+    counters = kernel_counters()
+    flag = get_config("flagship")
+    flag = flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"))
+    tb = flag.train.batch_size
+    check(flag.augment.enabled and tb == 32 and flag.data.image_hw == (240, 360)
+          and flag.data.source == "synthetic", "the nccl_kstep phase is not flagship at full width")
+    train_ds, _ = make_dataset(flag.data, device)
+    for data, model, spatial in _parse_meshes(names):
+        name = _mesh_name(data, model, spatial)
+        cfg = flag.replace(mesh=MeshConfig(data=data, model=model, spatial=spatial))
+        mesh = make_mesh(cfg.mesh)
+        rows, d = tb // data, mesh.coords["data"]
+
+        def indices(first: int, n: int) -> np.ndarray:
+            """This rank's rows of steps ``first`` to ``first + n - 1``."""
+            return np.stack([(np.arange(s * tb, (s + 1) * tb) % train_ds.size)[d * rows:(d + 1) * rows]
+                             for s in range(first, first + n)])
+
+        def state():
+            return shard_state(create_state(cfg, torch.Generator().manual_seed(7), device=device,
+                                            mesh=mesh), mesh)
+
+        res = {"rank": dist.get_rank(), "device": str(device), "backend": mesh.backend,
+               "graph_dispatch": graph_dispatch(device, mesh), "rows": rows,
+               "spatial": cfg.mesh.spatial}
+        step = make_train_step(cfg, "joint", mesh)
+        eager, graphed = state(), state()
+        if kind == "equal":
+            # Which process groups run a collective, eagerly and under a capture.
+            seen: dict = {"eager": set(), "captured": set()}
+            all_reduce = dist.all_reduce
+
+            def recorded(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+                where = "captured" if torch.cuda.is_current_stream_capturing() else "eager"
+                seen[where].add(str(dist.get_process_group_ranks(group or dist.group.WORLD)))
+                return all_reduce(tensor, op=op, group=group, async_op=async_op)
+
+            dist.all_reduce = recorded
+            multi = make_train_multistep(cfg, "joint", train_ds.get_batch, KSTEP_K, mesh)
+            graphed, _ = multi(graphed, indices(0, KSTEP_K))  # the stage's first dispatch: eager
+            for s in range(KSTEP_K):
+                eager, _ = step(eager, train_ds.get_batch(indices(s, 1)[0]))
+            torch.cuda.synchronize()
+            check(not graphed.graphs.graphs, "the stage's first dispatch was captured")
+            reset(counters)
+            for first in (KSTEP_K, 2 * KSTEP_K):
+                graphed, got = multi(graphed, indices(first, KSTEP_K))
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in counters.items()}
+            for s in range(KSTEP_K, 3 * KSTEP_K):
+                eager, want = step(eager, train_ds.get_batch(indices(s, 1)[0]))
+            torch.cuda.synchronize()
+            dist.all_reduce = all_reduce
+            res.update(
+                captured=len(graphed.graphs.graphs), launches=launches,
+                bit_equal=_same_state(graphed, eager) and all(torch.equal(got[n], want[n])
+                                                              for n in want),
+                worst_rel_err=max(rel_err(p, q)[0] for p, q in zip(graphed.model.parameters(),
+                                                                   eager.model.parameters())),
+                groups_eager=sorted(seen["eager"]), groups_captured=sorted(seen["captured"]),
+                loss=float(got["loss"]))
+        else:
+            multi = make_train_multistep(cfg, "joint", train_ds.get_batch, KSTEP_TIMED_K, mesh)
+            graphed, _ = multi(graphed, indices(0, KSTEP_TIMED_K))  # warm: eager
+            eager, _ = step(eager, train_ds.get_batch(indices(0, 1)[0]))
+            res["step_ms"] = _step_turns(cfg, train_ds, indices, eager, graphed, KSTEP_TIMED_K,
+                                         mesh)
+            res["step_ms"]["captured"] = len(graphed.graphs.graphs)
+        graphed.graphs.release()  # before the process groups go (shutdown_distributed)
+        del eager, graphed
+        torch.cuda.empty_cache()
+        if kind == "time":
+            res["fit"] = _fit_rates(cfg, os.path.join(out, f"fit_{name}"), counters, device,
+                                    lead=mesh.rank == 0)
+        with open(os.path.join(out, f"{kind}_{name}_rank{dist.get_rank()}.json"), "w") as f:
+            json.dump(res, f)
+    shutdown_distributed()
+
+
+def _nccl_world(kind: str, meshes: list, tmp: str, env: dict | None = None) -> tuple[dict, float]:
+    """Launch ``nccl_kstep_child`` over ``meshes``, all of one size, a card a
+    rank; each mesh's ranks' results and the world's wall seconds."""
+    n = meshes[0][0] * meshes[0][1]
+    names = [_mesh_name(*m) for m in meshes]
+    _, secs = _child(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(n),
+                      os.path.abspath(__file__), "--nccl-kstep-child",
+                      f"{kind}:{','.join(names)}", tmp],
+                     f"the nccl_kstep {kind} world of {n}", env, timeout=900)
+    ranks = {}
+    for name in names:
+        ranks[name] = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"{kind}_{name}_rank{r}.json")) as f:
+                ranks[name].append(json.load(f))
+    return ranks, secs
+
+
+def nccl_kstep_phase(smi: str) -> dict | None:
+    """The K-step dispatch over an nccl mesh, one CUDA graph per dispatch
+    with the collectives captured, a card a rank (``nccl_kstep_child``).
+
+    Under deterministic algorithms, in one world over data 4, 2x2 and 2x2
+    spatial (data 2 on two or three cards): on every rank 2 dispatches of
+    KSTEP_K by graph bit-equal to 2 x KSTEP_K eager single steps from one
+    state (parameters, AdamW's state, the generator, the last metrics),
+    the launches of the epilogue forward and backward and the warp 1 a
+    step, and every process group that ran a collective under the capture
+    ran one eagerly before it.  With PyTorch's defaults, in worlds of 1, 2
+    and 4 as the cards allow, over data 1, 2, 4 and 2x2: a rank's step
+    time eager and by graph in turns, and ``fit``'s logged images/s at
+    steps_per_dispatch 1 and KSTEP_TIMED_K, its graphs captured.  On one
+    card it prints why it did not run and returns None."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("nccl_kstep: the K-step dispatch captured with its nccl collectives needs a card per "
+              f"rank, and this machine has {cards}: not run; the parallel phase's gloo worlds "
+              "(ranks sharing the card) ran their dispatches eager, by rule "
+              "(train.graph_dispatch)")
+        return None
+    equal = [m for m in NCCL_EQUAL_MESHES if m[0] * m[1] <= cards] or [(2, 1, False)]
+    timed: dict = {}
+    for m in NCCL_TIMED_MESHES:
+        if m[0] * m[1] <= cards:
+            timed.setdefault(m[0] * m[1], []).append(m)
+    summary: dict = {"equal": {}, "time": {}}
+    per_step = {"shear_warp": 1, "mrf_epilogue": 1, "mrf_epilogue_bwd": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        worlds, secs = _nccl_world("equal", equal, tmp, {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        print(f"nccl_kstep: the bit-equality world of {equal[0][0] * equal[0][1]} ranks took "
+              f"{secs:.1f} s wall (processes included)")
+        for name, ranks in worlds.items():
+            want = {n: 2 * KSTEP_K * per_step.get(n, 0) for n in ranks[0]["launches"]}
+            for res in ranks:
+                r = res["rank"]
+                check(res["backend"] == "nccl" and res["graph_dispatch"] and res["captured"] == 1,
+                      f"nccl_kstep {name}: rank {r} on {res['backend']} captured "
+                      f"{res['captured']} graph(s)")
+                check(res["bit_equal"], f"nccl_kstep {name}: the graph form is not bit-equal to "
+                      f"eager single steps on rank {r} (worst parameter rel err "
+                      f"{res['worst_rel_err']:.3e})")
+                check(res["launches"] == want, f"nccl_kstep {name}: the graph dispatches launched "
+                      f"{res['launches']} on rank {r}, not {want}")
+                check(set(res["groups_captured"]) <= set(res["groups_eager"])
+                      and res["groups_captured"], f"nccl_kstep {name}: rank {r} captured "
+                      f"collectives on {res['groups_captured']}, eagerly warmed "
+                      f"{res['groups_eager']}")
+            print(f"nccl_kstep {name} (flagship, mrf.impl='pallas', bf16, global batch 32, "
+                  f"{ranks[0]['rows']} rows a rank, spatial {ranks[0]['spatial']}, deterministic "
+                  f"algorithms, ranks on {[res['device'] for res in ranks]}, backend nccl): 2 "
+                  f"dispatches of {KSTEP_K} by graph against {2 * KSTEP_K} eager single steps from "
+                  f"one state: bit-equal on every rank (parameters, AdamW's state, generator, "
+                  f"step, last metrics; loss {ranks[0]['loss']:.6f}); launches of the graph "
+                  f"dispatches a rank {ranks[0]['launches']}; process groups with a collective "
+                  f"under the capture {ranks[0]['groups_captured']}, each run eagerly before it; "
+                  f"on {smi}")
+        summary["equal"] = worlds
+        for size, meshes in timed.items():
+            worlds, secs = _nccl_world("time", meshes, tmp)
+            for name, ranks in worlds.items():
+                for res in ranks:
+                    r = res["rank"]
+                    check(res["graph_dispatch"] and res["step_ms"]["captured"] == 1,
+                          f"nccl_kstep time {name}: rank {r} did not take the graph form")
+                    for k, f in res["fit"].items():
+                        check(f["captured"] == (0 if k == "1" else 2), f"nccl_kstep fit {name} at "
+                              f"steps_per_dispatch {k}: rank {r} captured {f['captured']} graphs")
+                lead = ranks[0]["fit"]
+                steps = "; ".join(
+                    f"rank {res['rank']} " + " / ".join(f"{t:.3f}" for t in res["step_ms"]["turns"])
+                    for res in ranks)
+                print(f"nccl_kstep time {name} (flagship, mrf.impl='pallas', bf16, global batch "
+                      f"32, {ranks[0]['rows']} rows a rank, PyTorch's default algorithms, backend "
+                      f"{ranks[0]['backend'] or 'none (one process)'}): a step with its batch "
+                      f"generated, in turns eager / graph / graph / eager (dispatches of "
+                      f"{KSTEP_TIMED_K}), ms: {steps}; fit's images/s per log interval of 10 "
+                      f"steps at steps_per_dispatch 1: detector "
+                      f"{[round(x, 1) for x in lead['1']['rates']['detector']]}, joint "
+                      f"{[round(x, 1) for x in lead['1']['rates']['joint']]}; at {KSTEP_TIMED_K}: "
+                      f"detector {[round(x, 1) for x in lead[str(KSTEP_TIMED_K)]['rates']['detector']]}, "
+                      f"joint {[round(x, 1) for x in lead[str(KSTEP_TIMED_K)]['rates']['joint']]} "
+                      f"(each stage's first interval holds its warm-up, the second its capture); "
+                      f"on {smi}")
+            print(f"nccl_kstep: the timed world of {size} rank(s) took {secs:.1f} s wall "
+                  f"(processes included)")
+            summary["time"].update(worlds)
+    rates = {name: {k: (f["rates"]["detector"][-1], f["rates"]["joint"][-1])
+                    for k, f in ranks[0]["fit"].items()} for name, ranks in summary["time"].items()}
+    print("nccl_kstep: fit's last logged interval of each stage, images/s detector / joint, at "
+          "steps_per_dispatch 1 and " + str(KSTEP_TIMED_K) + ": "
+          + "; ".join(f"{name} " + ", ".join(f"{k}: {d:.1f} / {j:.1f}" for k, (d, j) in r.items())
+                      for name, r in rates.items()) + f"; on {smi}")
+    return summary
 
 
 # A sitecustomize for the children of the supervised-fit check: the
@@ -1293,15 +1600,18 @@ print("launches " + json.dumps({"mrf_epilogue": mrf_epilogue.launches}))
 """
 
 
-def _child(args: list[str], what: str, env: dict | None = None) -> tuple[str, float]:
+def _child(args: list[str], what: str, env: dict | None = None,
+           timeout: int = 600) -> tuple[str, float]:
     """Run ``python <args>`` from the repository root, ``env`` added to the
-    environment; its output and seconds."""
+    environment; its output and seconds.  A world of ranks is
+    ``["-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+    N, script, ...]``: it fails unless every rank ended well."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *args], capture_output=True, text=True, timeout=600,
+    proc = subprocess.run([sys.executable, *args], capture_output=True, text=True, timeout=timeout,
                           cwd=os.path.dirname(os.path.abspath(__file__)),
                           env={**os.environ, **(env or {})})
     check(proc.returncode == 0,
-          f"{what} exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+          f"{what} exited {proc.returncode}: {proc.stdout[-3000:]} {proc.stderr[-3000:]}")
     return proc.stdout, time.perf_counter() - t0
 
 
@@ -2056,16 +2366,12 @@ def inference_mesh_phase(joint, fit_cfg, ckpt_dir: str, tmp: str, counters: dict
     metrics_path = os.path.join(tmp, "evaluate_mesh.json")
     launches_path = os.path.join(tmp, "evaluate_launches")
     root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+    env = {"PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    _, eval_s = _child(
+        ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
          script, fit_cfg.mrf.impl, launches_path, "--config", fit_cfg.name, "--checkpoint", ckpt_dir,
          "--mesh-model", "2", "--max-batches", "2", "--json-out", metrics_path],
-        capture_output=True, text=True, timeout=600, env=env, cwd=root)
-    eval_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"evaluate.main under torch.distributed.run exited "
-          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        "evaluate.main under torch.distributed.run", env)
     rank_launches = []
     for rank in range(2):
         with open(f"{launches_path}.{rank}.json") as f:
@@ -2111,24 +2417,19 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
     from jointpose_torch.predict import build_predictor, init_state_dict, restore_params
 
     summary: dict = {}
-    root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         site = os.path.join(tmp, "site")
         os.makedirs(site)
         with open(os.path.join(site, "sitecustomize.py"), "w") as f:
             f.write(DETERMINISTIC_SITE)
-        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONPATH": os.pathsep.join(
+        env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONPATH": os.pathsep.join(
             filter(None, [site, os.environ.get("PYTHONPATH")]))}
         ranks, walls = {}, {}
         for task, n in (("reference", 1), ("data", 2), ("model", 4)):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-                 str(n), os.path.abspath(__file__), "--parallel-child", task, tmp],
-                capture_output=True, text=True, timeout=900, env=env, cwd=root)
-            walls[task] = time.perf_counter() - t0
-            check(proc.returncode == 0, f"the {task} world of {n} exited {proc.returncode}: "
-                  f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+            _, walls[task] = _child(
+                ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(n),
+                 os.path.abspath(__file__), "--parallel-child", task, tmp],
+                f"the {task} world of {n}", env, timeout=900)
             ranks[task] = [torch.load(os.path.join(tmp, f"{task}_rank{r}.pt"), weights_only=False)
                            for r in range(n)]
             print(f"parallel: the {task} world of {n} rank(s) on "
@@ -2561,6 +2862,8 @@ def main() -> int:
                         help=argparse.SUPPRESS)  # a rank of the parallel phase's worlds
     parser.add_argument("--kstep-child", choices=["deterministic", "default"],
                         help=argparse.SUPPRESS)  # a process of the kstep phase
+    parser.add_argument("--nccl-kstep-child", nargs=2, metavar=("TASK", "DIR"),
+                        help=argparse.SUPPRESS)  # a rank of the nccl_kstep phase's worlds
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2570,6 +2873,9 @@ def main() -> int:
         return 0
     if opts.kstep_child:
         kstep_child(opts.kstep_child)
+        return 0
+    if opts.nccl_kstep_child:
+        nccl_kstep_child(*opts.nccl_kstep_child)
         return 0
     from jointpose_torch import _build, get_config
     from jointpose_torch.data.augment import inverse_affine, random_augment_params
@@ -3023,6 +3329,7 @@ def main() -> int:
     parallel = parallel_phase(joint, counters, smi)
     parallel["kernels"] = shard_kernel_checks(joint, flag, smi)
     print(f"parallel {json.dumps(parallel)}")
+    nccl_kstep_phase(smi)
 
     # --- timings at the main-path shapes.
     # Each function's bytes and operations come from the cost formulas

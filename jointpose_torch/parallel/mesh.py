@@ -79,15 +79,19 @@ class Mesh:
     """A ('data', 'model') mesh over the process group's world.
 
     ``shape`` maps each axis to its size; ``coords`` this rank's position;
-    ``all_reduce`` sums a tensor in place over one axis (or over the whole
-    world with ``axis=None``) and is the identity where that size is 1.
+    ``backend`` the world group's backend (``'nccl'`` or ``'gloo'``), None
+    for a world of one; ``all_reduce`` sums a tensor in place over one axis
+    (or over the whole world with ``axis=None``) and is the identity where
+    that size is 1.
     """
 
-    def __init__(self, data: int, model: int, rank: int = 0, groups: Mapping | None = None):
+    def __init__(self, data: int, model: int, rank: int = 0, groups: Mapping | None = None,
+                 backend: str | None = None):
         self.shape = {DATA_AXIS: data, MODEL_AXIS: model}
         self.rank = rank
         self.coords = {DATA_AXIS: rank // model, MODEL_AXIS: rank % model}
         self._groups = dict(groups or {})
+        self.backend = backend
 
     @property
     def size(self) -> int:
@@ -124,7 +128,7 @@ class Mesh:
         """Whether ``flag`` is set on any rank of the world."""
         if self.size == 1:
             return flag
-        device = torch.cuda.current_device() if dist.get_backend() == "nccl" else "cpu"
+        device = torch.cuda.current_device() if self.backend == "nccl" else "cpu"
         t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
         return bool(self.all_reduce(t, None, dist.ReduceOp.MAX).item())
 
@@ -145,7 +149,9 @@ def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
     rank = dist.get_rank() if dist.is_initialized() else 0
     data, model = mesh_shape(cfg, world)
     groups: dict = {}
+    backend = None
     if world > 1:
+        backend = dist.get_backend()
         groups[None] = dist.group.WORLD
         axes = {
             DATA_AXIS: [[d * model + m for d in range(data)] for m in range(model)],
@@ -159,7 +165,7 @@ def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
                 group = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
                 if rank in ranks:
                     groups[axis] = group
-    return Mesh(data, model, rank, groups)
+    return Mesh(data, model, rank, groups, backend)
 
 
 class DeviceMesh:

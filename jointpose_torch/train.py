@@ -49,9 +49,10 @@ for a host-resident split), never across a log, eval, stage or end
 boundary, as the reference's ``fit`` does; K steps in one dispatch are
 bit-identical to K single steps.  Which form a dispatch takes is a rule
 (``graph_dispatch``): one CUDA graph of the K steps, captured once per
-multi-step function and replayed, on CUDA in a world of one process; K
-eager steps on the CPU, in a world of several ranks and under anomaly
-detection.  Carried over from ``resilience.py``: SIGTERM checkpoints at
+multi-step function and replayed, on CUDA in a world of one process and
+over an nccl mesh (each rank's graph holds the step's collectives); K
+eager steps on the CPU, over a gloo mesh (ranks sharing a card) and under
+anomaly detection.  Carried over from ``resilience.py``: SIGTERM checkpoints at
 the next dispatch boundary and exits ``resilience.EXIT_PREEMPTED``; the
 heartbeat is written after each dispatch, eval, prior init and save (none
 before the first dispatch), and ``JOINTPOSE_FAULT_AT_STEP`` is checked
@@ -355,14 +356,16 @@ def make_train_step(config: Config, stage: str, mesh=None) -> Callable:
 
 def graph_dispatch(device: torch.device, mesh=None) -> bool:
     """Which form a K-step dispatch takes, by rule: one CUDA graph of the K
-    steps on CUDA in a world of one process (``mesh`` None or of size 1);
-    K eager steps on the CPU, over a mesh of several ranks (their
-    collectives are not captured) and under
+    steps on CUDA in a world of one process (``mesh`` None or of size 1)
+    and over a mesh whose backend is ``'nccl'`` (a card a rank: the graph
+    holds the step's collectives); K eager steps on the CPU, over a gloo
+    mesh on CUDA (ranks that share a card: gloo's collectives run on the
+    host and cannot be captured) and under
     ``torch.autograd.set_detect_anomaly`` (``--check-numerics``: its checks
     read values on the host, which a capture cannot).  A capture that
     fails raises: no dispatch falls back to eager steps."""
-    return (device.type == "cuda" and (mesh is None or mesh.size == 1)
-            and not torch.is_anomaly_enabled())
+    return (device.type == "cuda" and not torch.is_anomaly_enabled()
+            and (mesh is None or mesh.size == 1 or mesh.backend == "nccl"))
 
 
 def make_train_multistep(
@@ -423,7 +426,7 @@ def make_train_multistep_arrays(config: Config, stage: str, k: int, mesh=None) -
 def _dispatch(key, state, stage, k, mesh, body, lr_fn, inputs, batch_of):
     device = next(state.model.parameters()).device
     if graph_dispatch(device, mesh):
-        return state.graphs.run(key, state, stage, k, body, lr_fn, inputs, batch_of)
+        return state.graphs.run(key, state, stage, k, body, lr_fn, inputs, batch_of, mesh)
     return _eager_steps(state, k, body, lr_fn, inputs, batch_of)
 
 
@@ -457,7 +460,10 @@ class DispatchGraphs:
 
     - A stage's first dispatch runs eagerly, on the capture stream: it
       creates the optimizer's state (a capture would record its creation
-      and replay it) and sets cuDNN and cuBLAS up for that stream.
+      and replay it) and sets cuDNN and cuBLAS up for that stream; over a
+      mesh its collectives create the communicator of every process group
+      the step uses (NCCL creates one at a group's first collective, which
+      a capture cannot hold).
     - A capture records the K steps' launches on the card and nothing on
       the host: the state's step count and the kernels' launch counters
       are put back afterwards; each replay advances the step count by K,
@@ -470,7 +476,13 @@ class DispatchGraphs:
       gradient of the last step.
     - When what the graphs read in place was replaced (a
       ``load_state_dict`` of the optimizer, a new parameter tensor), they
-      are thrown away and the stages warmed again.
+      are thrown away and the stages warmed again (``refresh``).
+    - Over a mesh of several ranks (nccl) each rank holds its own graphs,
+      whose collectives pair with the other ranks'; every rank decides
+      alike to warm, capture or replay: ``refresh`` is a collective
+      decision, and the rest follows from the same calls on every rank.
+      Whether a capture succeeded is agreed on too (``_capture``): a
+      capture that fails on one rank raises on every rank.
     """
 
     def __init__(self):
@@ -480,14 +492,34 @@ class DispatchGraphs:
         self.stream = None
         self.pool = None
 
-    def run(self, key, state, stage, k, body, lr_fn, inputs, batch_of):
+    def refresh(self, state, mesh=None) -> bool:
+        """Throw the graphs away, and forget the warm stages, when what they
+        read in place was replaced on any rank of ``mesh``; returns whether
+        it did.  Over several ranks this is an all-reduce at the dispatch
+        boundary, outside any graph: a rank that recaptured while another
+        replayed would pair their collectives wrongly."""
+        stale = _graph_anchors(state) != self.anchors
+        if mesh is not None:
+            stale = mesh.any(stale)
+        if stale:
+            self.release()
+        return stale
+
+    def release(self) -> None:
+        """Drop the graphs and forget the warm stages.  Over an nccl mesh a
+        graph holds the communicators of the collectives it captured:
+        NCCL destroys a communicator (``destroy_process_group``) only once
+        no graph holds it."""
+        self.graphs.clear()
+        self.warm.clear()
+        self.anchors = None
+
+    def run(self, key, state, stage, k, body, lr_fn, inputs, batch_of, mesh=None):
         device = next(state.model.parameters()).device
         with torch.cuda.device(device):
             if self.stream is None:
                 self.stream, self.pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
-            if _graph_anchors(state) != self.anchors:
-                self.graphs.clear()
-                self.warm.clear()
+            self.refresh(state, mesh)
             if stage not in self.warm:
                 current = torch.cuda.current_stream()
                 self.stream.wait_stream(current)
@@ -499,9 +531,23 @@ class DispatchGraphs:
                 return out
             graph = self.graphs.get(key)
             if graph is None:
-                graph = self.graphs[key] = _CapturedDispatch(
-                    state, k, body, inputs, batch_of, self.stream, self.pool)
+                graph = self.graphs[key] = self._capture(state, k, body, inputs, batch_of, mesh)
             return graph.replay(state, lr_fn, inputs)
+
+    def _capture(self, state, k, body, inputs, batch_of, mesh):
+        """Capture a dispatch on every rank, or raise on every rank: a rank
+        whose capture failed must not leave the others replaying
+        collectives it never joins.  Nothing is run eagerly instead."""
+        failure = None
+        try:
+            graph = _CapturedDispatch(state, k, body, inputs, batch_of, self.stream, self.pool)
+        except Exception as e:  # agreed on with the other ranks, then raised
+            failure = e
+        if mesh is not None and mesh.any(failure is not None) and failure is None:
+            raise RuntimeError("the capture of a K-step dispatch failed on another rank of the mesh")
+        if failure is not None:
+            raise failure
+        return graph
 
 
 class _CapturedDispatch:
@@ -520,7 +566,12 @@ class _CapturedDispatch:
         before = [getattr(holder, name) for holder, name in self.counters]
         first = state.step
         try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            # 'thread_local': over an nccl mesh, ProcessGroupNCCL's watchdog
+            # thread queries the CUDA events of finished collectives while a
+            # capture runs; in the default 'global' mode such a call from
+            # another thread is refused and invalidates the capture.
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
                 for i in range(k):
                     state, metrics = body(state, batch_of(self.inputs, i), self.lrs[i])
             self.launches = [getattr(holder, name) - n
@@ -815,6 +866,10 @@ def fit(
                 t_last = now()  # evals and saves stay out of the logged rate
     finally:
         preemption.uninstall()
+        if mesh.size > 1:
+            # The mesh's process groups outlive this run only to be
+            # destroyed, which waits on every graph that holds them.
+            state.graphs.release()
     if profiler is not None:
         profiler.close()  # write a trace still open at the loop's end
 
@@ -847,7 +902,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--lr-schedule", choices=["constant", "cosine"], default=None)
     parser.add_argument("--steps-per-dispatch", type=int, default=None,
                         help="train steps per dispatch (default: the config's): one CUDA graph of "
-                             "them on the card in a world of one process, eager steps otherwise")
+                             "them on the card, alone or a card a rank (nccl); eager steps on the "
+                             "CPU and where ranks share a card (gloo)")
     parser.add_argument("--mrf-lr-mult", type=float, default=None,
                         help="LR multiplier for the spatial model's parameters")
     parser.add_argument("--mrf-loss", choices=["mse", "ce"], default=None,

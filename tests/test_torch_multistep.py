@@ -120,14 +120,18 @@ def test_a_dispatch_checks_its_size():
 
 def test_the_form_of_a_dispatch_is_a_rule():
     class Mesh:
-        def __init__(self, size):
-            self.size = size
+        def __init__(self, size, backend=None):
+            self.size, self.backend = size, backend
 
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     assert ttrain.graph_dispatch(cuda) and ttrain.graph_dispatch(cuda, Mesh(1))
-    assert not ttrain.graph_dispatch(cpu) and not ttrain.graph_dispatch(cuda, Mesh(2))
+    # A card a rank (nccl): the graph holds the collectives.  Ranks that
+    # share a card (gloo) cannot be captured.
+    assert ttrain.graph_dispatch(cuda, Mesh(2, "nccl")) and ttrain.graph_dispatch(cuda, Mesh(4, "nccl"))
+    assert not ttrain.graph_dispatch(cuda, Mesh(2, "gloo"))
+    assert not ttrain.graph_dispatch(cpu) and not ttrain.graph_dispatch(cpu, Mesh(2, "gloo"))
     with torch.autograd.set_detect_anomaly(True):
-        assert not ttrain.graph_dispatch(cuda)
+        assert not ttrain.graph_dispatch(cuda) and not ttrain.graph_dispatch(cuda, Mesh(2, "nccl"))
     assert ttrain.graph_dispatch(cuda)
 
 

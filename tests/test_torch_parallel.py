@@ -18,7 +18,14 @@ hold them against the reference's unsharded results computed here:
   spatial) and on a data-4 mesh, with a ragged last batch, against the
   reference's ``evaluate``;
 - ``evaluate.main`` under the launcher (--mesh-data 2 --mesh-model 2) on a
-  written checkpoint, against ``evaluate.main`` in one process.
+  written checkpoint, against ``evaluate.main`` in one process;
+- the K-step dispatch over data 2, 2x2 and 2x2 spatial (``tiny``,
+  augmentation on): ``make_train_multistep`` at K 3 and
+  ``make_train_multistep_arrays`` at K 2 against 5 single steps, bit for
+  bit (the eager form, the CPU's); and ``DispatchGraphs.run``'s decisions
+  to warm, capture and replay, with a stub for the capture, when one
+  rank's optimizer state is reloaded between two dispatches, and when one
+  rank's capture fails.
 
 ``pad_source_axis`` and ``param_shardings`` need no world.
 """
@@ -65,8 +72,13 @@ TP_ATOL, TP_GRAD_RTOL = 1e-5, 1e-4
 TP_GEOMETRY = {2: ((12, 16), (7, 9)), 4: ((10, 12), (5, 7))}  # n_model: (hw, odd window)
 
 CHILD = r"""
+import contextlib
+import copy
 import dataclasses
 import sys
+import types
+from unittest import mock
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -74,13 +86,14 @@ import torch.distributed as dist
 from jointpose_torch import evaluate as tev
 from jointpose_torch.configs import MeshConfig, get_config
 from jointpose_torch.data.augment import AugmentParams
-from jointpose_torch.data.pipeline import from_host_arrays
+from jointpose_torch.data.pipeline import from_host_arrays, make_dataset
 from jointpose_torch.evaluate import evaluate
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.ops.mrf_xla import mrf_message_pass_xla
 from jointpose_torch.parallel.mesh import Mesh, init_distributed, make_mesh, shard_batch, shard_state
 from jointpose_torch.parallel.mrf_tp import mrf_message_pass_tp
-from jointpose_torch.train import create_state, make_train_step
+from jointpose_torch.train import (create_state, make_train_multistep, make_train_multistep_arrays,
+                                   make_train_step)
 
 torch.set_num_threads(2)
 data = sys.argv[1]
@@ -122,7 +135,7 @@ for n in (2, 4):
 # the same with augmentation, and 2x2.
 groups = [dist.new_group([0, 1]), dist.new_group([2, 3])]
 g = groups[rank // 2]
-dp = Mesh(2, 1, rank % 2, {None: g, "data": g})
+dp = Mesh(2, 1, rank % 2, {None: g, "data": g}, "gloo")
 init = torch.load(f"{data}/init.pt", weights_only=True)
 batch = {k: torch.from_numpy(v) for k, v in np.load(f"{data}/batch.npz").items()}
 draw = AugmentParams(*(torch.from_numpy(v) for v in np.load(f"{data}/draw.npz").values()))
@@ -155,6 +168,120 @@ for name, mesh, sp in (("2x2", make_mesh(MeshConfig(data=2, model=2)), False),
     model = PoseModel(cfg, mesh=mesh, spatial=sp)
     model.load_state_dict(weights)
     out["eval", name] = evaluate(model.eval(), from_host_arrays(arrays), cfg, mesh=mesh)
+
+# The K-step dispatch over the meshes (the eager form, the CPU's): index-fed
+# at K = 3 and array-fed at K = 2 against K single steps from one state.
+kcfg = aug.replace(train=dataclasses.replace(aug.train, lr_schedule="cosine", detector_steps=2,
+                                             joint_steps=8))
+kmeshes = {"dp": (kcfg, dp),
+           "2x2": (kcfg, make_mesh(MeshConfig(data=2, model=2))),
+           "2x2_spatial": (kcfg.replace(mesh=MeshConfig(data=2, model=2, spatial=True)),
+                           make_mesh(MeshConfig(data=2, model=2)))}
+tb = kcfg.train.batch_size
+
+
+def rank_rows(mesh, first, n):
+    rows = tb // mesh.shape["data"]
+    lo = mesh.coords["data"] * rows
+    return np.stack([(np.arange(s * tb, (s + 1) * tb) % 16)[lo:lo + rows]
+                     for s in range(first, first + n)])
+
+
+def kstate(cfg, mesh):
+    state = create_state(cfg, torch.Generator().manual_seed(5), device="cpu", mesh=mesh)
+    return shard_state(state, mesh)
+
+
+def snapshot(state, metrics):
+    return ({n: p.detach().clone() for n, p in state.model.named_parameters()},
+            [v.clone() for p in state.model.parameters()
+             for v in state.optimizer.state[p].values()],
+            {k: v.clone() for k, v in metrics.items()}, state.step,
+            state.generator.get_state())
+
+
+for name, (cfg, mesh) in kmeshes.items():
+    ds = make_dataset(cfg.data, "cpu")[0]
+    single, multi = kstate(cfg, mesh), kstate(cfg, mesh)
+    step = make_train_step(cfg, "joint", mesh)
+    for s in range(5):
+        single, want = step(single, ds.get_batch(rank_rows(mesh, s, 1)[0]))
+    multi, _ = make_train_multistep(cfg, "joint", ds.get_batch, 3, mesh)(
+        multi, rank_rows(mesh, 0, 3))
+    batches = [ds.get_batch(i) for i in rank_rows(mesh, 3, 2)]
+    multi, got = make_train_multistep_arrays(cfg, "joint", 2, mesh)(
+        multi, {k: torch.stack([b[k] for b in batches]) for k in batches[0]})
+    out["kstep", name] = (snapshot(multi, got), snapshot(single, want))
+
+# The recapture decision over the mesh: DispatchGraphs.run's flow on the
+# CPU, where a stub stands for each capture (it records it, and each of its
+# replays, and runs the K steps eagerly).  Between two dispatches the
+# optimizer state of the mesh's rank 1 is reloaded (new tensors, as from a
+# checkpoint): every rank must warm the stage again, then capture alike.
+from jointpose_torch import train as ttrain
+
+events = []
+
+
+fail_capture = False  # set where a rank's capture is to raise
+
+
+class StubCapture:
+    def __init__(self, state, k, body, inputs, batch_of, stream, pool):
+        events[-1].append("capture")
+        if fail_capture:
+            raise RuntimeError("stub capture failed")
+        self.k, self.body, self.batch_of = k, body, batch_of
+
+    def replay(self, state, lr_fn, inputs):
+        events[-1].append("replay")
+        return ttrain._eager_steps(state, self.k, self.body, lr_fn, inputs, self.batch_of)
+
+
+stream = types.SimpleNamespace(wait_stream=lambda other: None)
+refresh = ttrain.DispatchGraphs.refresh
+
+
+def recorded_refresh(self, state, mesh=None):
+    events.append(["stale" if refresh(self, state, mesh) else "kept"])
+
+
+with contextlib.ExitStack() as stack:
+    for target, attr, value in (
+            (ttrain, "graph_dispatch", lambda device, mesh=None: True),
+            (ttrain, "_CapturedDispatch", StubCapture),
+            (ttrain.DispatchGraphs, "refresh", recorded_refresh),
+            (torch.cuda, "device", lambda device: contextlib.nullcontext()),
+            (torch.cuda, "stream", lambda s: contextlib.nullcontext()),
+            (torch.cuda, "Stream", lambda: stream),
+            (torch.cuda, "current_stream", lambda: stream),
+            (torch.cuda, "graph_pool_handle", lambda: None)):
+        stack.enter_context(mock.patch.object(target, attr, value))
+    for name, (cfg, mesh) in kmeshes.items():
+        ds = make_dataset(cfg.data, "cpu")[0]
+        state = kstate(cfg, mesh)
+        multi = make_train_multistep(cfg, "joint", ds.get_batch, 2, mesh)
+        events.clear()
+        for d in range(5):
+            if d == 3 and mesh.rank == 1:
+                opt = state.optimizer
+                opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+            state, _ = multi(state, rank_rows(mesh, 2 * d, 2))
+        out["recapture", name] = [tuple(e) for e in events]
+    # A capture that fails on the mesh's rank 1 raises on every rank.
+    for name, (cfg, mesh) in kmeshes.items():
+        ds = make_dataset(cfg.data, "cpu")[0]
+        state = kstate(cfg, mesh)
+        multi = make_train_multistep(cfg, "joint", ds.get_batch, 2, mesh)
+        state, _ = multi(state, rank_rows(mesh, 0, 2))
+        fail_capture = mesh.rank == 1
+        try:
+            multi(state, rank_rows(mesh, 2, 2))
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        fail_capture = False
+        out["capture_failure", name] = (mesh.rank, raised)
 
 torch.save(out, f"{data}/rank{rank}.pt")
 # evaluate.main over the launcher's world (it leaves the process group).
@@ -400,3 +527,45 @@ def test_the_trainer_slices_what_param_shardings_names(n_model):
     # The MRF's two parameters are sliced at the activations (mrf_tp.py).
     assert model.model_sliced_parameters() == rule | {"spatial_model.raw_kernels",
                                                       "spatial_model.raw_bias"}
+
+
+@pytest.mark.parametrize("name", ["dp", "2x2", "2x2_spatial"])
+def test_kstep_dispatch_over_a_mesh_equals_single_steps(world, name):
+    ranks, _ = world
+    for got in ranks:
+        (params, moments, metrics, step, gen), (w_params, w_moments, w_metrics, w_step, w_gen) = (
+            got["kstep", name])
+        what = f"{name}, rank {got['rank']}"
+        assert step == w_step == 5, what
+        assert params.keys() == w_params.keys()
+        for n, w in w_params.items():
+            assert torch.equal(params[n], w), f"{what}: {n}"
+        assert len(moments) == len(w_moments) > 0
+        assert all(torch.equal(a, b) for a, b in zip(moments, w_moments)), what
+        assert metrics.keys() == w_metrics.keys() and "mrf_loss" in metrics
+        assert all(torch.equal(metrics[k], w_metrics[k]) for k in w_metrics), what
+        assert torch.equal(gen, w_gen), what
+
+
+@pytest.mark.parametrize("name", ["dp", "2x2", "2x2_spatial"])
+def test_a_reload_on_one_rank_recaptures_on_every_rank(world, name):
+    """The mesh's rank 1 reloads its optimizer state before the fourth
+    dispatch: every rank finds the graphs stale there and warms the stage
+    again, then every rank captures at the fifth."""
+    ranks, _ = world
+    want = [("stale",), ("kept", "capture", "replay"), ("kept", "replay"), ("stale",),
+            ("kept", "capture", "replay")]
+    for got in ranks:
+        assert got["recapture", name] == want, f"{name}, rank {got['rank']}"
+
+
+@pytest.mark.parametrize("name", ["dp", "2x2", "2x2_spatial"])
+def test_a_capture_that_fails_on_one_rank_raises_on_every_rank(world, name):
+    """The mesh's rank 1 fails its capture at the second dispatch: it
+    raises its own error, and every other rank raises too, rather than
+    replaying collectives that rank 1 never joins."""
+    ranks, _ = world
+    for got in ranks:
+        mesh_rank, raised = got["capture_failure", name]
+        want = "stub capture failed" if mesh_rank == 1 else "failed on another rank of the mesh"
+        assert raised is not None and want in raised, f"{name}, rank {got['rank']}: {raised}"
