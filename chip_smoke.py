@@ -133,7 +133,13 @@ the package is missing.  Phases, each fatal on failure:
    algorithms, the launches 1 a step, every process group of the capture
    warmed by an eager collective; a rank's step time eager and by graph
    in turns and ``fit``'s images/s at steps_per_dispatch 1 and 10 over
-   data 1, 2 and 4 and 2x2;
+   data 1, 2 and 4 and 2x2; then the operations entry points over an nccl
+   mesh of four cards (``nccl_ops_phase``; on fewer it prints one line and
+   runs nothing): ``train.main`` as its CLI over data 4, 2x2 and 2x2
+   spatial, resumed with a profiled window read rank by rank, and the
+   supervised group (``python -m jointpose_torch.resilience
+   --nproc-per-node 4``) through a fault, a SIGTERM and a hang of a rank,
+   bit-equal to an unbroken run, with its time to recover;
 12. time each kernel and its plain version at the main-path shape, the
    epilogue forward also against its first design and an empty launch,
    in turns: the two forms of the Fourier MRF tail, the fused shear warp
@@ -153,6 +159,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import math
@@ -1108,6 +1115,396 @@ def nccl_kstep_phase(smi: str) -> dict | None:
           "steps_per_dispatch 1 and " + str(KSTEP_TIMED_K) + ": "
           + "; ".join(f"{name} " + ", ".join(f"{k}: {d:.1f} / {j:.1f}" for k, (d, j) in r.items())
                       for name, r in rates.items()) + f"; on {smi}")
+    return summary
+
+
+# The nccl_ops phase: the operations entry points over an nccl mesh of four
+# cards, through their CLIs.  Each rank of those groups starts with this
+# sitecustomize (on PYTHONPATH ahead of the repository): the interpreter's
+# own sitecustomize first; then, in a rank (RANK set), ``flagship`` with
+# ``mrf.impl='pallas'`` (the preset's 'auto' takes the direct grouped MRF,
+# which launches no epilogue kernel), PyTorch's deterministic algorithms
+# where JOINTPOSE_SMOKE_DETERMINISTIC is set, the rank's graph captures and
+# the launches of rows 1, 2 and 4 written at exit to
+# ``<JOINTPOSE_SMOKE_COUNTS>.<RANK>.json``, and, where JOINTPOSE_SMOKE_DRILL
+# names one, the drill of ``tests/test_torch_multihost.py``'s rank script:
+# rank 1 at the dispatch boundary of step JOINTPOSE_SMOKE_DRILL_STEP, once
+# per workdir, sends itself a SIGTERM ('preempt') or sleeps ('hang').
+OPS_SITE = """
+import importlib.machinery, importlib.util, os, sys
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+if "RANK" in os.environ:
+    import atexit, dataclasses, json, signal, time
+    import torch
+    import jointpose_torch.configs as configs
+    import jointpose_torch.resilience as resilience
+
+    if os.environ.get("JOINTPOSE_SMOKE_DETERMINISTIC"):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    _flagship = configs.PRESETS["flagship"]
+
+    def _pallas():
+        cfg = _flagship()
+        return cfg.replace(mrf=dataclasses.replace(cfg.mrf, impl="pallas"))
+
+    configs.PRESETS["flagship"] = _pallas
+    _captures = [0]
+    _graph_exit = torch.cuda.graph.__exit__
+
+    def _counted_exit(self, *exc):
+        out = _graph_exit(self, *exc)
+        _captures[0] += exc[0] is None
+        return out
+
+    torch.cuda.graph.__exit__ = _counted_exit
+
+    def _dump():
+        from jointpose_torch.ops.mrf_epilogue import mrf_epilogue, mrf_epilogue_bwd
+        from jointpose_torch.ops.warp import shear_warp
+
+        launches = {"shear_warp": shear_warp.launches, "mrf_epilogue": mrf_epilogue.launches,
+                    "mrf_epilogue_bwd": mrf_epilogue_bwd.launches}
+        with open(f"{os.environ['JOINTPOSE_SMOKE_COUNTS']}.{os.environ['RANK']}.json", "w") as f:
+            json.dump({"captured": _captures[0], "launches": launches}, f)
+
+    if "JOINTPOSE_SMOKE_COUNTS" in os.environ:
+        atexit.register(_dump)
+    _drill = os.environ.get("JOINTPOSE_SMOKE_DRILL")
+    if _drill:
+        _inject = resilience.maybe_inject_fault
+
+        def _drilled(workdir, step):
+            _inject(workdir, step)
+            marker = os.path.join(workdir, ".drill")
+            if (os.environ["RANK"] == "1" and step == int(os.environ["JOINTPOSE_SMOKE_DRILL_STEP"])
+                    and not os.path.exists(marker)):
+                with open(marker, "w") as f:
+                    f.write(str(step))
+                if _drill == "preempt":
+                    os.kill(os.getpid(), signal.SIGTERM)
+                else:
+                    time.sleep(3600)  # its peers wait in the boundary's collective
+
+        resilience.maybe_inject_fault = _drilled
+"""
+# train.main's meshes in the phase, and its schedules: 20 + 20 steps at the
+# default 10 a dispatch (each stage warm, then captured; an eval at the
+# stage boundary and at the end), then a resume of 20 more joint steps with
+# a profiled window of 3 (steps 45-47).  The drills run 10 + 30 steps over
+# 2x2, evals every 20 (the joint stage captured from step 20) and act at
+# the dispatch boundary of step 30.
+OPS_MESHES = {"4x1": ["--mesh-data", "4"], "2x2": ["--mesh-data", "2", "--mesh-model", "2"],
+              "2x2s": ["--mesh-data", "2", "--mesh-model", "2", "--mesh-spatial"]}
+OPS_TRAIN = ["--config", "flagship", "--eval-max-batches", "1", "--log-every", "10"]
+OPS_STEPS, OPS_RESUMED, OPS_WINDOW = (20, 20), 40, 3
+DRILL_STEPS, DRILL_EVERY, DRILL_STEP = (10, 30), 20, 30
+# The supervisor's heartbeat timeout: above the launcher's 30 s between its
+# SIGTERM and SIGKILL to the peers of a failed rank; for the hang drill
+# above a capture and its first replay of 10 steps (569.7 ms on one "NVIDIA
+# H100 80GB HBM3, 700.00 W" card).
+DRILL_HEARTBEAT_S = {"fault": 120, "preempt": 120, "hang": 20}
+DRILL_EVENTS = {"fault": ["launch", "failure", "launch", "done"],
+                "preempt": ["launch", "preempted", "launch", "done"],
+                "hang": ["launch", "heartbeat_stale", "failure", "launch", "done"]}
+
+
+def _ops_group(args: list[str], what: str, env: dict, log: str, workdir: str,
+               timeout: float = 300) -> dict:
+    """Run ``python <args>`` from the repository root, its output to
+    ``log``, polling every 50 ms the heartbeat of ``workdir`` (each beat's
+    step and time) and the processes below it; on ``timeout`` SIGKILL them
+    all and fail.  Returns the exit code, the beats, every (pid, start)
+    seen below it and the wall seconds."""
+    from jointpose_torch import resilience
+
+    hb_path = os.path.join(workdir, resilience.HEARTBEAT_FILE)
+    beats, seen, last = [], set(), None
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, *args], stdout=out, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                env={**os.environ, **env})
+        polls = 0
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > timeout:
+                tree = resilience._process_tree(proc.pid)
+                proc.kill()
+                proc.wait()
+                resilience._kill_survivors(tree)
+                break
+            try:
+                with open(hb_path) as f:
+                    beat = json.load(f)
+            except (OSError, ValueError):
+                beat = None
+            if beat is not None and beat != last:
+                beats.append((beat["step"], beat["time"]))
+                last = beat
+            if polls % 10 == 0:
+                seen.update(resilience._process_tree(proc.pid))
+            polls += 1
+            time.sleep(0.05)
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode} after {wall:.1f} s "
+          f"(timeout {timeout} s): {text[-4000:]}")
+    return {"beats": beats, "seen": seen, "wall_s": wall, "log": text}
+
+
+def _ops_counts(prefix: str, n: int) -> list[dict]:
+    """Each rank's graph captures and launches of rows 1, 2 and 4
+    (OPS_SITE), read and removed."""
+    out = []
+    for r in range(n):
+        path = f"{prefix}.{r}.json"
+        with open(path) as f:
+            out.append(json.load(f))
+        os.remove(path)
+    return out
+
+
+def _survivors(seen: set) -> list[int]:
+    """The processes of ``seen`` that still run (not gone, not a later
+    process of the same pid, not a zombie)."""
+    from jointpose_torch import resilience
+
+    alive = []
+    for pid, started in seen:
+        stat = resilience._stat(pid)
+        if stat is not None and stat[19] == started and stat[0] != "Z":
+            alive.append(pid)
+    return alive
+
+
+def _nccl_share(timing) -> tuple[float, float]:
+    """(ms a step in NCCL kernels, their share of the busy time)."""
+    busy = sum(o.duration_s for o in timing.ops)
+    nccl = sum(o.duration_s for o in timing.ops if "nccl" in o.name.lower())
+    return nccl * 1e3 / timing.num_runs, nccl / busy if busy else float("nan")
+
+
+def _resumed_from(log: str) -> int:
+    for line in log.splitlines():
+        if "resumed from step " in line:
+            return int(line.split("resumed from step ")[1].split()[0])
+    raise SystemExit(f"chip_smoke: FAILED: no resume in {log[-2000:]}")
+
+
+def _params(workdir: str, step: int) -> dict:
+    path = os.path.join(workdir, "checkpoints", "latest", str(step), "state.pt")
+    return torch.load(path, weights_only=True, map_location="cpu")["model"]
+
+
+def nccl_ops_phase(smi: str) -> dict | None:
+    """The operations entry points over an nccl mesh of four cards, a card a
+    rank, each K-step dispatch one CUDA graph with its collectives
+    (``flagship`` with ``mrf.impl='pallas'``, global batch 32, 10 steps a
+    dispatch; each rank under OPS_SITE).
+
+    1. ``python -m torch.distributed.run --nproc-per-node 4 -m
+       jointpose_torch.train`` over data 4, 2x2 and 2x2 spatial: 20 + 20
+       steps (a stage boundary, evals), then ``--resume`` for 20 more joint
+       steps with ``--profile-steps 3``; each rank's graphs captured (2 a
+       run) and launches of rows 1, 2 and 4 (1 a step; the epilogue forward
+       also once a joint eval) held; rank 0's last checkpoint restored into
+       a one-device predictor, its output finite.
+    2. Every rank's trace of the window through ``devtime.parse_trace``:
+       a step's device span and busy time, the NCCL kernels' time and share
+       and the top ops, each path kernel once a step.
+    3. ``python -m jointpose_torch.resilience --nproc-per-node 4`` over
+       2x2 under deterministic algorithms with a fault
+       (JOINTPOSE_FAULT_AT_STEP), a SIGTERM to rank 1 and a hang of rank 1
+       at the dispatch boundary of step 30: the supervisor's events, no
+       process of the killed group left, the final parameters bit-equal to
+       an unbroken run's, and the time to recover (from the supervisor's
+       event to the relaunched group's first heartbeat past the step it
+       resumed from).
+    On fewer than four cards it prints why and runs nothing."""
+    from jointpose_torch import devtime, get_config
+    from jointpose_torch.predict import build_predictor, restore_params
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"nccl_ops: train.main over data 4, 2x2 and 2x2 spatial and the supervised drills "
+              f"need four cards, a card a rank (nccl), and this machine has {cards}: not run")
+        return None
+    root = os.path.dirname(os.path.abspath(__file__))
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4"]
+    flag = get_config("flagship")
+    cfg = flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"))
+    summary: dict = {"meshes": {}, "drills": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        site = os.path.join(tmp, "site")
+        os.makedirs(site)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(OPS_SITE)
+        counts = os.path.join(tmp, "counts")
+        base_env = {"PYTHONPATH": os.pathsep.join(filter(None, [site, root, os.environ.get(
+            "PYTHONPATH")])), "JOINTPOSE_SMOKE_COUNTS": counts}
+
+        # 1-2. train.main over each mesh, resumed with a profiled window.
+        det, joint = OPS_STEPS
+        probe = torch.randint(0, 256, (BATCH, *cfg.data.image_hw, 3), dtype=torch.uint8,
+                              generator=torch.Generator().manual_seed(9)).cuda()
+        finals = {}
+        for name, mesh_args in OPS_MESHES.items():
+            wd = os.path.join(tmp, f"train_{name}")
+            runs = {}
+            for run, extra, want in (
+                    ("first", ["--joint-steps", str(joint)],
+                     {"shear_warp": det + joint, "mrf_epilogue": joint + 1,
+                      "mrf_epilogue_bwd": joint}),
+                    ("resumed", ["--joint-steps", str(OPS_RESUMED), "--resume",
+                                 "--profile-steps", str(OPS_WINDOW)],
+                     {"shear_warp": OPS_RESUMED - joint, "mrf_epilogue": OPS_RESUMED - joint + 1,
+                      "mrf_epilogue_bwd": OPS_RESUMED - joint})):
+                res = _ops_group([*launcher, "-m", "jointpose_torch.train", *OPS_TRAIN, *mesh_args,
+                                  "--workdir", wd, "--detector-steps", str(det),
+                                  "--eval-every", str(det), *extra],
+                                 f"train.main over {name} ({run})", base_env,
+                                 os.path.join(tmp, f"train_{name}_{run}.log"), wd)
+                ranks = _ops_counts(counts, 4)
+                pdj = [r["pdj_at_05_wrist_elbow"] for r in read_records(wd)
+                       if "pdj_at_05_wrist_elbow" in r]
+                for r, c in enumerate(ranks):
+                    check(c["captured"] == 2 and c["launches"] == want,
+                          f"train.main over {name} ({run}): rank {r} captured {c['captured']} "
+                          f"graph(s) and launched {c['launches']}, not 2 and {want}")
+                check("backend nccl" in res["log"] and "final:" in res["log"] and pdj
+                      and all(math.isfinite(x) for x in pdj),
+                      f"train.main over {name} ({run}) did not run over nccl to its end")
+                runs[run] = {"wall_s": res["wall_s"], "ranks": ranks, "pdj": pdj}
+            check("resumed from step 40" in res["log"], f"train.main over {name} did not resume")
+            state_dict, step = restore_params(cfg, os.path.join(wd, "checkpoints"))
+            coords, probs = build_predictor(cfg, state_dict)(probe)
+            torch.cuda.synchronize()
+            check(step == det + OPS_RESUMED and coords.shape == (BATCH, 9, 2)
+                  and bool(torch.isfinite(coords).all()) and bool(torch.isfinite(probs).all()),
+                  f"train.main over {name}: rank 0's checkpoint at step {step} does not restore "
+                  f"into a one-device predictor with finite output")
+            finals[name] = state_dict
+            print(f"nccl_ops train.main over {name} (flagship, mrf.impl='pallas', bf16, global "
+                  f"batch 32, 10 steps a dispatch, backend nccl): {det} + {joint} steps in "
+                  f"{runs['first']['wall_s']:.1f} s wall, then --resume to step "
+                  f"{det + OPS_RESUMED} with a profiled window of {OPS_WINDOW} in "
+                  f"{runs['resumed']['wall_s']:.1f} s; each rank captured 2 graphs a run and "
+                  f"launched {runs['first']['ranks'][0]['launches']} and "
+                  f"{runs['resumed']['ranks'][0]['launches']}; rank 0's step-{step} checkpoint "
+                  f"restored into a one-device predictor (finite coordinates); PDJ@0.05 "
+                  f"(wrist, elbow) at the evals of both runs {runs['resumed']['pdj']}; "
+                  f"on {smi}")
+            # The window, rank by rank.
+            prof = []
+            for r in range(4):
+                timing = devtime.parse_trace(os.path.join(wd, "profile", f"rank{r}"), "train")
+                check(timing is not None and timing.num_runs == OPS_WINDOW,
+                      f"train.main over {name}: rank {r}'s trace holds "
+                      f"{0 if timing is None else timing.num_runs} steps, not {OPS_WINDOW}")
+                traced = {n: sum(o.count for o in timing.ops if k in o.name)
+                          for n, k in PATH_KERNELS.items()}
+                check(traced == {n: OPS_WINDOW for n in PATH_KERNELS},
+                      f"train.main over {name}: rank {r}'s window traced the path's kernels "
+                      f"{traced} times")
+                busy = sum(o.duration_s for o in timing.ops) * 1e3 / OPS_WINDOW
+                nccl_ms, share = _nccl_share(timing)
+                prof.append({"span_ms": [t * 1e3 for t in timing.run_durations_s],
+                             "busy_ms": busy, "nccl_ms": nccl_ms, "nccl_share": share,
+                             "top": [(o.name[:90], o.duration_s * 1e3 / OPS_WINDOW,
+                                      o.count / OPS_WINDOW) for o in timing.top_ops(8)]})
+                spans = [round(t, 3) for t in prof[-1]["span_ms"]]
+                print(f"nccl_ops window over {name}, rank {r} (steps 45-47, eager, one step a "
+                      f"dispatch): a step's device span {spans} ms, busy {busy:.3f} ms a step, "
+                      f"NCCL kernels {nccl_ms:.3f} ms a step "
+                      f"({share:.1%} of busy); on {smi}")
+                for op, ms, n in prof[-1]["top"]:
+                    print(f"  {name} rank {r} top op: {ms:8.4f} ms/step x{n:g} {op}")
+            summary["meshes"][name] = {"runs": runs, "profile": prof}
+        first, ref = next(iter(finals.items()))
+        print(f"nccl_ops: final parameters at step {det + OPS_RESUMED} against {first}'s, worst "
+              f"rel err: " + ", ".join(f"{name} {max(rel_err(p[n], ref[n])[0] for n in ref):.3e}"
+                                       for name, p in finals.items() if name != first))
+
+        # 3. The supervised drills over 2x2, against an unbroken run.
+        det, joint = DRILL_STEPS
+        drill_env = {**base_env, "JOINTPOSE_SMOKE_DETERMINISTIC": "1",
+                     "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        args = [*OPS_TRAIN, *OPS_MESHES["2x2"], "--detector-steps", str(det), "--joint-steps",
+                str(joint), "--eval-every", str(DRILL_EVERY)]
+        wd = os.path.join(tmp, "unbroken")
+        res = _ops_group([*launcher, "-m", "jointpose_torch.train", *args, "--workdir", wd],
+                         "the unbroken 2x2 run", drill_env, os.path.join(tmp, "unbroken.log"), wd)
+        _ops_counts(counts, 4)
+        want = _params(wd, det + joint)
+        print(f"nccl_ops unbroken run over 2x2 ({det} + {joint} steps, deterministic "
+              f"algorithms): {res['wall_s']:.1f} s wall")
+        for kind in ("fault", "preempt", "hang"):
+            wd = os.path.join(tmp, f"drill_{kind}")
+            env = dict(drill_env)
+            if kind == "fault":
+                env["JOINTPOSE_FAULT_AT_STEP"] = str(DRILL_STEP)
+            else:
+                env.update(JOINTPOSE_SMOKE_DRILL=kind, JOINTPOSE_SMOKE_DRILL_STEP=str(DRILL_STEP))
+            res = _ops_group(["-m", "jointpose_torch.resilience", "--nproc-per-node", "4",
+                              "--max-restarts", "1", "--heartbeat-timeout",
+                              str(DRILL_HEARTBEAT_S[kind]), "--start-timeout", "600", "--",
+                              *args, "--workdir", wd],
+                             f"the supervised {kind} drill", env,
+                             os.path.join(tmp, f"drill_{kind}.log"), wd, timeout=480)
+            for path in glob.glob(f"{counts}.*.json"):
+                os.remove(path)
+            with open(os.path.join(wd, "supervisor.jsonl")) as f:
+                events = [json.loads(line) for line in f]
+            names = [e["event"] for e in events]
+            check(names == DRILL_EVENTS[kind], f"the {kind} drill's supervisor logged {names}")
+            preempted = os.path.exists(os.path.join(wd, "preempted.json"))
+            check(preempted == (kind == "preempt"), f"the {kind} drill "
+                  f"{'wrote' if preempted else 'did not write'} preempted.json")
+            check(events[-2]["restarts"] == (0 if kind == "preempt" else 1),
+                  f"the {kind} drill relaunched with {events[-2]['restarts']} restarts charged")
+            acted = os.path.getmtime(os.path.join(
+                wd, ".fault_injected" if kind == "fault" else ".drill"))
+            alive = _survivors(res["seen"])
+            check(not alive, f"the {kind} drill left processes {alive} running")
+            got = _params(wd, det + joint)
+            worst = max(rel_err(got[n], w)[0] for n, w in want.items())
+            check(all(torch.equal(got[n], w) for n, w in want.items()),
+                  f"the {kind} drill's final parameters are not bit-equal to the unbroken run's "
+                  f"(worst rel err {worst:.3e})")
+            resumed = _resumed_from(res["log"])
+            event = next(e for e in events if e["event"] in ("failure", "preempted"))
+            relaunch = events[-2]["time"]
+            back = [t for step, t in res["beats"] if t > relaunch and step > resumed]
+            check(bool(back), f"the {kind} drill's relaunched group beat no step past {resumed}")
+            ttr = back[0] - event["time"]
+            stale = next((e["time"] for e in events if e["event"] == "heartbeat_stale"), None)
+            faulted = res["log"].count("injecting fault at step")
+            summary["drills"][kind] = {
+                "events": names, "ranks_faulted": faulted, "time_to_recover_s": ttr,
+                "act_to_event_s": event["time"] - acted,
+                "event_to_relaunch_s": relaunch - event["time"], "resumed_from": resumed,
+                "processes_seen": len(res["seen"]), "wall_s": res["wall_s"],
+                **({"act_to_stale_s": stale - acted} if stale else {})}
+            d = summary["drills"][kind]
+            print(f"nccl_ops supervised {kind} drill over 2x2 (python -m "
+                  f"jointpose_torch.resilience --nproc-per-node 4, deterministic algorithms, the "
+                  f"drill at the dispatch boundary of step {DRILL_STEP}, heartbeat timeout "
+                  f"{DRILL_HEARTBEAT_S[kind]} s): events {names}; "
+                  f"{'preempted.json written' if preempted else 'no preempted.json'}; "
+                  + (f"{faulted} rank(s) faulted; " if kind == "fault" else "") + f"resumed "
+                  f"from step {resumed}; final parameters bit-equal to the unbroken run's; none of "
+                  f"the {len(res['seen'])} processes seen below the supervisor left running; the "
+                  f"drill to the supervisor's {event['event']} event {d['act_to_event_s']:.2f} s"
+                  + (f" (to heartbeat_stale {d['act_to_stale_s']:.2f} s)" if stale else "")
+                  + f", that event to the relaunch {d['event_to_relaunch_s']:.2f} s; time to "
+                  f"recover (the event to the relaunched group's first heartbeat past step "
+                  f"{resumed}) {ttr:.2f} s; wall {res['wall_s']:.1f} s; on {smi}")
     return summary
 
 
@@ -3330,6 +3727,7 @@ def main() -> int:
     parallel["kernels"] = shard_kernel_checks(joint, flag, smi)
     print(f"parallel {json.dumps(parallel)}")
     nccl_kstep_phase(smi)
+    nccl_ops_phase(smi)
 
     # --- timings at the main-path shapes.
     # Each function's bytes and operations come from the cost formulas

@@ -115,7 +115,10 @@ def _correlation(event: dict):
 
 def parse_trace(trace_dir: str, program_name: str) -> DeviceTiming | None:
     """Device timing of the runs of ``program_name`` in the newest Chrome
-    trace under ``trace_dir`` (see the module docstring).  None when the
+    trace under ``trace_dir``, its subdirectories included (see the module
+    docstring): a profiled ``fit`` over a mesh writes a trace for each rank
+    under ``<workdir>/profile/rank<r>/``, so name a rank's directory there,
+    or its newest trace of any rank is read.  None when the
     trace holds no device op launched inside a run of the program: no
     trace, a trace of the CPU alone, or no such run."""
     events = [e for e in _load_trace_events(trace_dir) if e.get("ph") == "X"]

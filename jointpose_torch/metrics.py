@@ -74,10 +74,18 @@ class ProfilerHook:
     starts at ``start_step``, once the card has finished the earlier
     steps, and is written when the window ends (or at ``close``, if
     training ends first), once the card has finished the window's work.
+
+    The trace goes to ``<workdir>/profile``; with ``rank`` (a rank of a
+    mesh of several processes, each tracing its own window) to
+    ``<workdir>/profile/rank<rank>``.  ``devtime.parse_trace`` reads the
+    newest trace under the directory it is given, its subdirectories
+    included: over a mesh, name a rank's directory.
     """
 
-    def __init__(self, workdir: str, start_step: int, num_steps: int):
+    def __init__(self, workdir: str, start_step: int, num_steps: int, rank: int | None = None):
         self.trace_dir = os.path.join(workdir, "profile")
+        if rank is not None:
+            self.trace_dir = os.path.join(self.trace_dir, f"rank{rank}")
         self.start_step = start_step
         self.stop_step = start_step + num_steps
         self._prof = None

@@ -59,8 +59,9 @@ before the first dispatch), and ``JOINTPOSE_FAULT_AT_STEP`` is checked
 after each dispatch, so that ``python -m jointpose_torch.resilience``
 supervises the run.  ``profile_steps`` (``--profile-steps``) traces steps
 ``start + 5`` to ``start + 4 + profile_steps`` under
-``metrics.ProfilerHook`` into ``<workdir>/profile/``, one step a dispatch
-inside that window.  On CUDA the first step of each stage runs alone
+``metrics.ProfilerHook`` into ``<workdir>/profile/`` (over a mesh of
+several ranks each rank traces the window into ``profile/rank<r>/``), one
+step a dispatch inside that window on every rank.  On CUDA the first step of each stage runs alone
 under ``perf.count_cost`` and logs the step's GFLOP and MB per image, the
 bound ``roofline_images_per_sec`` and the stage's first dispatch size
 ``steps_per_dispatch`` (the reference logs it on the TPU alone).
@@ -647,9 +648,9 @@ def fit(
         raise ValueError(
             f"batch_size {t.batch_size} must be divisible by the mesh data axis ({n_data})")
     rows = t.batch_size // n_data
-    # Host-side artifacts with one writer (metrics.jsonl, figures, the
-    # profiler's trace) belong to rank 0; checkpoints are written by rank 0
-    # with a barrier after each save (checkpoint.py).
+    # Host-side artifacts with one writer (metrics.jsonl, figures) belong to
+    # rank 0; checkpoints are written by rank 0 with a barrier after each
+    # save (checkpoint.py).  Every rank traces its own profiled window.
     is_lead = mesh.rank == 0
     logger = MetricLogger(workdir, enabled=is_lead)
     # Records the architecture mode; fails fast on a resume whose
@@ -774,9 +775,12 @@ def fit(
         return take_steps(stage, first + 1, chunk - 1) if chunk > 1 else out
 
     # A trace of a window after the run's first steps (cuDNN's algorithm
-    # choice and the kernel builds stay out of it).
-    profiler = (ProfilerHook(workdir, start_step=start_step + 5, num_steps=profile_steps)
-                if profile_steps > 0 and is_lead else None)
+    # choice and the kernel builds stay out of it), on every rank: the
+    # window cuts the dispatches, and ranks whose dispatches differed would
+    # pair one rank's boundary collectives with another's step collectives.
+    profiler = (ProfilerHook(workdir, start_step=start_step + 5, num_steps=profile_steps,
+                             rank=mesh.rank if mesh.size > 1 else None)
+                if profile_steps > 0 else None)
     costed: set[str] = set()  # stages whose cost was logged (on CUDA only)
 
     def now() -> float:
@@ -790,7 +794,7 @@ def fit(
         """Up to ``steps_per_dispatch`` steps, never across a log, eval,
         stage or end boundary (the reference's chunking); a profiled window
         takes one step a dispatch, so that each of its steps is a range of
-        its own in the trace."""
+        its own in the trace.  Every rank of a mesh cuts alike."""
         bounds = [(step // t.log_every + 1) * t.log_every,
                   (step // t.eval_every + 1) * t.eval_every,
                   det_steps if step < det_steps else total_steps, total_steps]
@@ -927,7 +931,8 @@ def main(argv: list[str] | None = None) -> None:
                         help="write the prior grid, PDJ curves and heatmap overlays to "
                              "<workdir>/figures/")
     parser.add_argument("--profile-steps", type=int, default=0,
-                        help="trace N train steps with torch.profiler into <workdir>/profile")
+                        help="trace N train steps with torch.profiler into <workdir>/profile "
+                             "(over a mesh, each rank into <workdir>/profile/rank<r>)")
     parser.add_argument("--check-numerics", action="store_true",
                         help="torch.autograd.set_detect_anomaly: fail at the op that made a NaN")
     parser.add_argument("--mesh-data", type=int, default=None,

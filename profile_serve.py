@@ -12,7 +12,9 @@ port's predictor (seeded random weights, as ``chip_smoke.py`` does) under
 training steps of ``flagship`` with ``mrf.impl='pallas'`` instead, after
 two warm-up steps.  Prints, per preset: the wall time per request or
 step, the device's busy time (the sum of kernel times) and its idle
-share, and the kernels by total device time.  ``joint_fft`` is ``joint``
+share, the kernels by total device time, and the PyTorch ops that
+launched them by their input shapes (which convolution a kernel belongs
+to).  ``joint_fft`` is ``joint``
 with ``head_conv_impl='fft'``, ``joint_default`` is ``joint`` at MRF
 precision 'default' (the serving default: the single-pass Fourier tail).  With ``--head-stages`` it times the stages
 of the Fourier head conv at the paper head instead (bf16): the input's
@@ -86,7 +88,8 @@ def _train_unit(preset: str, batch: int, n: int):
 
 def profile(run, units: int, top: int = 12) -> dict:
     """Profile ``units`` calls of ``run`` after two warm-up calls; the
-    kernels, copies and memsets by name from ``devtime.parse_trace``."""
+    kernels, copies and memsets by name from ``devtime.parse_trace``, and
+    the ops by the device time they launched, with their input shapes."""
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
 
@@ -95,7 +98,8 @@ def profile(run, units: int, top: int = 12) -> dict:
     for r in range(2):
         run(r)
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
         t0 = time.perf_counter()
         for r in range(units):
             with record_function(f"unit#{r}"):
@@ -115,12 +119,19 @@ def profile(run, units: int, top: int = 12) -> dict:
         return [{"name": n[:90], "ms_per_unit": t, "launches_per_unit": c / units}
                 for n, (t, c) in items]
 
-    return {
+    res = {
         "units": units, "wall_ms_per_unit": wall_ms, "device_busy_ms_per_unit": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top_kernels": rows(ranked[:top]),
         "port_kernels": rows(kv for kv in ranked if any(f"::{k}" in kv[0] for k in PORT_KERNELS)),
     }
+    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    res["ops_by_shape"] = [
+        {"name": f"{e.key} {e.input_shapes}"[:160], "launches_per_unit": e.count / units,
+         "ms_per_unit": e.self_device_time_total / 1e3 / units}
+        for e in ops[:top]]
+    return res
 
 
 def head_stages(batch: int, runs: int = 30) -> dict:
@@ -201,7 +212,7 @@ def main(argv=None) -> int:
         print(f"{preset}: {res['wall_ms_per_unit']:.3f} ms/{unit} wall, device busy "
               f"{res['device_busy_ms_per_unit']:.3f} ms, idle share "
               f"{res['device_idle_share']:.3f}")
-        for title in ("top_kernels", "port_kernels"):
+        for title in ("top_kernels", "port_kernels", "ops_by_shape"):
             print(f" {title}:")
             for k in res[title]:
                 print(f"  {k['ms_per_unit']:8.4f} ms  x{k['launches_per_unit']:g}  {k['name']}")

@@ -17,8 +17,13 @@ whose rank 1 is preempted (a SIGTERM) at step 6, free of the failure
 budget though the launcher exits 1, and one whose rank 1 hangs at step
 6: the supervisor finds the stale heartbeat and leaves no process of the
 hung group running.
+
+A profiled two-process run (``--profile-steps 2`` at 4 steps a dispatch)
+leaves a trace of the window for each rank under ``profile/rank<r>/`` and
+ends on the unbroken run's parameters exactly.
 """
 
+import glob
 import json
 import os
 import subprocess
@@ -46,16 +51,27 @@ def _env(**extra):
     return env
 
 
-def _run(argv, **env):
-    proc = subprocess.run(argv, env=_env(**env), capture_output=True, text=True, timeout=600,
-                          cwd=REPO)
-    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
-    return proc.stdout
+def _run(argv, timeout=600, **env):
+    """Run ``argv`` to its end; on ``timeout`` kill it and every process
+    below it (a launcher's ranks run in sessions of their own) and raise."""
+    proc = subprocess.Popen(argv, env=_env(**env), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        tree = resilience._process_tree(proc.pid)
+        proc.kill()
+        proc.communicate()
+        resilience._kill_survivors(tree)
+        raise
+    assert proc.returncode == 0, out[-4000:] + err[-4000:]
+    return out
 
 
-def _torchrun(*train_args):
+def _torchrun(*train_args, timeout=600):
     return _run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                 "--nproc-per-node", "2", "-m", "jointpose_torch.train", *train_args])
+                 "--nproc-per-node", "2", "-m", "jointpose_torch.train", *train_args],
+                timeout=timeout)
 
 
 def _final_params(workdir):
@@ -113,7 +129,31 @@ def test_supervised_two_process_fit_resumes_after_a_fault(unbroken, tmp_path):
     assert events[2]["cmd"][-1] == "--resume"
     with open(os.path.join(workdir, ".fault_injected")) as f:
         assert int(f.read()) == 6
+    # A failure is never recorded as a preemption.
+    assert not os.path.exists(os.path.join(workdir, resilience.PREEMPTED_FILE))
     got, want = _final_params(workdir), _final_params(dist_wd)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+def test_a_profiled_two_process_fit_traces_every_rank(unbroken, tmp_path):
+    """Every rank traces the window and cuts its dispatches at its bounds:
+    were rank 0 alone to take the window's steps one a dispatch, its
+    dispatch-boundary all-reduces would pair with its peer's gradient
+    all-reduces and the group would hang (the timeout)."""
+    workdir = str(tmp_path / "prof")
+    _torchrun(*BASE, "--workdir", workdir, "--mesh-data", "2", "--joint-steps", "4",
+              "--eval-every", "4", "--steps-per-dispatch", "4", "--profile-steps", "2", timeout=300)
+    for rank in range(2):
+        (path,) = glob.glob(os.path.join(workdir, "profile", f"rank{rank}", "*.pt.trace.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        steps = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                       and e["name"].startswith("train#"))
+        assert steps == ["train#5", "train#6"], rank
+    assert not glob.glob(os.path.join(workdir, "profile", "*.pt.trace.json"))
+    # The window changes the trace alone: the unbroken run's parameters.
+    got, want = _final_params(workdir), _final_params(unbroken[0])
     for name in want:
         assert torch.equal(got[name], want[name]), name
 
@@ -181,6 +221,7 @@ def test_supervised_two_process_fit_ends_a_hung_group(unbroken, tmp_path):
     assert [e["event"] for e in sup.events] == [
         "launch", "heartbeat_stale", "failure", "launch", "done"]
     assert sup.events[2]["why"] == "hang" and sup.restarts == 1
+    assert not os.path.exists(os.path.join(workdir, resilience.PREEMPTED_FILE))
     assert len(tree) >= 2  # the launcher's two ranks, each in a session of its own
     for pid, started in tree:  # none left running: gone, reused, or a zombie
         stat = resilience._stat(pid)
