@@ -57,7 +57,15 @@ the package is missing.  Phases, each fatal on failure:
    CPU-written step-0 checkpoint resumed into the graph form, the step
    time eager and by graph in turns, and ``fit``'s images/s and cost
    records at steps_per_dispatch 1 and 10, with and without
-   deterministic algorithms;
+   deterministic algorithms; then ``flagship``'s own MRF path ('auto' ->
+   'xla', bf16; ``grouped_vjp_phase``): the grouped conv's hand-written
+   backward (``ops.mrf_xla.grouped_conv_f32``) against autograd of the
+   fp32-upcast grouped conv at batch 8 and 32, forward and both
+   gradients, both backwards timed in turns by graph with the kernels
+   each launches, and ``fit`` of ``flagship`` as the preset stands against
+   ``mrf.impl='pallas'`` in turns at steps_per_dispatch 10 (the
+   Function's backward captured and replayed, the dense forms' FLOPs in
+   the joint stage's cost record);
 8. observability and operations (``observe_phase``): ``fit`` of the same
    config, 4 + 6 steps, with a profiler window of steps 5-7 (its trace,
    read by ``devtime.parse_trace``, holds the path's three kernels as often
@@ -133,7 +141,8 @@ the package is missing.  Phases, each fatal on failure:
    algorithms, the launches 1 a step, every process group of the capture
    warmed by an eager collective; a rank's step time eager and by graph
    in turns and ``fit``'s images/s at steps_per_dispatch 1 and 10 over
-   data 1, 2 and 4 and 2x2; then the operations entry points over an nccl
+   data 1, 2 and 4 and 2x2, over data 4 also for ``flagship`` as the
+   preset stands ('xla'); then the operations entry points over an nccl
    mesh of four cards (``nccl_ops_phase``; on fewer it prints one line and
    runs nothing): ``train.main`` as its CLI over data 4, 2x2 and 2x2
    spatial, resumed with a profiled window read rank by rank, and the
@@ -627,6 +636,8 @@ def fit_phase(config, counters: dict, smi: str) -> None:
 # (the default steps_per_dispatch).
 KSTEP_K = 4
 KSTEP_TIMED_K = 10
+# A stage's cost record in fit's metrics.
+COST_KEYS = ("train_step_gflops_per_image", "train_step_mb_per_image", "roofline_images_per_sec")
 
 
 def _opt_tensors(state) -> list[torch.Tensor]:
@@ -676,13 +687,16 @@ def _step_turns(cfg, train_ds, indices, eager, graphed, first: int, mesh=None) -
             "capture_and_first_replay_ms": t_capture}
 
 
-def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True) -> dict:
-    """``fit`` of ``cfg`` (30 + 30 steps, logs every 10) at
-    steps_per_dispatch 1 and KSTEP_TIMED_K, under ``root``: for each size
-    this process's launches and captures, and on the ``lead`` rank (the one
+def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True,
+               sizes=(1, KSTEP_TIMED_K)) -> dict:
+    """``fit`` of ``cfg`` (30 + 30 steps, logs every 10) at each
+    steps_per_dispatch of ``sizes``, under ``root``: for each size this
+    process's launches and captures, and on the ``lead`` rank (the one
     that writes the metrics) the logged images/s of each stage and the
-    per-stage cost records.  The launches and the cost records are held."""
+    per-stage cost records.  The launches (the epilogue's only where the
+    config's MRF takes it) and the cost records are held."""
     import jointpose_torch.train as train_mod
+    from jointpose_torch.models.mrf import select_impl
 
     captures = []
 
@@ -692,10 +706,11 @@ def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True) -
             captures.append(1)
 
     det = joint = 30
+    epilogue = select_impl(cfg.mrf) == "pallas"
     out: dict = {}
     plain, train_mod._CapturedDispatch = train_mod._CapturedDispatch, Counted
     try:
-        for k in (1, KSTEP_TIMED_K):
+        for k in sizes:
             c = cfg.replace(train=dataclasses.replace(cfg.train, detector_steps=det,
                                                       joint_steps=joint, log_every=10,
                                                       eval_every=det + joint,
@@ -706,8 +721,8 @@ def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True) -
             result = train_mod.fit(c, workdir, eval_max_batches=1, device=device)
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
-            want = {"shear_warp": det + joint, "mrf_epilogue_bwd": joint,
-                    "mrf_epilogue": joint + 1}
+            want = {"shear_warp": det + joint, "mrf_epilogue_bwd": joint * epilogue,
+                    "mrf_epilogue": (joint + 1) * epilogue}
             check(result.state.step == det + joint
                   and all(launches[n] == v for n, v in want.items()),
                   f"fit at steps_per_dispatch {k} ended at step {result.state.step} with "
@@ -719,6 +734,9 @@ def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True) -
                                 if "roofline_images_per_sec" in r]
                 check(res["costs"] == [(0, "detector", k), (det, "joint", k)],
                       f"fit at steps_per_dispatch {k} logged stage costs {res['costs']}")
+                res["cost_records"] = {
+                    r["stage"]: {key: r[key] for key in COST_KEYS}
+                    for r in records if "roofline_images_per_sec" in r}
                 res["rates"] = {stage: [r["images_per_sec"] for r in records
                                         if r.get("stage") == stage and "images_per_sec" in r]
                                 for stage in ("detector", "joint")}
@@ -874,6 +892,212 @@ def kstep_phase(smi: str) -> dict:
     return results
 
 
+# The fp32-output grouped conv's hand-written backward (the reference's
+# custom VJP) against autograd of the fp32-upcast grouped conv: the
+# former rounds the cotangent to bf16, as the reference does, the latter
+# keeps it in fp32 (TF32 in cuDNN's products), and both round their
+# gradients to bf16; within a hundredth of the largest gradient.
+GROUPED_VJP_RTOL = 1e-2
+# fit's joint-stage FLOPs a image, 'xla' against 'pallas': the dense forms'
+# extra work as counted, within this share.
+GROUPED_VJP_FLOPS_RTOL = 0.05
+
+
+def grouped_vjp_flops(b: int, h: int, w: int, kv: int, ka: int, wh: int, ww: int) -> dict:
+    """FLOPs (2 a multiply-add) of the hand-written backward's convolutions
+    at a shape: the space-to-depth dL/dp conv (output width padded to S
+    columns a block, nq taps of S columns), the dense-embedded dL/dk, and
+    the true grouped work of either gradient."""
+    from jointpose_torch.ops.mrf_xla import S2D_WIDTH as s
+
+    nq, wblocks = (ww - 1 + s - 1) // s + 1, -(-w // s)
+    grouped = 2 * b * h * w * kv * ka * wh * ww
+    return {"dp_s2d": 2 * b * h * wblocks * s * kv * wh * nq * s * kv * ka,
+            "dk_dense": grouped * kv, "grouped": grouped}
+
+
+def grouped_vjp_phase(counters: dict, smi: str) -> dict:
+    """``flagship``'s own MRF path ('auto' -> 'xla', bf16): the coarse
+    pass's grouped conv through ``ops.mrf_xla.grouped_conv_f32``, whose
+    backward is the reference's dense-embedded dL/dk and space-to-depth
+    dL/dp.
+
+    At ``flagship``'s shape (30x45 coarse grid, 9 joints, 17x25), batch 8
+    and 32, bf16 p and kernels: the forward and both gradients against
+    autograd of the fp32-upcast grouped conv (the plain version); the
+    backward alone (the Function's against the ``convolution_backward``
+    that autograd of the plain version calls) and forward plus backward
+    through autograd, each by CUDA-graph replay in turns, with the kernels
+    each launches (``devtime``).  Then ``fit`` of ``flagship`` as the
+    preset stands against ``mrf.impl='pallas'``, in turns, at
+    steps_per_dispatch KSTEP_TIMED_K (one CUDA graph a dispatch): the
+    shear warp once a step, the Function's backward captured and replayed,
+    each stage's images/s and cost record, the dense forms' FLOPs in the
+    count."""
+    import jointpose_torch.ops.mrf_xla as mx
+    from jointpose_torch import devtime, get_config
+    from jointpose_torch.models.mrf import select_impl
+
+    flag = get_config("flagship")
+    check(flag.mrf.impl == "auto" and select_impl(flag.mrf) == "xla" and flag.mrf.stride == 2
+          and flag.compute_dtype == "bfloat16" and flag.train.batch_size == 32,
+          "flagship's MRF is not the bf16 'xla' coarse pass")
+    k, (wh, ww) = flag.num_joints, flag.mrf.window
+    ch, cw = flag.heatmap_hw[0] // flag.mrf.stride, flag.heatmap_hw[1] // flag.mrf.stride
+    gen = torch.Generator().manual_seed(15)
+    kernels, _ = mrf_params(gen, flag.mrf.window, k)
+    kern = kernels.reshape(wh, ww, 1, k * k).bfloat16()
+    result: dict = {"parity": {}, "time": {}, "fit": []}
+
+    def function_conv(a, b):
+        return mx.grouped_conv_f32(a, b, k)
+
+    def plain_conv(a, b):
+        return mx.grouped_conv(a, b, k, torch.float32)
+
+    for batch in (BATCH, flag.train.batch_size):
+        p = unaries(gen, batch, ch, cw, k, torch.bfloat16)
+        g = torch.randn(batch, ch, cw, k * k, generator=gen).cuda()
+
+        def vjp(conv):
+            a, b = p.clone().requires_grad_(True), kern.clone().requires_grad_(True)
+            resp = conv(a, b)
+            return (resp, *torch.autograd.grad(resp, (a, b), g))
+
+        got, want = vjp(function_conv), vjp(plain_conv)
+        torch.cuda.synchronize()
+        check(got[0].dtype == torch.float32 and got[1].dtype == got[2].dtype == torch.bfloat16
+              and all(bool(torch.isfinite(t).all()) for t in got),
+              f"grouped_conv_f32 at batch {batch}: types or values")
+        errs = {name: rel_err(x.float(), y.float())
+                for name, x, y in zip(("forward", "dp", "dk"), got, want)}
+        result["parity"][batch] = errs
+        print(f"grouped_conv_f32 at batch {batch} (p {tuple(p.shape)} bf16, kernels "
+              f"{tuple(kern.shape)} bf16, fp32 out): against autograd of the fp32-upcast grouped "
+              f"conv, rel err / max abs: "
+              + ", ".join(f"{n} {e[0]:.3e} / {e[1]:.3e}" for n, e in errs.items())
+              + f" (limit {GROUPED_VJP_RTOL:g} of the largest); on {smi}")
+        check(max(e[0] for e in errs.values()) <= GROUPED_VJP_RTOL,
+              f"grouped_conv_f32 at batch {batch} disagrees with its plain version")
+
+        # The backward alone: the Function's, and what autograd of the plain
+        # version calls (cuDNN's grouped dgrad and wgrad on fp32 operands).
+        x32, w32, g4 = mx._nchw(p.float()), kern.float().permute(3, 2, 0, 1), mx._nchw(g)
+
+        def plain_bwd():
+            torch.ops.aten.convolution_backward(g4, x32, w32, None, [1, 1], [wh // 2, ww // 2],
+                                                [1, 1], False, [0, 0], k, [True, True, False])
+
+        def function_bwd():
+            mx.grouped_conv_f32_bwd(g, p, kern, k)
+
+        a, b = p.clone().requires_grad_(True), kern.clone().requires_grad_(True)
+
+        def through_autograd(conv):
+            return lambda: torch.autograd.grad(conv(a, b), (a, b), g)
+
+        bwd = [time_ms(fn, runs=20, per_graph=2)
+               for fn in (plain_bwd, function_bwd, function_bwd, plain_bwd)]
+        both = [time_ms(through_autograd(c), runs=20, per_graph=2)
+                for c in (plain_conv, function_conv, function_conv, plain_conv)]
+        fwd = time_ms(lambda: plain_conv(p, kern), runs=20, per_graph=2)
+        flops = grouped_vjp_flops(batch, ch, cw, k, k, wh, ww)
+        ops = {}
+        for what, fn in (("plain", plain_bwd), ("function", function_bwd)):
+            timing = devtime.measure_device_time(fn, iters=2, warmup=1, program_name=f"bwd_{what}")
+            check(timing is not None, f"no device ops in the trace of the {what} backward")
+            ops[what] = [[o.name[:100], o.count // 2, round(o.duration_s * 1e3 / 2, 4)]
+                         for o in timing.ops]
+        t_fn, t_plain = min(bwd[1], bwd[2]), min(bwd[0], bwd[3])
+        result["time"][batch] = {"backward_turns_ms": bwd, "fwd_bwd_turns_ms": both,
+                                 "forward_ms": fwd, "flops": flops, "kernels": ops,
+                                 "dgrad_engine": {w: any("dgrad_engine" in o[0] for o in ops[w])
+                                                  for w in ops}}
+        dense = flops["dp_s2d"] + flops["dk_dense"]
+        print(f"time the MRF conv's backward at batch {batch}, CUDA-graph replays in turns, plain "
+              f"(autograd of the fp32-upcast grouped conv: convolution_backward, groups {k}) / "
+              f"Function / Function / plain: {' / '.join(f'{t:.4f}' for t in bwd)} ms; forward "
+              f"plus backward through autograd in the same order "
+              f"{' / '.join(f'{t:.4f}' for t in both)} ms; the forward alone {fwd:.4f} ms; the "
+              f"Function's {dense / 1e9:.3f} GFLOP (s2d dp {flops['dp_s2d'] / 1e9:.3f}, dense dk "
+              f"{flops['dk_dense'] / 1e9:.3f}) at {dense / t_fn / 1e9:.1f} TFLOP/s, the grouped "
+              f"work {2 * flops['grouped'] / 1e9:.3f} GFLOP both ways at "
+              f"{2 * flops['grouped'] / t_plain / 1e9:.2f} TFLOP/s by the plain version; on {smi}")
+        for what in ops:
+            seen = result["time"][batch]["dgrad_engine"][what]
+            print(f"kernels of the {what} backward at batch {batch} (name, launches a call, ms a "
+                  f"call): {ops[what]}; cuDNN's dgrad_engine "
+                  f"{'appears' if seen else 'does not appear'}")
+        del p, g, got, want, x32, w32, g4, a, b
+    torch.cuda.empty_cache()
+
+    # fit of flagship as the preset stands against mrf.impl='pallas', in
+    # turns; the Function's backward calls counted eagerly and under capture.
+    pallas = flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"))
+    calls = {"eager": 0, "captured": 0}
+    plain_fn = mx.grouped_conv_f32_bwd
+
+    def counted(*args, **kwargs):
+        calls["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return plain_fn(*args, **kwargs)
+
+    mx.grouped_conv_f32_bwd = counted
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for i, (name, cfg) in enumerate((("pallas", pallas), ("xla", flag), ("xla", flag),
+                                             ("pallas", pallas))):
+                before = dict(calls)
+                res = _fit_rates(cfg, os.path.join(root, str(i)), counters,
+                                 sizes=(KSTEP_TIMED_K,))[KSTEP_TIMED_K]
+                res["backward_calls"] = {n: calls[n] - before[n] for n in calls}
+                res["mrf"] = name
+                result["fit"].append(res)
+    finally:
+        mx.grouped_conv_f32_bwd = plain_fn
+    joint_steps = 30
+    for res in result["fit"]:
+        n = res["backward_calls"]
+        if res["mrf"] == "xla":
+            check(res["captured"] == 2 and n["captured"] == KSTEP_TIMED_K
+                  and n["eager"] + n["captured"] < joint_steps,
+                  f"fit of flagship ('xla'): {res['captured']} graphs, the Function's backward "
+                  f"called {n}: not captured once and replayed")
+        else:
+            check(n == {"eager": 0, "captured": 0}, f"fit with mrf.impl='pallas' reached the "
+                  f"Function's backward {n}")
+        print(f"fit flagship (mrf {res['mrf']}, bf16, batch 32, 30 + 30 steps, steps_per_dispatch "
+              f"{KSTEP_TIMED_K} by graph): images/s per log interval of 10 steps, detector "
+              f"{[round(x, 1) for x in res['rates']['detector']]}, joint "
+              f"{[round(x, 1) for x in res['rates']['joint']]} (each stage's first interval holds "
+              f"its warm-up, the second its capture); graphs {res['captured']}; launches "
+              f"{ {n: v for n, v in res['launches'].items() if v} }; the Function's backward "
+              f"called {n['eager']} times eagerly and {n['captured']} under capture (the other "
+              f"joint steps replayed it); cost records {res['cost_records']}; on {smi}")
+    turns = [res["rates"]["joint"][-1] for res in result["fit"]]
+    rec = {name: next(r["cost_records"]["joint"] for r in result["fit"] if r["mrf"] == name)
+           for name in ("pallas", "xla")}
+    f1 = grouped_vjp_flops(1, ch, cw, k, k, wh, ww)
+    # torch's FLOP counter charges a grouped wgrad as the dense one (it
+    # leaves out the groups), so the count adds the s2d conv less the
+    # grouped dgrad it replaces.
+    extra = (f1["dp_s2d"] - f1["grouped"]) / 1e9
+    counted_extra = (rec["xla"]["train_step_gflops_per_image"]
+                     - rec["pallas"]["train_step_gflops_per_image"])
+    result["joint_turns"] = turns
+    print(f"fit flagship, the joint stage's last logged interval in turns pallas / xla / xla / "
+          f"pallas: {' / '.join(f'{t:.1f}' for t in turns)} images/s (xla "
+          f"{max(turns[1], turns[2]):.1f} against pallas {max(turns[0], turns[3]):.1f}); the joint "
+          f"step's count {rec['xla']['train_step_gflops_per_image']:.4f} GFLOP a image on 'xla' "
+          f"against {rec['pallas']['train_step_gflops_per_image']:.4f} on 'pallas', "
+          f"{counted_extra:.4f} more ({extra:.4f} expected: the s2d dp conv less the grouped "
+          f"dgrad); bounds {rec['xla']['roofline_images_per_sec']:.1f} and "
+          f"{rec['pallas']['roofline_images_per_sec']:.1f} images/s; on {smi}")
+    check(abs(counted_extra - extra) <= GROUPED_VJP_FLOPS_RTOL * extra,
+          f"the joint step's FLOP count does not show the dense forms: {counted_extra:.4f} "
+          f"GFLOP a image more, {extra:.4f} expected")
+    return result
+
+
 # The nccl_kstep phase's meshes, (data, model, spatial): the bit-equality
 # meshes need four cards (with two or three the phase takes data 2), the
 # timed ones as many as their size.
@@ -905,7 +1129,8 @@ def nccl_kstep_child(task: str, out: str) -> None:
     against 2 x KSTEP_K eager single steps, the launch counts of the graph
     dispatches read, and which process groups ran a collective eagerly and
     under the capture.  'time' (PyTorch's defaults): the step time in
-    turns (``_step_turns``), then ``fit`` at steps_per_dispatch 1 and
+    turns (``_step_turns``; over data 4 also for the preset's own MRF,
+    'xla'), then ``fit`` at steps_per_dispatch 1 and
     KSTEP_TIMED_K (``_fit_rates``).  Writes
     ``<out>/<kind>_<mesh>_rank<r>.json``."""
     kind, names = task.split(":")
@@ -925,8 +1150,8 @@ def nccl_kstep_child(task: str, out: str) -> None:
 
     device = init_distributed()
     counters = kernel_counters()
-    flag = get_config("flagship")
-    flag = flag.replace(mrf=dataclasses.replace(flag.mrf, impl="pallas"))
+    preset = get_config("flagship")
+    flag = preset.replace(mrf=dataclasses.replace(preset.mrf, impl="pallas"))
     tb = flag.train.batch_size
     check(flag.augment.enabled and tb == 32 and flag.data.image_hw == (240, 360)
           and flag.data.source == "synthetic", "the nccl_kstep phase is not flagship at full width")
@@ -942,8 +1167,8 @@ def nccl_kstep_child(task: str, out: str) -> None:
             return np.stack([(np.arange(s * tb, (s + 1) * tb) % train_ds.size)[d * rows:(d + 1) * rows]
                              for s in range(first, first + n)])
 
-        def state():
-            return shard_state(create_state(cfg, torch.Generator().manual_seed(7), device=device,
+        def state(c=cfg):
+            return shard_state(create_state(c, torch.Generator().manual_seed(7), device=device,
                                             mesh=mesh), mesh)
 
         res = {"rank": dist.get_rank(), "device": str(device), "backend": mesh.backend,
@@ -992,6 +1217,21 @@ def nccl_kstep_child(task: str, out: str) -> None:
             res["step_ms"] = _step_turns(cfg, train_ds, indices, eager, graphed, KSTEP_TIMED_K,
                                          mesh)
             res["step_ms"]["captured"] = len(graphed.graphs.graphs)
+            if (data, model, spatial) == (4, 1, False):
+                # The preset's own MRF ('auto' -> 'xla': the grouped conv's
+                # dense backward) at 8 rows a rank, beside the pallas path's.
+                xcfg = cfg.replace(mrf=preset.mrf)
+                xe, xg = state(xcfg), state(xcfg)
+                xmulti = make_train_multistep(xcfg, "joint", train_ds.get_batch, KSTEP_TIMED_K,
+                                              mesh)
+                xg, _ = xmulti(xg, indices(0, KSTEP_TIMED_K))  # warm: eager
+                xstep = make_train_step(xcfg, "joint", mesh)
+                xe, _ = xstep(xe, train_ds.get_batch(indices(0, 1)[0]))
+                res["xla_step_ms"] = _step_turns(xcfg, train_ds, indices, xe, xg, KSTEP_TIMED_K,
+                                                 mesh)
+                res["xla_step_ms"]["captured"] = len(xg.graphs.graphs)
+                xg.graphs.release()
+                del xe, xg
         graphed.graphs.release()  # before the process groups go (shutdown_distributed)
         del eager, graphed
         torch.cuda.empty_cache()
@@ -1033,7 +1273,8 @@ def nccl_kstep_phase(smi: str) -> dict | None:
     step, and every process group that ran a collective under the capture
     ran one eagerly before it.  With PyTorch's defaults, in worlds of 1, 2
     and 4 as the cards allow, over data 1, 2, 4 and 2x2: a rank's step
-    time eager and by graph in turns, and ``fit``'s logged images/s at
+    time eager and by graph in turns (over data 4 also for ``flagship`` as
+    the preset stands, 'xla'), and ``fit``'s logged images/s at
     steps_per_dispatch 1 and KSTEP_TIMED_K, its graphs captured.  On one
     card it prints why it did not run and returns None."""
     cards = torch.cuda.device_count()
@@ -1094,6 +1335,15 @@ def nccl_kstep_phase(smi: str) -> dict | None:
                 steps = "; ".join(
                     f"rank {res['rank']} " + " / ".join(f"{t:.3f}" for t in res["step_ms"]["turns"])
                     for res in ranks)
+                if "xla_step_ms" in ranks[0]:
+                    check(all(res["xla_step_ms"]["captured"] == 1 for res in ranks),
+                          f"nccl_kstep time {name}: the 'xla' path did not take the graph form")
+                    xla = "; ".join(f"rank {res['rank']} " + " / ".join(
+                        f"{t:.3f}" for t in res["xla_step_ms"]["turns"]) for res in ranks)
+                    print(f"nccl_kstep time {name}, flagship as the preset stands (mrf 'auto' -> "
+                          f"'xla': the grouped conv's dense backward), {ranks[0]['rows']} rows a "
+                          f"rank: a joint step with its batch generated, in turns eager / graph / "
+                          f"graph / eager, ms: {xla}; the pallas path's: {steps}; on {smi}")
                 print(f"nccl_kstep time {name} (flagship, mrf.impl='pallas', bf16, global batch "
                       f"32, {ranks[0]['rows']} rows a rank, PyTorch's default algorithms, backend "
                       f"{ranks[0]['backend'] or 'none (one process)'}): a step with its batch "
@@ -3675,6 +3925,7 @@ def main() -> int:
               f"flagship training: {name} launched {trained['launches'][name]} times, not {n}")
     fit_phase(flag_cfg, counters, smi)
     kstep_phase(smi)
+    grouped_vjp_phase(counters, smi)
     observe_phase(flag_cfg, joint, counters, smi)
     served_default = serve_phase(joint, flag_cfg, counters, smi)
     deploy_phase(joint, counters, smi)
