@@ -19,10 +19,13 @@ the package is missing.  Phases, each fatal on failure:
    adds the logs one by one, and that design's tiled layout, which must
    be bit-identical to it) and backward (twice, bit-identical), the
    fused Fourier MRF tail in both forms, 3xTF32 and one TF32 pass (on
-   dense unaries and on unaries concentrated on a few pixels), both
-   shear-warp entries on a random full augmentation draw and the fused
-   one on extreme maps (bit-equal to its two-pass form, which stays as a
-   timed entry), and the three Fourier head-conv tails at the paper head
+   dense unaries and on unaries concentrated on a few pixels; the one
+   pass on ``wgmma`` also at batch 32, against its earlier ``mma.sync``
+   design and in its own grouping of the sums, a rerun bit-identical),
+   both shear-warp entries on a random full augmentation draw and on
+   extreme maps (each orientation's fused kernel bit-equal to its
+   two-launch form, which stays as a timed entry), and the three Fourier
+   head-conv tails at the paper head
    (bf16 and f32, and against each other; the build form's ring version
    also against its register-staged version, and at training batch 32);
    then ``fft_conv2d`` against cuDNN's direct conv in f32; and the
@@ -151,8 +154,11 @@ the package is missing.  Phases, each fatal on failure:
    bit-equal to an unbroken run, with its time to recover;
 12. time each kernel and its plain version at the main-path shape, the
    epilogue forward also against its first design and an empty launch,
-   in turns: the two forms of the Fourier MRF tail, the fused shear warp
-   and its two-pass form (and the fused kernel's strip widths), the
+   in turns: the two forms of the Fourier MRF tail, the one pass on
+   ``wgmma`` against its ``mma.sync`` design at batch 8 and 32 (and at
+   the shard-local Kv 5 and 3 in the parallel phase), each orientation's
+   fused shear warp and its two-launch form (and the fused kernel's strip
+   widths), the
    head-conv tail's ring and register-staged versions at batch 8 and 32;
    then the Fourier head against cuDNN and served ``joint`` with either
    head at batch 1, 8, 16 and 32.  The int8 detector is timed in phase 9,
@@ -1904,9 +1910,12 @@ def observe_phase(config, joint, counters: dict, smi: str) -> None:
     dev = devtime.measure_device_time(predict, images, iters=iters, warmup=warmup,
                                       program_name="serve_joint")
     check(dev is not None and dev.num_runs == iters, "measure_device_time: no runs on the card")
-    tail_ops = sum(o.count for o in dev.ops if "mrf_fft_tail_kernel" in o.name)
-    check(tail_ops == iters and fused_tail.launches_1pass - before == iters + warmup,
-          f"measure_device_time: row 3' appears {tail_ops} times in {iters} runs")
+    tail_ops = sum(o.count for o in dev.ops if "mrf_tail_wgmma_kernel" in o.name)
+    old_ops = sum(o.count for o in dev.ops if "mrf_fft_tail_kernel" in o.name)
+    check(tail_ops == iters and old_ops == 0
+          and fused_tail.launches_1pass - before == iters + warmup,
+          f"measure_device_time: row 3' (wgmma) appears {tail_ops} times in {iters} runs, its "
+          f"earlier design {old_ops} times")
     graph_ms = time_ms(lambda: predict(images))
     busy_ms = sum(o.duration_s for o in dev.ops) * 1e3 / iters
     print(f"measure_device_time, served joint (bf16, MRF 'default', batch {BATCH}): median run "
@@ -2130,9 +2139,11 @@ def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:
         check(json_reply[0] == 200 and len(json_reply[1]["predictions"]) == 1, "serve: the JSON request")
         check(health[0] == 200 and health[1]["step"] == 0, "serve: /healthz")
         m = health[1]["batcher"]
-        check(launches["mrf_fft_tail_1pass"] == dispatches and launches["mrf_fft_tail"] == 0,
+        check(launches["mrf_fft_tail_1pass"] == dispatches and launches["mrf_fft_tail"] == 0
+              and launches["mrf_fft_tail_1pass_mma_sync"] == 0,
               f"serve 'default': the single-pass tail launched {launches['mrf_fft_tail_1pass']} "
-              f"times and the 3xTF32 tail {launches['mrf_fft_tail']} times in {dispatches} dispatches")
+              f"times, its earlier design {launches['mrf_fft_tail_1pass_mma_sync']} and the "
+              f"3xTF32 tail {launches['mrf_fft_tail']} times in {dispatches} dispatches")
         check(m["shed_requests"] == 0, "serve: requests were shed")
         print(f"serve joint through jointpose_torch.serve (bf16, MRF precision 'default', "
               f"PoseService(batch_size=16, batch_buckets=[1, 8]), ThreadingHTTPServer, started in "
@@ -2519,12 +2530,16 @@ def kernel_counters() -> dict:
     """Every kernel wrapper's launch counter, by the kernels line's names."""
     from jointpose_torch.ops import fft_conv as fc
     from jointpose_torch.ops.mrf_epilogue import mrf_epilogue, mrf_epilogue_bwd
-    from jointpose_torch.ops.mrf_fft_fused import fused_tail
-    from jointpose_torch.ops.warp import shear_warp, shear_warp_rowmajor
+    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_1pass_mma_sync
+    from jointpose_torch.ops.warp import (
+        shear_warp, shear_warp_rowmajor, shear_warp_rowmajor_two_pass,
+    )
 
     return {"mrf_epilogue": mrf_epilogue, "mrf_epilogue_bwd": mrf_epilogue_bwd,
             "mrf_fft_tail": fused_tail, "mrf_fft_tail_1pass": Count(fused_tail, "launches_1pass"),
+            "mrf_fft_tail_1pass_mma_sync": fused_tail_1pass_mma_sync,
             "shear_warp": shear_warp, "shear_warp_rowmajor": shear_warp_rowmajor,
+            "shear_warp_rowmajor_two_pass": shear_warp_rowmajor_two_pass,
             "fft_conv_tail_kdft_resident": fc.tail_kdft_resident,
             "fft_conv_tail_kdft": fc.tail_kdft, "fft_conv_tail_kf": fc.tail_kf}
 
@@ -3399,7 +3414,9 @@ def shard_kernel_checks(joint, flag, smi: str) -> dict:
         mrf_epilogue_plain,
     )
     from jointpose_torch.ops.mrf_fft import forward_ffts
-    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_emulated, fused_tail_plain
+    from jointpose_torch.ops.mrf_fft_fused import (
+        fused_tail, fused_tail_1pass_mma_sync, fused_tail_emulated, fused_tail_plain,
+    )
     from jointpose_torch.ops.mrf_fft_fused import tail_cost as mrf_tail_cost
     from jointpose_torch.ops.mrf_xla import pairwise_conv
     from jointpose_torch.ops.warp import shear_warp, shear_warp_reference, warp_cost
@@ -3446,6 +3463,9 @@ def shard_kernel_checks(joint, flag, smi: str) -> dict:
         sl = slice(rank * kv, (rank + 1) * kv)
         pf, kf, tables = forward_ffts(pp[..., sl].contiguous(), kp[:, :, sl].contiguous())
         pf, kf = tuple(t.contiguous() for t in pf), tuple(t.contiguous() for t in kf)
+        # The single pass's spectra as its pass gives them: rows of 8 bins.
+        padded = forward_ffts(pp[..., sl].contiguous(), kp[:, :, sl].contiguous(),
+                              padded_bins=True)[:2]
         bs = bp[sl].contiguous()
         shape = (BATCH, jh, jw, kv, k)
         plain = fused_tail_plain(pf, kf, tables, bs)
@@ -3458,12 +3478,25 @@ def shard_kernel_checks(joint, flag, smi: str) -> dict:
             else:
                 err, limit = rel_err(got, fused_tail_emulated(pf, kf, tables, bs, passes=1))[0], KERNEL_RTOL
                 fp32 = rel_err(got, plain)[0]
+                again = torch.equal(fused_tail(pf, kf, tables, bs, precision=prec), got)
                 print(f"parallel kernel {name} at {shape}: against fp32 rel err {fp32:.3e} "
-                      f"(limit {SINGLE_PASS_RTOL:g})")
+                      f"(limit {SINGLE_PASS_RTOL:g}); a second run is "
+                      f"{'bit-identical' if again else 'DIFFERENT'}")
                 check(fp32 <= SINGLE_PASS_RTOL, f"{name} at {shape} strays from fp32")
+                check(again, f"{name} at {shape}: a second run is not bit-identical")
             t_ops = tf32_ops_ms(flops, passes)
-            report(name, shape, err, limit,
-                   time_ms(lambda prec=prec: fused_tail(pf, kf, tables, bs, precision=prec)),
+            spectra = (pf, kf) if passes == 3 else padded
+            call = lambda prec=prec, a=spectra: fused_tail(*a, tables, bs, precision=prec)
+            if passes == 1:  # in turns with its earlier design: mma.sync, wgmma, wgmma, mma.sync
+                old = lambda: fused_tail_1pass_mma_sync(pf, kf, tables, bs)
+                turns = [time_ms(f) for f in (old, call, call, old)]
+                kernel_ms = min(turns[1], turns[2])
+                print(f"parallel kernel {name} at {shape} in turns, mma.sync / wgmma / wgmma / "
+                      f"mma.sync: {' / '.join(f'{t:.6f}' for t in turns)} ms; on {smi}")
+                out[f"{name}_mma_sync {shape}"] = {"ms": min(turns[0], turns[3])}
+            else:
+                kernel_ms = time_ms(call)
+            report(name, shape, err, limit, kernel_ms,
                    time_ms(lambda: fused_tail_plain(pf, kf, tables, bs)),
                    (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
@@ -3536,12 +3569,15 @@ def main() -> int:
     from jointpose_torch.ops.mrf_fft import (
         fft_pairwise_conv, forward_ffts, matmul_precision, mrf_message_pass_fft,
     )
-    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_emulated, fused_tail_plain
+    from jointpose_torch.ops.mrf_fft_fused import (
+        fused_tail, fused_tail_1pass_mma_sync, fused_tail_emulated, fused_tail_plain,
+    )
     from jointpose_torch.ops.mrf_fft_fused import tail_cost as mrf_tail_cost
     from jointpose_torch.ops.mrf_xla import pairwise_conv
     from jointpose_torch.ops import warp as warp_ops
     from jointpose_torch.ops.warp import (
-        shear_warp, shear_warp_reference, shear_warp_rowmajor, shear_warp_two_pass, warp_cost,
+        shear_warp, shear_warp_reference, shear_warp_rowmajor, shear_warp_rowmajor_two_pass,
+        shear_warp_two_pass, warp_cost,
     )
 
     smi = subprocess.run(
@@ -3633,27 +3669,47 @@ def main() -> int:
     check(tail_err[0] <= KERNEL_RTOL, "mrf_fft_tail disagrees with its plain version")
     check(tail_err[0] <= MRF_TAIL_RTOL, "mrf_fft_tail: 3xTF32 strays from the fp32 plain version")
 
-    def single_pass_parity(pf_, kf_, bias_, what: str) -> tuple[float, float]:
-        """The single-pass form against its own arithmetic and against fp32;
-        returns (rel, max abs) against fp32."""
-        before = fused_tail.launches_1pass
+    def single_pass_parity(pf_, kf_, bias_, what: str) -> tuple[tuple[float, float], ...]:
+        """The single-pass form (the wgmma kernel) against its own arithmetic
+        (stacked, and in its own grouping of the sums), against fp32 and
+        against its earlier design (the mma.sync kernel's one-pass form);
+        returns (rel, max abs) of the kernel and of that design against
+        fp32."""
+        before = (fused_tail.launches_1pass, fused_tail_1pass_mma_sync.launches)
         got1 = fused_tail(pf_, kf_, tables, bias_, joint.mrf.eps, precision="default")
+        old1 = fused_tail_1pass_mma_sync(pf_, kf_, tables, bias_, joint.mrf.eps)
         torch.cuda.synchronize()
-        check(fused_tail.launches_1pass == before + 1, "the single-pass tail did not count its launch")
+        check((fused_tail.launches_1pass, fused_tail_1pass_mma_sync.launches)
+              == (before[0] + 1, before[1] + 1), "the single-pass tails did not count their launches")
         emu = rel_err(got1, fused_tail_emulated(pf_, kf_, tables, bias_, joint.mrf.eps, passes=1))
-        fp32 = rel_err(got1, fused_tail_plain(pf_, kf_, tables, bias_, joint.mrf.eps))
+        grouped = rel_err(got1, fused_tail_emulated(pf_, kf_, tables, bias_, joint.mrf.eps,
+                                                    passes=1, chunk=32))
+        plain = fused_tail_plain(pf_, kf_, tables, bias_, joint.mrf.eps)
+        fp32, old_fp32, from_old = rel_err(got1, plain), rel_err(old1, plain), rel_err(got1, old1)
         again1 = fused_tail(pf_, kf_, tables, bias_, joint.mrf.eps, precision="default")
-        print(f"kernel mrf_fft_tail_1pass{what} {tuple(got1.shape)}: against its arithmetic in plain "
-              f"PyTorch (one TF32 pass) rel err {emu[0]:.3e} (limit {KERNEL_RTOL:g}), max abs "
-              f"{emu[1]:.3e}; against fp32 rel err {fp32[0]:.3e} (limit {SINGLE_PASS_RTOL:g}), max "
-              f"abs {fp32[1]:.3e}; a second run is "
+        print(f"kernel mrf_fft_tail_1pass (wgmma){what} {tuple(got1.shape)}: against its arithmetic "
+              f"in plain PyTorch (one TF32 pass) rel err {emu[0]:.3e} (limit {KERNEL_RTOL:g}), max "
+              f"abs {emu[1]:.3e}, in its own grouping of the sums rel {grouped[0]:.3e}; against fp32 "
+              f"rel err {fp32[0]:.3e} (limit {SINGLE_PASS_RTOL:g}), max abs {fp32[1]:.3e}; against "
+              f"its earlier design (mma.sync, itself {old_fp32[0]:.3e} from fp32) rel "
+              f"{from_old[0]:.3e}; a second run is "
               f"{'bit-identical' if torch.equal(again1, got1) else 'DIFFERENT'}")
-        check(emu[0] <= KERNEL_RTOL, f"mrf_fft_tail_1pass{what} disagrees with its plain version")
-        check(fp32[0] <= SINGLE_PASS_RTOL, f"mrf_fft_tail_1pass{what} strays from fp32")
+        check(emu[0] <= KERNEL_RTOL and grouped[0] <= KERNEL_RTOL,
+              f"mrf_fft_tail_1pass{what} disagrees with its plain version")
+        check(fp32[0] <= SINGLE_PASS_RTOL and old_fp32[0] <= SINGLE_PASS_RTOL,
+              f"mrf_fft_tail_1pass{what} strays from fp32")
+        check(from_old[0] <= KERNEL_RTOL, f"mrf_fft_tail_1pass{what} strays from its earlier design")
         check(torch.equal(again1, got1), "mrf_fft_tail_1pass: a second run is not bit-identical")
-        return fp32
+        return fp32, old_fp32
 
-    tail1_err = single_pass_parity(pf, kf, bias2, "")
+    tail1_err, tail1_old_err = single_pass_parity(pf, kf, bias2, "")
+    # Training batch 32: 2592 units, a run of about 10 a warpgroup.
+    p32 = unaries(torch.Generator().manual_seed(16), tb, jh, jw, k, torch.float32)
+    pf32, kf32, _ = forward_ffts(p32, kern2)
+    pf32 = tuple(t.contiguous() for t in pf32)
+    kf32 = tuple(t.contiguous() for t in kf32)
+    single_pass_parity(pf32, kf32, bias2, f", batch {tb}")
+    del pf32, kf32
     # Small responses: unaries concentrated on a few pixels, half of the
     # kernels' taps zero and half of the biases below eps, so that most
     # responses lie below the biases and many below eps.
@@ -3699,21 +3755,27 @@ def main() -> int:
         print(f"kernel {fn.__name__} {tuple(images.shape)}: max abs err "
               f"{warp_err[fn.__name__]:.3e} (limit {WARP_ATOL:g})")
         check(warp_err[fn.__name__] <= WARP_ATOL, f"{fn.__name__} disagrees with its plain version")
-    # The fused kernel goes through the two-pass kernel's fp32 operations in
-    # the same order: bit-equal to it, on the draw and on extreme maps.
+    # Each orientation's fused kernel goes through its two-launch form's fp32
+    # operations in the same order: bit-equal to it, on the draw and on
+    # extreme maps.
     for what, (ai_, bi_) in (("the random full draw", (a_inv, b_inv)),
                              ("extreme maps", extreme_affines(tb, h, w))):
-        fused = shear_warp(images, ai_, bi_)
-        two = shear_warp_two_pass(images, ai_, bi_)
-        err = (fused - shear_warp_reference(images, ai_, bi_)).abs().max().item()
-        torch.cuda.synchronize()
-        same = torch.equal(fused, two)
-        print(f"kernel shear_warp (fused, strips of {warp_ops.strip_width(h, 3)} columns) on {what}: "
-              f"{'bit-equal to' if same else 'DIFFERENT from'} its two-pass form; max abs err "
-              f"{err:.3e} from the plain version (limit {WARP_ATOL:g})")
-        check(same, f"the fused shear warp differs from its two-pass form on {what}")
-        check(err <= WARP_ATOL, f"the fused shear warp disagrees with its plain version on {what}")
-    del fused, two
+        want = shear_warp_reference(images, ai_, bi_)
+        for fused_fn, two_fn in ((shear_warp, shear_warp_two_pass),
+                                 (shear_warp_rowmajor, shear_warp_rowmajor_two_pass)):
+            fused = fused_fn(images, ai_, bi_)
+            two = two_fn(images, ai_, bi_)
+            err = (fused - want).abs().max().item()
+            torch.cuda.synchronize()
+            same = torch.equal(fused, two)
+            print(f"kernel {fused_fn.__name__} (fused, strips of {warp_ops.strip_width(h, 3)} "
+                  f"columns) on {what}: {'bit-equal to' if same else 'DIFFERENT from'} its "
+                  f"two-launch form; max abs err {err:.3e} from the plain version (limit "
+                  f"{WARP_ATOL:g})")
+            check(same, f"the fused {fused_fn.__name__} differs from its two-launch form on {what}")
+            check(err <= WARP_ATOL,
+                  f"the fused {fused_fn.__name__} disagrees with its plain version on {what}")
+    del fused, two, want
 
     # --- kernels 4-6: the three Fourier head-conv tails at the paper head
     # (60x90, 9x9, 128 -> 512, serving batch), on the spectra the conv's own
@@ -3996,9 +4058,26 @@ def main() -> int:
     # The single-pass form: the same work, one pass at the TF32 peak.
     t_ops2_1 = tf32_ops_ms(flops2, 1)
     b2_1, by2_1 = (t_bytes2, "bytes") if t_bytes2 >= t_ops2_1 else (t_ops2_1, "operations")
-    # The two forms in turns in this one process: 3xTF32, one pass, one pass, 3xTF32.
-    tail_turns = [time_ms(lambda prec=prec: fused_tail(pf, kf, tables, bias2, precision=prec))
-                  for prec in ("high", "default", "default", "high")]
+    # The two forms in turns in this one process: 3xTF32, one pass, one pass,
+    # 3xTF32, each on the spectra its pass gives it (rows padded to 8 bins
+    # for the single pass).
+    padded8 = forward_ffts(p2, kern2, padded_bins=True)[:2]
+    tail_turns = [time_ms(lambda prec=prec: fused_tail(
+        *(padded8 if prec == "default" else (pf, kf)), tables, bias2, precision=prec))
+        for prec in ("high", "default", "default", "high")]
+    # The single pass on wgmma against its earlier design (mma.sync) in turns,
+    # earlier / wgmma / wgmma / earlier, at serving batch 8 and training batch
+    # 32, each on the spectra its path gives it: the served pass's come with
+    # rows padded to 8 bins (forward_ffts(padded_bins=True)).
+    one_pass_turns = {}
+    for batch, p_ in ((BATCH, p2), (tb, p32)):
+        spectra = forward_ffts(p_, kern2)[:2]
+        dense = [tuple(t.contiguous() for t in x) for x in spectra]
+        padded = forward_ffts(p_, kern2, padded_bins=True)[:2]
+        old_call = lambda a=dense: fused_tail_1pass_mma_sync(*a, tables, bias2)
+        new_call = lambda a=padded: fused_tail(*a, tables, bias2, precision="default")
+        one_pass_turns[batch] = [time_ms(f) for f in (old_call, new_call, new_call, old_call)]
+    del p32
     with matmul_precision("default", pf[0].device):
         plain_tf32_ms = time_ms(lambda: fused_tail_plain(pf, kf, tables, bias2))
     b4, by4 = bound(*warp_cost(images, a_inv, b_inv))
@@ -4057,14 +4136,26 @@ def main() -> int:
             "bound_ms": b2, "bound_by": by2, "library_ms": None,
         },
         {
-            # The same TPU kernel compiled at Precision.DEFAULT; its plain
-            # version here is the plain tail with TF32 products (cuBLAS).
+            # The same TPU kernel compiled at Precision.DEFAULT, on wgmma; its
+            # plain version here is the plain tail with TF32 products (cuBLAS).
             "name": "mrf_fft_tail_1pass", "route": "cuda",
-            "source": "jointpose_torch/csrc/mrf_fft_tail.cu",
+            "source": "jointpose_torch/csrc/mrf_fft_tail_wgmma.cu",
             "replaces": "jointpose/ops/mrf_fft_pallas.py:50",
             "launches": served_default["launches"]["mrf_fft_tail_1pass"],
             "max_abs_err": tail1_err[1],
-            "ms": min(tail_turns[1], tail_turns[2]),
+            "ms": min(one_pass_turns[BATCH][1], one_pass_turns[BATCH][2]),
+            "plain_ms": plain_tf32_ms,
+            "bound_ms": b2_1, "bound_by": by2_1, "library_ms": None,
+        },
+        {
+            # Its earlier design, the mma.sync kernel's one-pass form: a timed
+            # entry that no path takes.
+            "name": "mrf_fft_tail_1pass_mma_sync", "route": "cuda",
+            "source": "jointpose_torch/csrc/mrf_fft_tail.cu",
+            "replaces": "jointpose/ops/mrf_fft_pallas.py:50",
+            "launches": served_default["launches"]["mrf_fft_tail_1pass_mma_sync"],
+            "max_abs_err": tail1_old_err[1],
+            "ms": min(one_pass_turns[BATCH][0], one_pass_turns[BATCH][3]),
             "plain_ms": plain_tf32_ms,
             "bound_ms": b2_1, "bound_by": by2_1, "library_ms": None,
         },
@@ -4075,20 +4166,31 @@ def main() -> int:
                   for fn in (shear_warp_two_pass, shear_warp, shear_warp, shear_warp_two_pass)]
     strips = {tw: time_ms(lambda tw=tw: warp_ops._fused(images, a_inv, b_inv, tw))
               for tw in (4, 8, 16, 32, 64)}
+    # The row-major orientation's fused kernel and its two-launch form in
+    # turns: two-launch, fused, fused, two-launch.
+    rowmajor_turns = [time_ms(lambda fn=fn: fn(images, a_inv, b_inv)) for fn in (
+        shear_warp_rowmajor_two_pass, shear_warp_rowmajor, shear_warp_rowmajor,
+        shear_warp_rowmajor_two_pass)]
     warp_ms = {"shear_warp": min(warp_turns[1], warp_turns[2]),
-               "shear_warp_rowmajor": time_ms(lambda: shear_warp_rowmajor(images, a_inv, b_inv))}
+               "shear_warp_rowmajor": min(rowmajor_turns[1], rowmajor_turns[2]),
+               "shear_warp_rowmajor_two_pass": min(rowmajor_turns[0], rowmajor_turns[3])}
     print(f"time shear_warp in turns, two-pass / fused / fused / two-pass: "
           f"{' / '.join(f'{t:.6f}' for t in warp_turns)} ms; the fused kernel by strip width "
           f"{ {tw: round(t, 6) for tw, t in strips.items()} } ms (the shape rule picks "
           f"{warp_ops.strip_width(h, 3)}); byte bound {b4:.6f} ms, {b4 / warp_ms['shear_warp']:.1%} of "
           f"the fused kernel's time; on {smi}")
-    for fn, line in ((shear_warp, 155), (shear_warp_rowmajor, 52)):
+    print(f"time shear_warp_rowmajor in turns, two-launch / fused / fused / two-launch: "
+          f"{' / '.join(f'{t:.6f}' for t in rowmajor_turns)} ms; byte bound {b4:.6f} ms, "
+          f"{b4 / warp_ms['shear_warp_rowmajor']:.1%} of the fused kernel's time, "
+          f"{b4 / warp_ms['shear_warp_rowmajor_two_pass']:.1%} of the two-launch form's; on {smi}")
+    for fn, line in ((shear_warp, 155), (shear_warp_rowmajor, 52),
+                     (shear_warp_rowmajor_two_pass, 52)):
         kernels.append({
             "name": fn.__name__, "route": "cuda",
             "source": "jointpose_torch/csrc/shear_warp.cu",
             "replaces": f"jointpose/ops/warp_pallas.py:{line}",
             "launches": trained["launches"][fn.__name__],
-            "max_abs_err": warp_err[fn.__name__],
+            "max_abs_err": warp_err[fn.__name__ if fn is shear_warp else "shear_warp_rowmajor"],
             "ms": warp_ms[fn.__name__],
             "plain_ms": plain_warp_ms,
             "bound_ms": b4, "bound_by": by4, "library_ms": None,
@@ -4176,13 +4278,20 @@ def main() -> int:
         "mrf_epilogue": call_ms(lambda: mrf_epilogue(resp1, bias1)),
         "mrf_epilogue_bwd": call_ms(lambda: mrf_epilogue_bwd(resp3, bias1, g3)),
         "mrf_fft_tail": call_ms(lambda: fused_tail(pf, kf, tables, bias2)),
-        "mrf_fft_tail_1pass": call_ms(lambda: fused_tail(pf, kf, tables, bias2, precision="default")),
+        "mrf_fft_tail_1pass": call_ms(lambda: fused_tail(*padded8, tables, bias2,
+                                                         precision="default")),
+        "mrf_fft_tail_1pass_mma_sync": call_ms(lambda: fused_tail_1pass_mma_sync(pf, kf, tables,
+                                                                                 bias2)),
         "shear_warp": call_ms(lambda: shear_warp(images, a_inv, b_inv)),
         "shear_warp_rowmajor": call_ms(lambda: shear_warp_rowmajor(images, a_inv, b_inv)),
+        "shear_warp_rowmajor_two_pass": call_ms(lambda: shear_warp_rowmajor_two_pass(
+            images, a_inv, b_inv)),
     }
     per = {"mrf_fft_tail": (REQUESTS, "request (joint serving)"),
            "mrf_fft_tail_1pass": (served_default["dispatches"],
                                   "dispatch (joint serving at 'default')"),
+           "mrf_fft_tail_1pass_mma_sync": (served_default["dispatches"],
+                                           "dispatch (joint serving at 'default')"),
            "fft_conv_tail_kdft_resident": (REQUESTS, "request (joint serving, 'fft' head)"),
            "fft_conv_tail_kdft": (1, "request (joint serving, 'fft' head, steered)"),
            "fft_conv_tail_kf": (1, "request (joint serving, 'fft' head, steered)")}
@@ -4205,6 +4314,13 @@ def main() -> int:
           f"{one_row['bound_ms'] / one_row['ms']:.1%} of its bound (TF32 "
           f"{flops2 / TF32_FLOPS_PER_S * 1e3:.4f} ms, bytes {t_bytes2:.4f} ms); its plain version "
           f"with TF32 products {plain_tf32_ms:.4f} ms; on {smi}")
+    for batch, turns in one_pass_turns.items():
+        new_ms, old_ms = min(turns[1], turns[2]), min(turns[0], turns[3])
+        ops_ms = tf32_ops_ms(flops2 * batch // BATCH, 1)
+        print(f"mrf_fft_tail_1pass at batch {batch} in turns, mma.sync / wgmma / wgmma / mma.sync: "
+              f"{' / '.join(f'{t:.6f}' for t in turns)} ms; wgmma {new_ms:.6f} ms against "
+              f"{old_ms:.6f} ({new_ms / old_ms:.3f} of it), {ops_ms / new_ms:.1%} of the TF32 bound "
+              f"{ops_ms:.6f} ms (the earlier design {ops_ms / old_ms:.1%}); on {smi}")
     check(one_row["bound_ms"] <= one_row["ms"], "mrf_fft_tail_1pass beats its bound: the bound is wrong")
     print("shear_warp_rowmajor is the reference's cross-orientation oracle: no preset's path "
           "launches it, so its main-path count is 0; it ran in its parity phase above")

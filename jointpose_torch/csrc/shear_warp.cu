@@ -25,9 +25,9 @@
 // reads the NHWC input directly and writes whatever layout the next pass
 // reads.  `order` names which of n and o the neighbouring threads walk,
 // which the wrapper picks so that they write neighbouring addresses.
-// shear_warp_rowmajor runs this pass twice, and so does
-// shear_warp_two_pass, the production orientation's timed entry beside the
-// fused kernel below.
+// shear_warp_two_pass and shear_warp_rowmajor_two_pass, each
+// orientation's earlier design kept as a timed entry beside the fused
+// kernel below, run this pass twice.
 //
 // The fused warp (`shear_warp_fused`, the production orientation, both
 // passes in one launch).  Two passes move the fp32 intermediate through
@@ -43,6 +43,16 @@
 // two-pass kernel, so the result is bit-equal to it.  Neighbouring threads
 // walk neighbouring columns of one row: the output rows of a strip are
 // written as contiguous TW * C floats.
+//
+// The same kernel serves the reference's row-major orientation
+// (`shear_warp_fused_rowmajor`, the cross-orientation oracle
+// shear_warp_rowmajor, in one launch where its two-pass form moves a (B, W,
+// H, C) intermediate through device memory): a template parameter keeps the
+// strip's intermediate as that orientation holds it, (TW, H, C), a line of
+// H * C values per output column, contiguous along H for pass 2, the line
+// stride made odd where it fits so that the columns' lines start in other
+// banks.  The values and their order of operations are the same, so it is
+// bit-equal to its two-launch form, shear_warp_rowmajor_two_pass.
 #include <cuda_runtime.h>
 
 namespace {
@@ -111,16 +121,22 @@ __device__ __forceinline__ Taps hat_taps(float alpha, float shear, float off, in
   return t;
 }
 
-// One block per (strip, image); t1 in shared memory as (H, TW * C).  A
-// thread owns one (row, column) of the strip at a time and its C channels.
-// The passes' parameters come from the inverse map (a_inv (B, 2, 2), b_inv
-// (B, 2)) in the block itself, rounded as ops/warp._pass_params rounds them
-// (each product and quotient on its own, no contraction), so that the
-// call is one launch and bit-equal to the two passes fed by that function.
+// How a strip's intermediate t1 lies in shared memory: kRows, the production
+// orientation, (H, TW * C); kLines, the row-major one, (TW, line) with a
+// line of H * C values (and a pad) per column.
+enum class Strip { kRows, kLines };
+
+// One block per (strip, image).  A thread owns one (row, column) of the
+// strip at a time and its C channels.  The passes' parameters come from the
+// inverse map (a_inv (B, 2, 2), b_inv (B, 2)) in the block itself, rounded
+// as ops/warp._pass_params rounds them (each product and quotient on its
+// own, no contraction), so that the call is one launch and bit-equal to the
+// two passes fed by that function.  `line`: floats per column line (kLines).
+template <Strip kLayout>
 __global__ void __launch_bounds__(kThreads)
 shear_warp_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
                         const float* __restrict__ a_inv, const float* __restrict__ b_inv, int h,
-                        int w, int chans, int tw) {
+                        int w, int chans, int tw, int line) {
   extern __shared__ float t1[];
   const int b = blockIdx.y;
   const float a00 = a_inv[4 * b], a01 = a_inv[4 * b + 1], a10 = a_inv[4 * b + 2];
@@ -128,7 +144,10 @@ shear_warp_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
   const float det = __fsub_rn(__fmul_rn(a00, a11), __fmul_rn(a01, a10));
   const int x0 = blockIdx.x * tw;
   const int nx = min(tw, w - x0);
-  const int row = tw * chans;  // floats per row of t1
+  const int row = tw * chans;  // floats per row of t1 (kRows)
+  // t1's offsets of column xl and of one step along y.
+  const int x_step = kLayout == Strip::kRows ? chans : line;
+  const int y_step = kLayout == Strip::kRows ? row : chans;
   const size_t plane = (size_t)h * w * chans;
   const float* img = src + b * plane;
   // (row, column) of this thread's first item and the step between items.
@@ -143,7 +162,7 @@ shear_warp_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
     for (int item = threadIdx.x; item < n_items; item += kThreads) {
       const Taps t = hat_taps(alpha, shear, off, x0 + xl, y, w);
       const float* line = img + (size_t)y * w * chans;
-      float* out = t1 + y * row + xl * chans;
+      float* out = t1 + y * y_step + xl * x_step;
       for (int c = 0; c < chans; ++c) {
         float acc = 0.f;
         if (t.tap0) acc = __fmul_rn(t.w0, __ldg(line + t.i0 * chans + c));
@@ -166,12 +185,12 @@ shear_warp_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
     int yo = threadIdx.x / nx, xl = threadIdx.x % nx;
     for (int item = threadIdx.x; item < n_items; item += kThreads) {
       const Taps t = hat_taps(alpha, shear, off, yo, x0 + xl, h);
-      const float* col = t1 + xl * chans;
+      const float* col = t1 + xl * x_step;
       float* out = dst + b * plane + ((size_t)yo * w + x0 + xl) * chans;
       for (int c = 0; c < chans; ++c) {
         float acc = 0.f;
-        if (t.tap0) acc = __fmul_rn(t.w0, col[t.i0 * row + c]);
-        if (t.tap1) acc = __fadd_rn(acc, __fmul_rn(t.w1, col[(t.i0 + 1) * row + c]));
+        if (t.tap0) acc = __fmul_rn(t.w0, col[t.i0 * y_step + c]);
+        if (t.tap1) acc = __fadd_rn(acc, __fmul_rn(t.w1, col[(t.i0 + 1) * y_step + c]));
         out[c] = acc;
       }
       yo += dy;
@@ -182,6 +201,33 @@ shear_warp_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
       }
     }
   }
+}
+
+// Floats per column line of the row-major strip: H * C, made odd where
+// that still fits a block.
+int rowmajor_line(int h, int chans, int tw) {
+  const long long line = (long long)h * chans;
+  return (line % 2 == 0 && (line + 1) * tw * (long long)sizeof(float) <= 232448) ? (int)line + 1
+                                                                               : (int)line;
+}
+
+template <Strip kLayout>
+int launch_fused(const void* src, void* dst, const void* a_inv, const void* b_inv, int batch,
+                 int h, int w, int chans, int tw, void* stream) {
+  if (batch == 0 || h == 0 || w == 0 || chans == 0) return 0;
+  if (tw < 1 || batch > 65535 || (long long)h * w * chans > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int line = kLayout == Strip::kLines ? rowmajor_line(h, chans, tw) : h * chans;
+  const long long smem = (long long)tw * line * (long long)sizeof(float);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(shear_warp_fused_kernel<kLayout>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((w + tw - 1) / tw), (unsigned)batch);
+  shear_warp_fused_kernel<kLayout><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), static_cast<const float*>(a_inv),
+      static_cast<const float*>(b_inv), h, w, chans, tw, line);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -195,18 +241,14 @@ extern "C" long long shear_warp_fused_smem_bytes(int h, int chans, int tw) {
 
 extern "C" int shear_warp_fused(const void* src, void* dst, const void* a_inv, const void* b_inv,
                                 int batch, int h, int w, int chans, int tw, void* stream) {
-  if (batch == 0 || h == 0 || w == 0 || chans == 0) return 0;
-  const long long smem = shear_warp_fused_smem_bytes(h, chans, tw);
-  if (tw < 1 || batch > 65535 || smem > 232448 || (long long)h * w * chans > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(shear_warp_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((w + tw - 1) / tw), (unsigned)batch);
-  shear_warp_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst), static_cast<const float*>(a_inv),
-      static_cast<const float*>(b_inv), h, w, chans, tw);
-  return (int)cudaGetLastError();
+  return launch_fused<Strip::kRows>(src, dst, a_inv, b_inv, batch, h, w, chans, tw, stream);
+}
+
+// The same in the row-major orientation: the strip's intermediate as (TW, H, C).
+extern "C" int shear_warp_fused_rowmajor(const void* src, void* dst, const void* a_inv,
+                                         const void* b_inv, int batch, int h, int w, int chans,
+                                         int tw, void* stream) {
+  return launch_fused<Strip::kLines>(src, dst, a_inv, b_inv, batch, h, w, chans, tw, stream);
 }
 
 // src_strides and dst_strides: 4 element strides each, (b, n, x, c).

@@ -11,8 +11,9 @@ def launch_counters() -> list[tuple[object, str]]:
     return [
         (mrf_epilogue.mrf_epilogue, "launches"), (mrf_epilogue.mrf_epilogue_bwd, "launches"),
         (mrf_fft_fused.fused_tail, "launches"), (mrf_fft_fused.fused_tail, "launches_1pass"),
+        (mrf_fft_fused.fused_tail_1pass_mma_sync, "launches"),
         (warp.shear_warp, "launches"), (warp.shear_warp_two_pass, "launches"),
-        (warp.shear_warp_rowmajor, "launches"),
+        (warp.shear_warp_rowmajor, "launches"), (warp.shear_warp_rowmajor_two_pass, "launches"),
         (fft_conv.tail_kdft_resident, "launches"), (fft_conv.tail_kdft, "launches"),
         (fft_conv.tail_kf, "launches"), (fft_conv.tail_kdft_regstaged, "launches"),
     ]

@@ -93,6 +93,13 @@ def dft_tables(
     [T_re; T_im] for T = Ir @ R, and ``ic_stack`` (2G, W) =
     [ict_re; -ict_im], so that [T_re, T_im] @ ic_stack = Re{T @ Ic^T}.
 
+    In fp32 it also holds ``ir_img`` and ``ic_img``, those two rounded to
+    TF32 and laid out as the single-pass tail's tensor cores read them
+    (``tail_table_images``), and the forward column operators with their G
+    bins zero-padded to a multiple of 8 (``fc_re8`` ... ``gc_im8``), from
+    which ``forward_ffts(padded_bins=True)`` makes spectra whose rows start
+    on 32-byte boundaries.
+
     Built outside inference mode whatever the caller's mode: a table first
     made while serving is then still usable by a training step's autograd.
     """
@@ -106,7 +113,62 @@ def dft_tables(
             torch.cat([t["ir_re"], -t["ir_im"]], dim=1),
             torch.cat([t["ir_im"], t["ir_re"]], dim=1)], dim=0).contiguous()
         t["ic_stack"] = torch.cat([t["ict_re"], -t["ict_im"]], dim=0).contiguous()
+        if dtype == torch.float32:
+            t["ir_img"], t["ic_img"] = tail_table_images(t["ir_stack"], t["ic_stack"])
+            for name in ("fc_re", "fc_im", "gc_re", "gc_im"):
+                t[name + "8"] = torch.nn.functional.pad(t[name], (0, 0, 0, -t[name].shape[0] % 8))
     return t
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds finite fp32 values."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+# Output tile of the single-pass tail kernel (csrc/mrf_fft_tail_wgmma.cu):
+# rows (one wgmma M) and columns (its column transform's N).
+TAIL_ROWS, TAIL_COLS = 64, 96
+# Depth order of the column transform inside each 8 bins: the row
+# transform's accumulator holds bins (2t, 2t + 1) where an A fragment wants
+# depths (t, t + 4).
+TAIL_BIN_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _core_matrices(m: torch.Tensor) -> torch.Tensor:
+    """(tiles, rows, depth) -> (tiles, rows * depth) in the tensor cores'
+    no-swizzle K-major layout: core matrices of 8 rows x 4 depths (16
+    bytes a row), depth-major over them: (depth / 4, row / 8, row % 8,
+    depth % 4)."""
+    n, rows, depth = m.shape
+    m = m.reshape(n, rows // 8, 8, depth // 4, 4).permute(0, 3, 1, 2, 4)
+    return m.reshape(n, rows * depth).contiguous()
+
+
+def tail_table_images(ir_stack: torch.Tensor, ic_stack: torch.Tensor):
+    """The single-pass tail's resident operands, rounded to TF32
+    (``tf32_round``), one image per output tile, each one bulk copy.
+
+    ``ir_img`` (row tiles, 64 * 2Php): the A operand of the row transform,
+    64 output rows of ir_stack's lower half [ir_im | ir_re], each half
+    zero-padded from Ph to Php (Ph to a multiple of 8).  ``ic_img``
+    (column tiles, 96 * 2Gp): the B operand of the column transform, 96
+    output columns (N) over the depth [re bins; im bins] of ic_stack, each
+    half zero-padded from G to Gp, the bins of each 8 in
+    ``TAIL_BIN_ORDER``.  Rows and columns past H and W are zero."""
+    h, ph = ir_stack.shape[0] // 2, ir_stack.shape[1] // 2
+    g, w = ic_stack.shape[0] // 2, ic_stack.shape[1]
+    php, gp = -(-ph // 8) * 8, -(-g // 8) * 8
+    nyt, nxt = -(-h // TAIL_ROWS), -(-w // TAIL_COLS)
+    a = ir_stack.new_zeros(nyt * TAIL_ROWS, 2, php)
+    a[:h, 0, :ph], a[:h, 1, :ph] = ir_stack[h:, :ph], ir_stack[h:, ph:]
+    ir_img = _core_matrices(a.reshape(nyt, TAIL_ROWS, 2 * php))
+    c = ic_stack.new_zeros(2, gp, nxt * TAIL_COLS)
+    c[0, :g, :w], c[1, :g, :w] = ic_stack[:g], ic_stack[g:]
+    c = c.reshape(2, gp // 8, 8, -1)[:, :, list(TAIL_BIN_ORDER)]
+    c = c.reshape(2 * gp, nxt, TAIL_COLS).permute(1, 2, 0)
+    return tf32_round(ir_img), tf32_round(_core_matrices(c))
 
 
 PRECISIONS = (None, "high", "default")
@@ -195,11 +257,15 @@ class _AtPrecision(torch.autograd.Function):
         return (None, None, None, None, *(dx if isinstance(dx, tuple) else (dx,)))
 
 
-def forward_ffts(p: torch.Tensor, kernels: torch.Tensor, precision: str | None = None):
+def forward_ffts(p: torch.Tensor, kernels: torch.Tensor, precision: str | None = None,
+                 padded_bins: bool = False):
     """Forward DFTs of unaries and kernels, at ``precision``.
 
     Returns ((pf_re, pf_im) (B, K, Ph, G), (kf_re, kf_im) (Kv, Ka, Ph, G),
-    tables dict).
+    tables dict).  With ``padded_bins`` (fp32) each spectrum is the view
+    ``[..., :G]`` of a contiguous buffer whose rows hold G rounded up to a
+    multiple of 8 bins, the extra bins zero: the single-pass tail kernel
+    reads those rows as aligned 16-byte vectors.
     """
     b, h, w, k = p.shape
     wh, ww, kv, ka = kernels.shape
@@ -208,10 +274,16 @@ def forward_ffts(p: torch.Tensor, kernels: torch.Tensor, precision: str | None =
     t = dft_tables((h, w), (wh, ww), p.device)
     planes = p.float().permute(0, 3, 1, 2)  # (B, K, H, W)
     kplanes = kernels.float().permute(2, 3, 0, 1)  # (Kv, Ka, wh, ww)
+    cols = "8" if padded_bins else ""
     pf = _AtPrecision.apply(_transform2d, _transform2d_adjoint,
-                            (t["fr_re"], t["fr_im"], t["fc_re"], t["fc_im"]), precision, planes)
+                            (t["fr_re"], t["fr_im"], t["fc_re" + cols], t["fc_im" + cols]),
+                            precision, planes)
     kf = _AtPrecision.apply(_transform2d, _transform2d_adjoint,
-                            (t["gr_re"], t["gr_im"], t["gc_re"], t["gc_im"]), precision, kplanes)
+                            (t["gr_re"], t["gr_im"], t["gc_re" + cols], t["gc_im" + cols]),
+                            precision, kplanes)
+    if padded_bins:
+        g = t["fc_re"].shape[0]
+        pf, kf = tuple(x[..., :g] for x in pf), tuple(x[..., :g] for x in kf)
     return pf, kf, t
 
 

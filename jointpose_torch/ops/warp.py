@@ -15,15 +15,18 @@ axis-aligned maps, close to it under rotation.
 ``shear_warp_rowmajor`` (its cross-orientation oracle) both take and
 return NHWC.  On CUDA tensors they launch the kernels of
 ``csrc/shear_warp.cu`` or raise; on CPU tensors they run the plain
-version ``shear_warp_reference``, the dense-hat fp32 oracle.
-``shear_warp`` is one launch of the fused kernel: a block per (image,
-strip of output columns) keeps the strip's intermediate in shared memory
-(``strip_width`` is its shape rule; ``shear_warp_strips`` repeats its
-arithmetic per strip in plain PyTorch).  ``shear_warp_rowmajor`` is two
-launches of the one-pass kernel, as is ``shear_warp_two_pass``, the
-production orientation's earlier design, kept as a timed entry: the fused
-kernel is bit-equal to it.  The kernels compute the two nonzero taps of
-each hat in fp32; the TPU kernel applies the dense hat as a bf16 matmul.
+version ``shear_warp_reference``, the dense-hat fp32 oracle.  Each is one
+launch of the fused kernel: a block per (image, strip of output columns)
+keeps the strip's intermediate in shared memory, (H, TW, C) for
+``shear_warp`` and (TW, H, C), the row-major orientation's own, for
+``shear_warp_rowmajor`` (``strip_width`` is the shape rule of both;
+``shear_warp_strips`` repeats their arithmetic per strip in plain
+PyTorch).  ``shear_warp_two_pass`` and ``shear_warp_rowmajor_two_pass``,
+two launches of the one-pass kernel with the intermediate in device
+memory, are each orientation's earlier design, kept as timed entries:
+the fused kernels are bit-equal to them.  The kernels compute the two
+nonzero taps of each hat in fp32; the TPU kernel applies the dense hat
+as a bf16 matmul.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "shear_pass": ([_P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _STRIDES, _I, _P], _I),
     "shear_warp_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "shear_warp_fused_rowmajor": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
 }
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # The fused kernel's strips: the widest of these whose (H, TW, C) fp32
@@ -110,11 +114,13 @@ def strip_width(h: int, c: int) -> int:
 
 
 def shear_warp_strips(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor,
-                      tw: int | None = None) -> torch.Tensor:
+                      tw: int | None = None, rowmajor: bool = False) -> torch.Tensor:
     """The fused kernel's arithmetic in plain PyTorch: each strip of ``tw``
     output columns (``strip_width`` by default) from its own pass-1
     intermediate over all rows, with the two taps of each hat gathered
-    and weighted in fp32 as the kernel does."""
+    and weighted in fp32 as the kernel does.  ``rowmajor`` holds the
+    intermediate as the row-major orientation does, a line over the rows
+    per column, and runs pass 2 along those lines."""
     b, h, w, c = images.shape
     tw = strip_width(h, c) if tw is None else tw
     p1, p2 = _pass_params(a_inv, b_inv)
@@ -126,7 +132,12 @@ def shear_warp_strips(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Te
         # Pass 1: lines are source rows y, positions the strip's columns.
         t1 = _two_taps(images, p1, cols[None, :], rows[:, None], w, along=2)  # (B, H, nx, C)
         # Pass 2: lines are the strip's columns, positions the output rows.
-        out[:, :, x0:x0 + len(cols)] = _two_taps(t1, p2, rows[:, None], cols[None, :], h, along=1)
+        if rowmajor:
+            lines = t1.transpose(1, 2).contiguous()  # (B, nx, H, C)
+            t2 = _two_taps(lines, p2, rows[None, :], cols[:, None], h, along=2).transpose(1, 2)
+        else:
+            t2 = _two_taps(t1, p2, rows[:, None], cols[None, :], h, along=1)
+        out[:, :, x0:x0 + len(cols)] = t2
     return out
 
 
@@ -209,8 +220,10 @@ def shear_warp(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -
     return out
 
 
-def _fused(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, tw: int) -> torch.Tensor:
-    """One launch of the fused kernel with strips of ``tw`` columns."""
+def _fused(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, tw: int,
+           entry: str = "shear_warp_fused") -> torch.Tensor:
+    """One launch of a fused kernel (``entry``: ``shear_warp_fused`` or
+    ``shear_warp_fused_rowmajor``) with strips of ``tw`` columns."""
     b, h, w, c = images.shape
     # The kernel derives the passes' parameters itself: one launch a call.
     a_inv, b_inv = a_inv.float().contiguous(), b_inv.float().contiguous()
@@ -218,9 +231,9 @@ def _fused(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, tw: i
     lib = _build.load("shear_warp", _SIGNATURES)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.shear_warp_fused(images.data_ptr(), out.data_ptr(), a_inv.data_ptr(),
-                                   b_inv.data_ptr(), b, h, w, c, tw, stream)
-    _build.check(err, "shear_warp_fused")
+        err = getattr(lib, entry)(images.data_ptr(), out.data_ptr(), a_inv.data_ptr(),
+                                  b_inv.data_ptr(), b, h, w, c, tw, stream)
+    _build.check(err, entry)
     return out
 
 
@@ -252,11 +265,31 @@ shear_warp_two_pass.launches = 0
 
 
 def shear_warp_rowmajor(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> torch.Tensor:
-    """The same warp in the reference's row-major orientation: pass 1 maps
-    (B, H, W, C) to (B, Xo, H, C), pass 2 maps that to (B, Yo, Xo, C)."""
+    """The same warp in the reference's row-major orientation, in one
+    launch of the fused kernel: each strip's pass-1 intermediate kept in
+    shared memory as that orientation lays it out, (TW, H, C), a line per
+    output column, and pass 2 run along those lines."""
     if images.device.type == "cpu":
         return shear_warp_reference(images, a_inv, b_inv)
     _check(images, a_inv, b_inv, "shear_warp_rowmajor")
+    out = _fused(images, a_inv, b_inv, strip_width(images.shape[1], images.shape[3]),
+                 "shear_warp_fused_rowmajor")
+    shear_warp_rowmajor.launches += 1
+    perf.count_kernel("shear_warp_rowmajor", warp_cost, images, a_inv, b_inv)
+    return out
+
+
+shear_warp_rowmajor.launches = 0
+
+
+def shear_warp_rowmajor_two_pass(images: torch.Tensor, a_inv: torch.Tensor,
+                                 b_inv: torch.Tensor) -> torch.Tensor:
+    """The row-major orientation's earlier design, kept as a timed entry:
+    two launches of the one-pass kernel, pass 1 mapping (B, H, W, C) to
+    (B, Xo, H, C) in device memory, pass 2 that to (B, Yo, Xo, C)."""
+    if images.device.type == "cpu":
+        return shear_warp_reference(images, a_inv, b_inv)
+    _check(images, a_inv, b_inv, "shear_warp_rowmajor_two_pass")
     b, h, w, c = images.shape
     p1, p2 = _pass_params(a_inv, b_inv)
     t1 = torch.empty((b, w, h, c), dtype=torch.float32, device=images.device)
@@ -265,9 +298,8 @@ def shear_warp_rowmajor(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.
     out = torch.empty_like(images)
     _pass(t1, out, p2, (b, w, h, h, c), (w * h * c, h * c, c, 1), (h * w * c, c, w * c, 1),
           _LINES_FASTEST)
-    shear_warp_rowmajor.launches += 2
-    perf.count_kernel("shear_warp_rowmajor", warp_cost, images, a_inv, b_inv)
+    shear_warp_rowmajor_two_pass.launches += 2
     return out
 
 
-shear_warp_rowmajor.launches = 0
+shear_warp_rowmajor_two_pass.launches = 0

@@ -2,6 +2,7 @@
 """What each stage of the fused Fourier MRF tail costs on the card.
 
     python3 profile_mrf_tail_stages.py [--source PATH] [--batch 8] [--passes 3]
+    python3 profile_mrf_tail_stages.py --wgmma [--batch 8]
 
 Builds ``jointpose_torch/csrc/mrf_fft_tail.cu`` (or ``--source``: any
 version of that file with the same C entry) as it is and copies with one
@@ -12,11 +13,15 @@ seeded operands): the difference from the whole kernel is what that stage
 costs where it sits.  The cut copies compute wrong results; only their
 times are read.  Each cut is one or more textual replacements that must
 each match the source exactly once, so an edit of the kernel that moves an anchor fails
-here loudly.  Two anchor sets: the tensor-core kernel (the source holds
-``mma.sync``), and the earlier CUDA-core kernel, so that a checkout of an
-older commit's source can be profiled by the same script.  ``--passes 1``
-times the single-pass TF32 form (MRF precision 'default') of a source
-whose entry takes the number of passes.  Needs a CUDA card and ``nvcc``.
+here loudly.  Three anchor sets: the ``mma.sync`` tensor-core kernel, the
+earlier CUDA-core kernel, so that a checkout of an older commit's source
+can be profiled by the same script, and the single pass's ``wgmma``
+kernel (``--wgmma``: ``csrc/mrf_fft_tail_wgmma.cu``, or a ``--source``
+holding ``wgmma.mma_async``), whose set also has variants that change a
+knob instead of cutting a stage.  ``--passes 1`` times the single-pass
+TF32 form (MRF precision 'default') of an ``mma.sync`` source whose entry
+takes the number of passes.  Each build's registers and spills (``ptxas
+-v``) are printed beside its time.  Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -67,6 +72,41 @@ CUDA_CORE_ANCHORS = {
 }
 
 
+WGMMA_ANCHORS = {
+    "whole kernel": None,
+    "without forming R and its loads": (
+        "const int nbatch = (items + kFeeders - 1) / kFeeders;",
+        "const int nbatch = p.ph < 0;"),
+    "without the row products": (
+        "for (int ks = 0; ks < p.php / 8; ++ks) {",
+        "for (int ks = 0; ks < (p.ph < 0 ? p.php / 8 : 0); ++ks) {"),
+    "without the column products": (
+        "  const int jj0 = c * p.gc / 8;\n",
+        "  const int jj0 = c * p.gc / 8;\n  if (p.ph >= 0) {\n    wgmma_commit();\n"
+        "    return;\n  }\n"),
+    "without the log epilogue": (
+        "ls[i] += __logf(fmaxf(o[i] + bv, p.eps));", "ls[i] += o[i] + bv;"),
+    "with empty runs: launch, tables, hand-over (knob)": (
+        "const int u1 = worker < p.workers ? run_start(worker + 1, p.units, p.workers) : u0;",
+        "const int u1 = u0;"),
+    "with logf in place of __logf (knob)": (
+        "ls[i] += __logf(fmaxf(o[i] + bv, p.eps));", "ls[i] += logf(fmaxf(o[i] + bv, p.eps));"),
+    "without the register hand-over (knob)": [
+        ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kProducerRegs));\n', ""),
+        ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n', "")],
+}
+
+
+def _ptxas_summary(log: str) -> str:
+    """The main kernel's registers and spills from ``ptxas -v``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "combine" not in line:
+            props = [x.strip() for x in lines[i + 1:i + 4] if "spill" in x or "registers" in x]
+            return "; ".join(props)
+    return "no ptxas summary"
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--source", type=Path, default=None,
@@ -74,6 +114,8 @@ def main() -> int:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--passes", type=int, choices=[1, 3], default=3,
                         help="3xTF32 (3) or the single TF32 pass (1), where the source has both")
+    parser.add_argument("--wgmma", action="store_true",
+                        help="the single pass's wgmma kernel (csrc/mrf_fft_tail_wgmma.cu)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_mrf_tail_stages: no CUDA device", file=sys.stderr)
@@ -85,11 +127,14 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    path = args.source or _build.CSRC / "mrf_fft_tail.cu"
+    kernel_file = "mrf_fft_tail_wgmma.cu" if args.wgmma else "mrf_fft_tail.cu"
+    path = args.source or _build.CSRC / kernel_file
     src = path.read_text()
-    anchors = TENSOR_CORE_ANCHORS if "mma.sync" in src else CUDA_CORE_ANCHORS
+    wgmma = "wgmma.mma_async" in src
+    anchors = (WGMMA_ANCHORS if wgmma else TENSOR_CORE_ANCHORS if "mma.sync" in src
+               else CUDA_CORE_ANCHORS)
     takes_passes = "int passes" in src  # the entry's argument since the single-pass form
-    if args.passes != 3 and not takes_passes:
+    if args.passes != 3 and not takes_passes and not wgmma:
         raise SystemExit(f"{path} has only the 3xTF32 form")
     b, k, (h, w), window = args.batch, 9, (60, 90), (45, 67)
     t = dft_tables((h, w), window, torch.device("cuda"))
@@ -99,13 +144,26 @@ def main() -> int:
     kf_re, kf_im = (torch.randn(k, k, ph, g, generator=gen).cuda() for _ in range(2))
     bias = torch.rand(k, k, generator=gen).cuda()
     out = torch.empty(b, k, h, w, device="cuda")
-    operands = [pf_re, pf_im, kf_re, kf_im, t["ir"], t["ict_re"], t["ict_im"], bias, out]
-    if anchors is TENSOR_CORE_ANCHORS:  # its entry takes a scratch for partial log-sums
-        operands.append(torch.empty(2, *out.shape, device="cuda"))
+    if wgmma:  # spectra in rows of 8 bins, the table images, a scratch of as many planes
+        # as any dealing needs
+        stride = -(-g // 8) * 8
+        pf_re, pf_im, kf_re, kf_im = (torch.nn.functional.pad(x, (0, stride - g))
+                                      for x in (pf_re, pf_im, kf_re, kf_im))
+        operands = [pf_re, pf_im, kf_re, kf_im, t["ir_img"], t["ic_img"], bias, out,
+                    torch.empty(k - 1, *out.shape, device="cuda")]
+        entry, kind = "mrf_tail_wgmma", "wgmma"
+    else:
+        operands = [pf_re, pf_im, kf_re, kf_im, t["ir"], t["ict_re"], t["ict_im"], bias, out]
+        if anchors is TENSOR_CORE_ANCHORS:  # its entry takes a scratch for partial log-sums
+            operands.append(torch.empty(2, *out.shape, device="cuda"))
+        entry = "mrf_fft_tail"
+        kind = "mma.sync" if anchors is TENSOR_CORE_ANCHORS else "CUDA-core"
     pointers = [v.data_ptr() for v in operands]
-    print(f"{path}: {'tensor-core' if anchors is TENSOR_CORE_ANCHORS else 'CUDA-core'} kernel, "
-          f"{args.passes} pass(es), B={b}, Kv=Ka={k}, H={h}, W={w}, Ph={ph}, G={g}")
+    passes = 1 if wgmma else args.passes
+    print(f"{path}: {kind} kernel, {passes} pass(es), B={b}, Kv=Ka={k}, H={h}, W={w}, Ph={ph}, "
+          f"G={g}")
     extra = [args.passes] if takes_passes else []
+    geometry = [b, k, k, ph, g, stride, h, w] if wgmma else [b, k, k, ph, g, h, w]
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         for i, (name, cut) in enumerate(anchors.items()):
@@ -117,25 +175,27 @@ def main() -> int:
             cu = Path(tmp) / f"v{i}.cu"
             cu.write_text(text)
             procs[name] = subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                 str(cu.with_suffix(".so")), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         base = None
         for name, proc in procs.items():
             log, _ = proc.communicate()
             if proc.returncode:
                 raise SystemExit(f"nvcc failed for '{name}':\n{log}")
-            fn = ctypes.CDLL(proc.args[proc.args.index("-o") + 1]).mrf_fft_tail
-            fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 7
+            fn = getattr(ctypes.CDLL(proc.args[proc.args.index("-o") + 1]), entry)
+            fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(geometry)
                            + [ctypes.c_float] + [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
 
             def run():
                 stream = torch.cuda.current_stream().cuda_stream
-                _build.check(fn(*pointers, b, k, k, ph, g, h, w, 1e-6, *extra, stream), name)
+                _build.check(fn(*pointers, *geometry, 1e-6, *extra, stream), name)
 
             ms = time_ms(run, runs=30)  # median of 30 CUDA-graph replays of 10 calls
             base = ms if base is None else base
-            print(f"{name}: {ms:.4f} ms ({base - ms:+.4f} ms saved), on {smi}")
+            print(f"{name}: {ms:.4f} ms ({base - ms:+.4f} ms saved; {_ptxas_summary(log)}), "
+                  f"on {smi}")
     return 0
 
 

@@ -226,8 +226,8 @@ def test_shear_warp_kernels_match_plain(cuda, entry, shape):
     fn = getattr(tw, entry)
     before = fn.launches
     got = fn(images, a_inv, b_inv)
-    # The fused kernel once; the row-major oracle once per pass.
-    assert fn.launches == before + {"shear_warp": 1, "shear_warp_rowmajor": 2}[entry]
+    # Each orientation's fused kernel, once.
+    assert fn.launches == before + 1
     want = tw.shear_warp_reference(images, a_inv, b_inv)
     assert (got - want).abs().max().item() <= WARP_ATOL
 
@@ -271,6 +271,33 @@ def test_fused_shear_warp_is_bit_equal_to_two_pass(cuda, shape, extreme):
     assert torch.equal(got, two)
     assert (got - tw.shear_warp_reference(images, a_inv, b_inv)).abs().max().item() <= WARP_ATOL
     assert torch.equal(got, tw.shear_warp_strips(images.cpu(), a_inv.cpu(), b_inv.cpu()).to(cuda))
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["full_draw", "extreme"])
+@pytest.mark.parametrize("shape", FUSED_WARP_SHAPES)
+def test_fused_rowmajor_warp_is_bit_equal_to_its_two_launch_form(cuda, shape, extreme):
+    """The row-major orientation in one launch, its strip's intermediate as
+    (TW, H, C): the two-launch form's operations in its order, and the
+    production orientation's values."""
+    b, h, w, _ = shape
+    images = torch.rand(shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    if extreme:
+        a_inv, b_inv = _extreme_affines(b, h, w)
+    else:
+        a_inv, b_inv = inverse_affine(random_augment_params(
+            torch.Generator().manual_seed(5), b, AugmentConfig(crop_frac_range=(0.8, 1.0)), (h, w)),
+            (h, w))
+    a_inv, b_inv = a_inv.to(cuda), b_inv.to(cuda)
+    before = (tw.shear_warp_rowmajor.launches, tw.shear_warp_rowmajor_two_pass.launches)
+    got = tw.shear_warp_rowmajor(images, a_inv, b_inv)
+    two = tw.shear_warp_rowmajor_two_pass(images, a_inv, b_inv)
+    assert (tw.shear_warp_rowmajor.launches,
+            tw.shear_warp_rowmajor_two_pass.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(got, two)
+    assert torch.equal(got, tw.shear_warp(images, a_inv, b_inv))
+    assert (got - tw.shear_warp_reference(images, a_inv, b_inv)).abs().max().item() <= WARP_ATOL
+    strips = tw.shear_warp_strips(images.cpu(), a_inv.cpu(), b_inv.cpu(), rowmajor=True)
+    assert torch.equal(got, strips.to(cuda))
 
 
 @pytest.mark.parametrize("mrf", [MRFConfig(window=(5, 7), impl="pallas", stride=2),
@@ -380,6 +407,37 @@ def test_fft_tail_single_pass_kernel_matches_plain(cuda, hw, win, batch, kv, ka,
     if not peaked:  # responses far below the biases are where one pass errs most
         assert _rel(got, tmff.fused_tail_plain(pf, kf, tables, biases)) <= SINGLE_PASS_RTOL
     assert torch.equal(tmff.fused_tail(pf, kf, tables, biases, precision="default"), got)
+
+
+# (hw, window, batch): the paper geometry at the batches the server and
+# the trainer give the single-pass tail.
+JOINT_BATCHES = [((60, 90), (45, 67), b) for b in (1, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("hw,win,batch", JOINT_BATCHES)
+def test_wgmma_tail_matches_its_earlier_design_and_repeats(cuda, hw, win, batch):
+    """The wgmma kernel against the mma.sync kernel's one-pass form (the
+    timed entry no path takes), its own grouping of the sums emulated, and
+    fp32; then a rerun, bit-identical."""
+    pf, kf, tables, biases = _fft_tail_operands(cuda, hw, win, batch, K, K, False)
+    before = (tmff.fused_tail.launches_1pass, tmff.fused_tail_1pass_mma_sync.launches)
+    got = tmff.fused_tail(pf, kf, tables, biases, precision="default")
+    old = tmff.fused_tail_1pass_mma_sync(pf, kf, tables, biases)
+    assert (tmff.fused_tail.launches_1pass,
+            tmff.fused_tail_1pass_mma_sync.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel(got, old) <= KERNEL_RTOL
+    chunked = tmff.fused_tail_emulated(pf, kf, tables, biases, passes=1, chunk=32)
+    assert _rel(got, chunked) <= KERNEL_RTOL
+    assert _rel(got, tmff.fused_tail_plain(pf, kf, tables, biases)) <= SINGLE_PASS_RTOL
+    assert torch.equal(tmff.fused_tail(pf, kf, tables, biases, precision="default"), got)
+
+
+def test_wgmma_tail_refuses_a_geometry_it_cannot_hold(cuda):
+    """Ph = 449 rows of the DFT: the resident tables alone pass the
+    block's shared memory; the wrapper raises, naming the limit."""
+    pf, kf, tables, biases = _fft_tail_operands(cuda, (300, 8), (150, 3), 1, 2, 2, False)
+    with pytest.raises(ValueError, match="232448"):
+        tmff.fused_tail(pf, kf, tables, biases, precision="default")
 
 
 def test_spatial_model_gradients_at_default_precision_on_card_match_cpu(cuda):
