@@ -1134,7 +1134,8 @@ def nccl_kstep_child(task: str, out: str) -> None:
     eager by rule) against KSTEP_K single steps, then 2 dispatches by graph
     against 2 x KSTEP_K eager single steps, the launch counts of the graph
     dispatches read, and which process groups ran a collective eagerly and
-    under the capture.  'time' (PyTorch's defaults): the step time in
+    under the capture; then the same for the preset as it stands ('xla',
+    under ``"xla"``).  'time' (PyTorch's defaults): the step time in
     turns (``_step_turns``; over data 4 also for the preset's own MRF,
     'xla'), then ``fit`` at steps_per_dispatch 1 and
     KSTEP_TIMED_K (``_fit_rates``).  Writes
@@ -1183,39 +1184,49 @@ def nccl_kstep_child(task: str, out: str) -> None:
         step = make_train_step(cfg, "joint", mesh)
         eager, graphed = state(), state()
         if kind == "equal":
-            # Which process groups run a collective, eagerly and under a capture.
-            seen: dict = {"eager": set(), "captured": set()}
-            all_reduce = dist.all_reduce
+            def equal_run(c, step, eager, graphed) -> dict:
+                """2 graph dispatches against eager single steps of config ``c``."""
+                # Which process groups run a collective, eagerly and under a capture.
+                seen: dict = {"eager": set(), "captured": set()}
+                all_reduce = dist.all_reduce
 
-            def recorded(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
-                where = "captured" if torch.cuda.is_current_stream_capturing() else "eager"
-                seen[where].add(str(dist.get_process_group_ranks(group or dist.group.WORLD)))
-                return all_reduce(tensor, op=op, group=group, async_op=async_op)
+                def recorded(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+                    where = "captured" if torch.cuda.is_current_stream_capturing() else "eager"
+                    seen[where].add(str(dist.get_process_group_ranks(group or dist.group.WORLD)))
+                    return all_reduce(tensor, op=op, group=group, async_op=async_op)
 
-            dist.all_reduce = recorded
-            multi = make_train_multistep(cfg, "joint", train_ds.get_batch, KSTEP_K, mesh)
-            graphed, _ = multi(graphed, indices(0, KSTEP_K))  # the stage's first dispatch: eager
-            for s in range(KSTEP_K):
-                eager, _ = step(eager, train_ds.get_batch(indices(s, 1)[0]))
-            torch.cuda.synchronize()
-            check(not graphed.graphs.graphs, "the stage's first dispatch was captured")
-            reset(counters)
-            for first in (KSTEP_K, 2 * KSTEP_K):
-                graphed, got = multi(graphed, indices(first, KSTEP_K))
-            torch.cuda.synchronize()
-            launches = {n: fn.launches for n, fn in counters.items()}
-            for s in range(KSTEP_K, 3 * KSTEP_K):
-                eager, want = step(eager, train_ds.get_batch(indices(s, 1)[0]))
-            torch.cuda.synchronize()
-            dist.all_reduce = all_reduce
-            res.update(
-                captured=len(graphed.graphs.graphs), launches=launches,
-                bit_equal=_same_state(graphed, eager) and all(torch.equal(got[n], want[n])
-                                                              for n in want),
-                worst_rel_err=max(rel_err(p, q)[0] for p, q in zip(graphed.model.parameters(),
-                                                                   eager.model.parameters())),
-                groups_eager=sorted(seen["eager"]), groups_captured=sorted(seen["captured"]),
-                loss=float(got["loss"]))
+                dist.all_reduce = recorded
+                multi = make_train_multistep(c, "joint", train_ds.get_batch, KSTEP_K, mesh)
+                graphed, _ = multi(graphed, indices(0, KSTEP_K))  # the stage's first dispatch: eager
+                for s in range(KSTEP_K):
+                    eager, _ = step(eager, train_ds.get_batch(indices(s, 1)[0]))
+                torch.cuda.synchronize()
+                check(not graphed.graphs.graphs, "the stage's first dispatch was captured")
+                reset(counters)
+                for first in (KSTEP_K, 2 * KSTEP_K):
+                    graphed, got = multi(graphed, indices(first, KSTEP_K))
+                torch.cuda.synchronize()
+                launches = {n: fn.launches for n, fn in counters.items()}
+                for s in range(KSTEP_K, 3 * KSTEP_K):
+                    eager, want = step(eager, train_ds.get_batch(indices(s, 1)[0]))
+                torch.cuda.synchronize()
+                dist.all_reduce = all_reduce
+                result = dict(
+                    captured=len(graphed.graphs.graphs), launches=launches,
+                    bit_equal=_same_state(graphed, eager) and all(torch.equal(got[n], want[n])
+                                                                  for n in want),
+                    worst_rel_err=max(rel_err(p, q)[0] for p, q in zip(
+                        graphed.model.parameters(), eager.model.parameters())),
+                    groups_eager=sorted(seen["eager"]), groups_captured=sorted(seen["captured"]),
+                    loss=float(got["loss"]))
+                graphed.graphs.release()
+                return result
+
+            res.update(equal_run(cfg, step, eager, graphed))
+            # flagship as its preset stands ('auto' -> 'xla', bf16), held alike.
+            xcfg = cfg.replace(mrf=preset.mrf)
+            res["xla"] = equal_run(xcfg, make_train_step(xcfg, "joint", mesh), state(xcfg),
+                                   state(xcfg))
         else:
             multi = make_train_multistep(cfg, "joint", train_ds.get_batch, KSTEP_TIMED_K, mesh)
             graphed, _ = multi(graphed, indices(0, KSTEP_TIMED_K))  # warm: eager
@@ -1267,22 +1278,131 @@ def _nccl_world(kind: str, meshes: list, tmp: str, env: dict | None = None) -> t
     return ranks, secs
 
 
+def xla_determinism_probe(smi: str) -> dict:
+    """Whether cuDNN has deterministic algorithms for the convolutions of
+    ``flagship``'s own MRF path at the nccl_kstep equal world's shard-local
+    shapes: the grouped fprop of ``grouped_conv_f32`` (fp32 on bf16 values)
+    and its backward's dense convolutions (dk's weight gradient, dp's
+    space-to-depth conv), bf16, at 8 rows and Kv 9 (data 4) and 16 rows and
+    Kv 5 (2x2, 2x2 spatial).  Under ``torch.use_deterministic_algorithms``
+    (which raises where an op has none) each runs twice and must repeat bit
+    for bit; a missing algorithm fails the run."""
+    from jointpose_torch import get_config
+    from jointpose_torch.ops.mrf_xla import grouped_conv_f32
+
+    t0 = time.perf_counter()
+    flag = get_config("flagship")
+    ch, cw = (n // flag.mrf.stride for n in flag.heatmap_hw)
+    wh, ww = flag.mrf.window
+    k = flag.num_joints
+    gen = torch.Generator().manual_seed(12)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+            for name, (rows, kv) in {"4x1": (8, k), "2x2": (16, -(-k // 2))}.items():
+                p = unaries(gen, rows, ch, cw, kv, torch.bfloat16).requires_grad_()
+                kern = torch.nn.functional.softplus(torch.randn(wh, ww, 1, kv * k, generator=gen))
+                kern = kern.to("cuda", torch.bfloat16).requires_grad_()
+                g = torch.randn(rows, ch, cw, kv * k, generator=gen).cuda()
+                runs = []
+                for _ in range(2):
+                    resp = grouped_conv_f32(p, kern, kv)
+                    runs.append((resp, *torch.autograd.grad(resp, (p, kern), g)))
+                torch.cuda.synchronize()
+                out[name] = all(torch.equal(a, b) for a, b in zip(*runs))
+                check(out[name], f"the 'xla' path's convolutions at {rows} rows, Kv {kv} do not "
+                      "repeat bit for bit under deterministic algorithms")
+    except RuntimeError as e:
+        check(False, f"cuDNN has no deterministic algorithm for a convolution of the 'xla' path: {e}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"nccl_kstep: cuDNN's deterministic algorithms for the 'xla' path's grouped fprop (fp32 "
+          f"on bf16 values) and the dense dk and dp convolutions of its backward (bf16), "
+          f"{wh}x{ww} window on the {ch}x{cw} coarse grid: present at 8 rows, Kv {k} (data 4) and "
+          f"16 rows, Kv {-(-k // 2)} (2x2), each run twice bit-identical "
+          f"({time.perf_counter() - t0:.2f} s); on {smi}")
+    return out
+
+
+def nccl_equal_world(equal: list, tmp: str, smi: str) -> dict:
+    """The bit-equality world of ``nccl_kstep_phase`` over the meshes
+    ``equal`` (deterministic algorithms), its checks and lines: for
+    ``flagship(mrf.impl='pallas')`` and for the preset as it stands
+    ('xla').  Returns the ranks' results by mesh."""
+    per_step = {"shear_warp": 1, "mrf_epilogue": 1, "mrf_epilogue_bwd": 1}
+    worlds, secs = _nccl_world("equal", equal, tmp, {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    print(f"nccl_kstep: the bit-equality world of {equal[0][0] * equal[0][1]} ranks took "
+          f"{secs:.1f} s wall (processes included)")
+    for name, ranks in worlds.items():
+        want = {n: 2 * KSTEP_K * per_step.get(n, 0) for n in ranks[0]["launches"]}
+        for res in ranks:
+            r = res["rank"]
+            check(res["backend"] == "nccl" and res["graph_dispatch"] and res["captured"] == 1,
+                  f"nccl_kstep {name}: rank {r} on {res['backend']} captured "
+                  f"{res['captured']} graph(s)")
+            check(res["bit_equal"], f"nccl_kstep {name}: the graph form is not bit-equal to "
+                  f"eager single steps on rank {r} (worst parameter rel err "
+                  f"{res['worst_rel_err']:.3e})")
+            check(res["launches"] == want, f"nccl_kstep {name}: the graph dispatches launched "
+                  f"{res['launches']} on rank {r}, not {want}")
+            check(set(res["groups_captured"]) <= set(res["groups_eager"])
+                  and res["groups_captured"], f"nccl_kstep {name}: rank {r} captured "
+                  f"collectives on {res['groups_captured']}, eagerly warmed "
+                  f"{res['groups_eager']}")
+        print(f"nccl_kstep {name} (flagship, mrf.impl='pallas', bf16, global batch 32, "
+              f"{ranks[0]['rows']} rows a rank, spatial {ranks[0]['spatial']}, deterministic "
+              f"algorithms, ranks on {[res['device'] for res in ranks]}, backend nccl): 2 "
+              f"dispatches of {KSTEP_K} by graph against {2 * KSTEP_K} eager single steps from "
+              f"one state: bit-equal on every rank (parameters, AdamW's state, generator, "
+              f"step, last metrics; loss {ranks[0]['loss']:.6f}); launches of the graph "
+              f"dispatches a rank {ranks[0]['launches']}; process groups with a collective "
+              f"under the capture {ranks[0]['groups_captured']}, each run eagerly before it; "
+              f"on {smi}")
+        # flagship as its preset stands ('xla'): the warp once a step, no
+        # MRF kernel.
+        want = {n: 2 * KSTEP_K * (n == "shear_warp") for n in ranks[0]["xla"]["launches"]}
+        for res in ranks:
+            x, r = res["xla"], res["rank"]
+            check(x["captured"] == 1, f"nccl_kstep {name}, flagship as the preset stands: "
+                  f"rank {r} captured {x['captured']} graph(s)")
+            check(x["bit_equal"], f"nccl_kstep {name}, flagship as the preset stands: the "
+                  f"graph form is not bit-equal to eager single steps on rank {r} (worst "
+                  f"parameter rel err {x['worst_rel_err']:.3e})")
+            check(x["launches"] == want, f"nccl_kstep {name}, flagship as the preset stands: "
+                  f"the graph dispatches launched {x['launches']} on rank {r}, not {want}")
+            check(set(x["groups_captured"]) <= set(x["groups_eager"]) and x["groups_captured"],
+                  f"nccl_kstep {name}, flagship as the preset stands: rank {r} captured "
+                  f"collectives on {x['groups_captured']}, eagerly warmed {x['groups_eager']}")
+        print(f"nccl_kstep {name}, flagship as the preset stands (mrf 'auto' -> 'xla', bf16, "
+              f"{ranks[0]['rows']} rows a rank, deterministic algorithms, backend nccl): 2 "
+              f"dispatches of {KSTEP_K} by graph against {2 * KSTEP_K} eager single steps: "
+              f"bit-equal on every rank (loss {ranks[0]['xla']['loss']:.6f}); launches of the "
+              f"graph dispatches a rank {ranks[0]['xla']['launches']}; process groups with a "
+              f"collective under the capture {ranks[0]['xla']['groups_captured']}; on {smi}")
+    return worlds
+
+
 def nccl_kstep_phase(smi: str) -> dict | None:
     """The K-step dispatch over an nccl mesh, one CUDA graph per dispatch
     with the collectives captured, a card a rank (``nccl_kstep_child``).
 
+    First, on this card, whether cuDNN has deterministic algorithms for the
+    'xla' path's convolutions (``xla_determinism_probe``; fails if not).
     Under deterministic algorithms, in one world over data 4, 2x2 and 2x2
-    spatial (data 2 on two or three cards): on every rank 2 dispatches of
-    KSTEP_K by graph bit-equal to 2 x KSTEP_K eager single steps from one
-    state (parameters, AdamW's state, the generator, the last metrics),
-    the launches of the epilogue forward and backward and the warp 1 a
-    step, and every process group that ran a collective under the capture
-    ran one eagerly before it.  With PyTorch's defaults, in worlds of 1, 2
+    spatial (data 2 on two or three cards; ``nccl_equal_world``): on every
+    rank 2 dispatches of KSTEP_K by graph bit-equal to 2 x KSTEP_K eager
+    single steps from one state (parameters, AdamW's state, the generator,
+    the last metrics), the launches of the epilogue forward and backward
+    and the warp 1 a step, and every process group that ran a collective
+    under the capture ran one eagerly before it; the same for ``flagship``
+    as the preset stands ('xla': the warp 1 a step, no MRF kernel).  With PyTorch's defaults, in worlds of 1, 2
     and 4 as the cards allow, over data 1, 2, 4 and 2x2: a rank's step
     time eager and by graph in turns (over data 4 also for ``flagship`` as
     the preset stands, 'xla'), and ``fit``'s logged images/s at
     steps_per_dispatch 1 and KSTEP_TIMED_K, its graphs captured.  On one
     card it prints why it did not run and returns None."""
+    summary: dict = {"determinism": xla_determinism_probe(smi)}
     cards = torch.cuda.device_count()
     if cards < 2:
         print("nccl_kstep: the K-step dispatch captured with its nccl collectives needs a card per "
@@ -1295,38 +1415,9 @@ def nccl_kstep_phase(smi: str) -> dict | None:
     for m in NCCL_TIMED_MESHES:
         if m[0] * m[1] <= cards:
             timed.setdefault(m[0] * m[1], []).append(m)
-    summary: dict = {"equal": {}, "time": {}}
-    per_step = {"shear_warp": 1, "mrf_epilogue": 1, "mrf_epilogue_bwd": 1}
+    summary["time"] = {}
     with tempfile.TemporaryDirectory() as tmp:
-        worlds, secs = _nccl_world("equal", equal, tmp, {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
-        print(f"nccl_kstep: the bit-equality world of {equal[0][0] * equal[0][1]} ranks took "
-              f"{secs:.1f} s wall (processes included)")
-        for name, ranks in worlds.items():
-            want = {n: 2 * KSTEP_K * per_step.get(n, 0) for n in ranks[0]["launches"]}
-            for res in ranks:
-                r = res["rank"]
-                check(res["backend"] == "nccl" and res["graph_dispatch"] and res["captured"] == 1,
-                      f"nccl_kstep {name}: rank {r} on {res['backend']} captured "
-                      f"{res['captured']} graph(s)")
-                check(res["bit_equal"], f"nccl_kstep {name}: the graph form is not bit-equal to "
-                      f"eager single steps on rank {r} (worst parameter rel err "
-                      f"{res['worst_rel_err']:.3e})")
-                check(res["launches"] == want, f"nccl_kstep {name}: the graph dispatches launched "
-                      f"{res['launches']} on rank {r}, not {want}")
-                check(set(res["groups_captured"]) <= set(res["groups_eager"])
-                      and res["groups_captured"], f"nccl_kstep {name}: rank {r} captured "
-                      f"collectives on {res['groups_captured']}, eagerly warmed "
-                      f"{res['groups_eager']}")
-            print(f"nccl_kstep {name} (flagship, mrf.impl='pallas', bf16, global batch 32, "
-                  f"{ranks[0]['rows']} rows a rank, spatial {ranks[0]['spatial']}, deterministic "
-                  f"algorithms, ranks on {[res['device'] for res in ranks]}, backend nccl): 2 "
-                  f"dispatches of {KSTEP_K} by graph against {2 * KSTEP_K} eager single steps from "
-                  f"one state: bit-equal on every rank (parameters, AdamW's state, generator, "
-                  f"step, last metrics; loss {ranks[0]['loss']:.6f}); launches of the graph "
-                  f"dispatches a rank {ranks[0]['launches']}; process groups with a collective "
-                  f"under the capture {ranks[0]['groups_captured']}, each run eagerly before it; "
-                  f"on {smi}")
-        summary["equal"] = worlds
+        summary["equal"] = nccl_equal_world(equal, tmp, smi)
         for size, meshes in timed.items():
             worlds, secs = _nccl_world("time", meshes, tmp)
             for name, ranks in worlds.items():
@@ -1379,7 +1470,8 @@ def nccl_kstep_phase(smi: str) -> dict | None:
 # sitecustomize (on PYTHONPATH ahead of the repository): the interpreter's
 # own sitecustomize first; then, in a rank (RANK set), ``flagship`` with
 # ``mrf.impl='pallas'`` (the preset's 'auto' takes the direct grouped MRF,
-# which launches no epilogue kernel), PyTorch's deterministic algorithms
+# which launches no epilogue kernel) unless JOINTPOSE_SMOKE_PRESET_AS_IS is
+# set (then the preset as it stands), PyTorch's deterministic algorithms
 # where JOINTPOSE_SMOKE_DETERMINISTIC is set, the rank's graph captures and
 # the launches of rows 1, 2 and 4 written at exit to
 # ``<JOINTPOSE_SMOKE_COUNTS>.<RANK>.json``, and, where JOINTPOSE_SMOKE_DRILL
@@ -1409,7 +1501,8 @@ if "RANK" in os.environ:
         cfg = _flagship()
         return cfg.replace(mrf=dataclasses.replace(cfg.mrf, impl="pallas"))
 
-    configs.PRESETS["flagship"] = _pallas
+    if not os.environ.get("JOINTPOSE_SMOKE_PRESET_AS_IS"):
+        configs.PRESETS["flagship"] = _pallas
     _captures = [0]
     _graph_exit = torch.cuda.graph.__exit__
 
@@ -1459,6 +1552,9 @@ OPS_MESHES = {"4x1": ["--mesh-data", "4"], "2x2": ["--mesh-data", "2", "--mesh-m
               "2x2s": ["--mesh-data", "2", "--mesh-model", "2", "--mesh-spatial"]}
 OPS_TRAIN = ["--config", "flagship", "--eval-max-batches", "1", "--log-every", "10"]
 OPS_STEPS, OPS_RESUMED, OPS_WINDOW = (20, 20), 40, 3
+# The preset's run over 2x2 resumes to 80 joint steps: its intervals 70-80
+# and 90-100 hold replays alone (evals every 20 steps).
+PRESET_RESUMED = 80
 DRILL_STEPS, DRILL_EVERY, DRILL_STEP = (10, 30), 20, 30
 # The supervisor's heartbeat timeout: above the launcher's 30 s between its
 # SIGTERM and SIGKILL to the peers of a failed rank; for the hang drill
@@ -1556,6 +1652,84 @@ def _resumed_from(log: str) -> int:
 def _params(workdir: str, step: int) -> dict:
     path = os.path.join(workdir, "checkpoints", "latest", str(step), "state.pt")
     return torch.load(path, weights_only=True, map_location="cpu")["model"]
+
+
+def ops_preset_run(launcher: list, base_env: dict, tmp: str, counts: str, probe: torch.Tensor,
+                   smi: str) -> dict:
+    """``train.main --config flagship`` with the preset as it stands ('auto'
+    -> 'xla', bf16; OPS_SITE told so by JOINTPOSE_SMOKE_PRESET_AS_IS) over
+    2x2 by graph: 20 + 20 steps, then ``--resume`` for PRESET_RESUMED - 20
+    more joint steps; each rank's graphs (2, then 1: a resumed stage warms
+    again) and its launches (the warp once a step, no epilogue) held, rank
+    0's checkpoint restored into a one-device predictor; a rank's step
+    time from ``fit``'s logged images/s (the global batch over the ranks'
+    common step), by graph where an interval holds no warm-up, capture or
+    eval."""
+    from jointpose_torch import get_config
+    from jointpose_torch.predict import build_predictor, restore_params
+
+    cfg = get_config("flagship")
+    det, joint = OPS_STEPS
+    wd = os.path.join(tmp, "train_preset_2x2")
+    env = {**base_env, "JOINTPOSE_SMOKE_PRESET_AS_IS": "1"}
+    runs = {}
+    for run, extra, steps, graphs in (
+            ("first", ["--joint-steps", str(joint)], det + joint, 2),
+            ("resumed", ["--joint-steps", str(PRESET_RESUMED), "--resume"], PRESET_RESUMED - joint,
+             1)):
+        res = _ops_group([*launcher, "-m", "jointpose_torch.train", *OPS_TRAIN, *OPS_MESHES["2x2"],
+                          "--workdir", wd, "--detector-steps", str(det), "--eval-every", str(det),
+                          *extra],
+                         f"train.main of flagship as the preset stands over 2x2 ({run})", env,
+                         os.path.join(tmp, f"train_preset_2x2_{run}.log"), wd)
+        ranks = _ops_counts(counts, 4)
+        want = {"shear_warp": steps, "mrf_epilogue": 0, "mrf_epilogue_bwd": 0}
+        for r, c in enumerate(ranks):
+            check(c["captured"] == graphs and c["launches"] == want,
+                  f"train.main of flagship as the preset stands over 2x2 ({run}): rank {r} "
+                  f"captured {c['captured']} graph(s) and launched {c['launches']}, not {graphs} "
+                  f"and {want}")
+        check("backend nccl" in res["log"] and "final:" in res["log"],
+              f"train.main of flagship as the preset stands over 2x2 ({run}) did not run over "
+              f"nccl to its end")
+        runs[run] = {"wall_s": res["wall_s"], "ranks": ranks, "log": res["log"]}
+    resumed = _resumed_from(runs["resumed"]["log"])
+    check(resumed == det + joint, f"train.main of flagship as the preset stands resumed from step "
+          f"{resumed}, not {det + joint}")
+    records = read_records(wd)
+    step_ms = [(r["step"], cfg.train.batch_size / r["images_per_sec"] * 1e3) for r in records
+               if "images_per_sec" in r and r.get("stage") == "joint"]
+    # The resumed stage's intervals of 10 after its warm-up and its capture
+    # whose start is no eval step: the graph's replays alone.
+    replays = [ms for step, ms in step_ms if step > resumed + 20 and (step - 10) % det]
+    check(bool(replays), f"train.main of flagship as the preset stands logged no interval of "
+          f"replays alone: {step_ms}")
+    pdj = [r["pdj_at_05_wrist_elbow"] for r in records if "pdj_at_05_wrist_elbow" in r]
+    state_dict, step = restore_params(cfg, os.path.join(wd, "checkpoints"))
+    coords, probs = build_predictor(cfg, state_dict)(probe)
+    torch.cuda.synchronize()
+    check(step == det + PRESET_RESUMED and bool(torch.isfinite(coords).all())
+          and bool(torch.isfinite(probs).all()) and bool(pdj) and all(math.isfinite(x) for x in pdj),
+          f"train.main of flagship as the preset stands: rank 0's checkpoint at step {step} does "
+          f"not restore into a one-device predictor with finite output")
+    print(f"nccl_ops train.main --config flagship as the preset stands (mrf 'auto' -> 'xla', bf16, "
+          f"global batch {cfg.train.batch_size}, 2x2: Kv 5 a rank through grouped_conv_f32, 10 "
+          f"steps a dispatch, backend nccl): {det} + {joint} steps in "
+          f"{runs['first']['wall_s']:.1f} s wall, resumed from step {resumed} to step "
+          f"{det + PRESET_RESUMED} in {runs['resumed']['wall_s']:.1f} s; each rank captured "
+          f"{runs['first']['ranks'][0]['captured']} and {runs['resumed']['ranks'][0]['captured']} "
+          f"graph(s) and launched {runs['first']['ranks'][0]['launches']} and "
+          f"{runs['resumed']['ranks'][0]['launches']}; a joint step a rank by graph "
+          f"{float(np.median(replays)):.3f} ms (median of the intervals of replays alone, "
+          f"{[round(t, 3) for t in replays]}); fit's logged ms a step per interval of 10 ending "
+          f"at each step {[(n, round(t, 3)) for n, t in step_ms]} (a stage's first interval "
+          f"holds its warm-up, the second its capture, one after an eval step the eval); PDJ@0.05 "
+          f"(wrist, elbow) {pdj}; "
+          f"rank 0's step-{step} checkpoint restored into a one-device predictor (finite); "
+          f"on {smi}")
+    return {"wall_s": {k: v["wall_s"] for k, v in runs.items()}, "resumed_from": resumed,
+            "joint_step_ms": float(np.median(replays)),
+            "launches": {k: v["ranks"][0]["launches"] for k, v in runs.items()}}
 
 
 def nccl_ops_phase(smi: str) -> dict | None:
@@ -1686,6 +1860,10 @@ def nccl_ops_phase(smi: str) -> dict | None:
         print(f"nccl_ops: final parameters at step {det + OPS_RESUMED} against {first}'s, worst "
               f"rel err: " + ", ".join(f"{name} {max(rel_err(p[n], ref[n])[0] for n in ref):.3e}"
                                        for name, p in finals.items() if name != first))
+
+        # 2b. flagship as its preset stands over 2x2 ('xla': TP's Kv 5
+        # through the grouped conv's autograd function), resumed.
+        summary["preset"] = ops_preset_run(launcher, base_env, tmp, counts, probe, smi)
 
         # 3. The supervised drills over 2x2, against an unbroken run.
         det, joint = DRILL_STEPS
@@ -2075,6 +2253,144 @@ def _pred_coords(preds: list[dict]) -> np.ndarray:
     return np.array([[p["joints"][name] for name in p["joints"]] for p in preds], np.float32)
 
 
+# flagship served as its preset stands ('auto' -> 'xla', bf16) on the card
+# against the port's CPU path on the same weights and images: the detector
+# logits and the MRF log-heatmaps by max|Δ| / max|ref|.  cuDNN's bf16 convs
+# and the CPU's round the same stacks in other orders, a few roundings of
+# 2^-8 each: the bar of the CPU tests' bf16 served slice
+# (tests/test_torch_predict.py BF16_RTOL).
+SERVE_BF16_RTOL = 2e-2
+# The batches of the served device time: 128 is bench.py's headline batch.
+SERVE_TIMED_BATCHES = (8, 32, 128)
+# The MRF kernels of rows 1, 2, 3 and 3′, none of which this path launches.
+MRF_KERNELS = ("mrf_epilogue", "mrf_epilogue_bwd", "mrf_fft_tail", "mrf_fft_tail_1pass",
+               "mrf_fft_tail_1pass_mma_sync")
+
+
+def serve_preset_checks(tmp: str, batches: list, counters: dict, smi: str) -> dict:
+    """``flagship`` served as its preset stands (MRF 'auto' -> 'xla': the
+    direct grouped conv, bf16, uint8 images) at 'default' from a full-width
+    checkpoint of seeded weights: ``batches`` through ``PoseService``, then
+    the first of them once more through ``make_handler`` over HTTP, no MRF
+    kernel launched and the coordinates bit-equal to 'high'; the card's
+    logits and MRF log-heatmaps against the port's CPU path; the
+    predictor's device time by CUDA-graph replays at SERVE_TIMED_BATCHES
+    beside ``perf.step_cost``'s count and its bound, with the MRF's grouped
+    conv forward's share.  Returns the numbers it printed."""
+    from jointpose_torch import get_config
+    from jointpose_torch.checkpoint import reconcile_config
+    from jointpose_torch.configs import with_mrf_precision
+    from jointpose_torch.convert import write_initial_checkpoint
+    from jointpose_torch.models.mrf import select_impl
+    from jointpose_torch.models.pose import PoseModel
+    from jointpose_torch.ops.heatmaps import decode_probs, model_probs
+    from jointpose_torch.ops.mrf_xla import pairwise_conv
+    from jointpose_torch.perf import roofline_images_per_sec, step_cost
+    from jointpose_torch.predict import build_predictor, init_state_dict
+    from jointpose_torch.serve import PoseService, make_handler
+
+    t0 = time.perf_counter()
+    preset = get_config("flagship")
+    ckpt = os.path.join(tmp, "flagship_preset")
+    state = init_state_dict(preset, torch.Generator().manual_seed(10))
+    write_initial_checkpoint(preset, ckpt, state)
+    cfg = with_mrf_precision(reconcile_config(preset, ckpt), "default")
+    check(select_impl(cfg.mrf) == "xla" and cfg.mrf.stride == 2 and cfg.compute_dtype == "bfloat16",
+          f"serve: flagship's preset resolves to {select_impl(cfg.mrf)!r} at stride "
+          f"{cfg.mrf.stride} in {cfg.compute_dtype}, not the coarse 'xla' pass in bf16")
+    service = PoseService(cfg, ckpt, batch_size=8, step=0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        reset(counters)
+        base = dict(service.stats)
+        served = [_pred_coords(service.predict(b)) for b in batches]
+        status, body = _http(port, "/predict", _npy(batches[0]), "application/x-npy")
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        health = _http(port, "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    dispatches = service.stats["dispatches"] - base["dispatches"]
+    check(status == 200 and len(body["predictions"]) == len(batches[0]),
+          f"serve flagship as its preset stands: the HTTP request answered {status}")
+    check(np.array_equal(_pred_coords(body["predictions"]), served[0]),
+          "serve flagship as its preset stands: the HTTP reply differs from the same request's "
+          "in-process reply")
+    check(all(launches[n] == 0 for n in MRF_KERNELS),
+          f"serve flagship as its preset stands launched MRF kernels: {launches}")
+    high = build_predictor(with_mrf_precision(cfg, "high"), state)
+    same = all(np.array_equal(got, high(torch.from_numpy(b))[0].cpu().numpy())
+               for got, b in zip(served, batches))
+    check(same, "flagship as its preset stands at 'default' differs from 'high'")
+    m = health[1]["batcher"]
+    lat = m["request_latency_ms"]
+    print(f"serve flagship as the preset stands (mrf 'auto' -> 'xla', stride 2, bf16, precision "
+          f"'default', PoseService(batch_size=8)): {len(batches)} requests of 8 uint8 "
+          f"{cfg.data.image_hw[0]}x{cfg.data.image_hw[1]} "
+          f"images in process plus one through make_handler over HTTP, {dispatches} dispatches; "
+          f"request latency p50 {lat['p50']} ms, p95 {lat['p95']} ms; mean batch fill "
+          f"{m['mean_batch_fill']}; launches of rows 1, 2, 3 and 3' "
+          f"{ {n: launches[n] for n in MRF_KERNELS} }, row 4 {launches['shear_warp']}; "
+          f"coordinates bit-equal to 'high'; the HTTP reply equals the in-process one; on {smi}")
+
+    # The card against the port's CPU path: same weights, same uint8 batch.
+    images = torch.from_numpy(batches[0])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = PoseModel(cfg)
+        model.load_state_dict(state)
+        model = model.to(device).eval()
+        with torch.inference_mode():
+            out = model(images.to(device))
+            coords = decode_probs(model_probs(out), cfg.data.heatmap_stride, refine=cfg.decode_refine)
+        outs[device] = {**{k: v.float().cpu() for k, v in out.items()}, "coords": coords.cpu()}
+    errs = {k: rel_err(outs["cuda"][k], outs["cpu"][k])
+            for k in ("detector_logits", "mrf_log_heatmaps")}
+    equal = ((outs["cuda"]["coords"] - outs["cpu"]["coords"]).abs() <= 1e-3).float().mean().item()
+    print(f"serve flagship as the preset stands, card against the port's CPU path (bf16, batch "
+          f"{images.shape[0]}): detector logits rel err {errs['detector_logits'][0]:.3e}, MRF "
+          f"log-heatmaps rel err {errs['mrf_log_heatmaps'][0]:.3e} (limit {SERVE_BF16_RTOL:g}); "
+          f"{equal:.4f} of the decoded coordinates within 1e-3 px (not held)")
+    check(all(e[0] <= SERVE_BF16_RTOL for e in errs.values()),
+          "flagship as its preset stands: the card strays from the CPU")
+
+    # The predictor's device time by graph replays, beside its count.
+    predict = build_predictor(cfg, state)
+    kernels = torch.nn.functional.softplus(state["spatial_model.raw_kernels"]).to(torch.bfloat16).cuda()
+    h, w = cfg.data.image_hw
+    ch, cw = cfg.heatmap_hw[0] // cfg.mrf.stride, cfg.heatmap_hw[1] // cfg.mrf.stride
+    gen = torch.Generator().manual_seed(11)
+    timed = {}
+    for b in SERVE_TIMED_BATCHES:
+        x = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).cuda()
+        with torch.inference_mode():
+            ms = time_ms(lambda: predict(x), runs=20, per_graph=5)
+            cost = step_cost(predict, x)
+            pc = unaries(gen, b, ch, cw, cfg.num_joints, torch.bfloat16)
+            conv_ms = time_ms(lambda: pairwise_conv(pc, kernels, out_dtype=torch.float32),
+                              runs=20, per_graph=5)
+        flops, mbytes = cost["flops"] / b, cost["bytes"] / b
+        bound = roofline_images_per_sec(flops, mbytes)
+        timed[b] = {"ms": ms, "images_per_s": b / ms * 1e3, "gflop_per_image": flops / 1e9,
+                    "mb_per_image": mbytes / 1e6, "bound_images_per_s": bound,
+                    "mrf_conv_ms": conv_ms, "mrf_conv_share": conv_ms / ms}
+        t = timed[b]
+        print(f"serve flagship as the preset stands, build_predictor at batch {b}: {ms:.4f} ms a "
+              f"call by CUDA-graph replays, {t['images_per_s']:.1f} images/s; perf.step_cost "
+              f"{t['gflop_per_image']:.4f} GFLOP and {t['mb_per_image']:.3f} MB an image, bound "
+              f"{bound:.1f} images/s ({t['images_per_s'] / bound:.1%} of it); the MRF's grouped "
+              f"conv forward {conv_ms:.4f} ms ({t['mrf_conv_share']:.1%} of a call); on {smi}")
+        check(t["images_per_s"] <= bound, f"batch {b}: a measured rate above its bound")
+    secs = time.perf_counter() - t0
+    print(f"serve flagship as the preset stands: the block took {secs:.1f} s")
+    return {"launches": launches, "metrics": m, "errors": {k: e[0] for k, e in errs.items()},
+            "coords_equal": equal, "timed": timed, "seconds": secs}
+
+
 def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:
     """``jointpose_torch.serve`` at the serving default, MRF precision
     'default', on full-width checkpoints written from seeded weights.
@@ -2205,6 +2521,8 @@ def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:
               f"{'bit-equal to' if same else 'DIFFERENT from'} 'high'")
         check(epi == fdispatches == len(batches), "flagship: the epilogue did not launch once per dispatch")
         check(same, "flagship at 'default' differs from 'high'")
+        # flagship as its preset stands ('xla'), on the same three requests.
+        preset = serve_preset_checks(tmp, batches, counters, smi)
 
         # The entry point as a process: up, one request, SIGTERM drains.
         port = _free_port()
@@ -2238,7 +2556,7 @@ def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:
               f"the server process did not drain on SIGTERM (exit {proc.returncode}): {out[-2000:]}")
         print(f"python -m jointpose_torch.serve --config {joint.name} (MRF precision 'default'): up in "
               f"{up_s:.1f} s, answered /healthz and /predict, drained on SIGTERM and exited 0")
-    return {"launches": launches, "metrics": m, "dispatches": dispatches}
+    return {"launches": launches, "metrics": m, "dispatches": dispatches, "preset": preset}
 
 
 # ``predict.main`` in a child process with the preset's MRF impl set to the
@@ -2524,6 +2842,17 @@ PIPE_PROB_RTOL, PIPE_PROB_ATOL, PIPE_COORD_ATOL = 1e-5, 1e-6, 1e-3
 TP_HEAD_RTOL = TAIL_RTOL[torch.bfloat16]
 PARALLEL_SEED = 6
 PIPE_RUNS = 20
+# flagship as its preset stands ('auto' -> 'xla', bf16) sharded against one
+# device: tests/test_torch_parallel.py's bars for the bf16 step.  The loss
+# by |Δ| / |ref| and the gradients by max|Δ| / max|ref| per tensor: a rank's
+# rows, a slice of the sources and rows of the trunk round the same bf16
+# stacks in other orders.  The parameters are held at the reference's
+# tolerance where the one-device gradient is at least the gradient bar of
+# its tensor's largest (a deviation within the bar keeps the sign of Adam's
+# first update), elsewhere within one flipped update, and at most
+# PRESET_FLIP_SHARE of all parameters may end beyond the tolerance.
+PRESET_LOSS_RTOL, PRESET_GRAD_RTOL, PRESET_FLIP_SHARE = 1e-3, 1e-2, 1e-2
+PRESET_TIMED_STEPS = 3
 
 
 def kernel_counters() -> dict:
@@ -2583,6 +2912,67 @@ def parallel_step(mesh, device, counters: dict, cudnn: bool, spatial: bool = Fal
             "rows": int(local["image"].shape[0]),
             "sliced": sorted(state.model.model_sliced_parameters()),
             "spatial": state.model.spatial}
+
+
+def parallel_preset_step(mesh, device, counters: dict, spatial: bool = False) -> dict:
+    """One joint-stage step of ``flagship`` as its preset stands ('auto' ->
+    'xla': the grouped conv's autograd function; bf16; augmentation with the
+    shear warp, the global draw sliced) from seeded weights on this rank's
+    rows of the synthetic source's first global batch, under cuDNN's
+    deterministic algorithms, then PRESET_TIMED_STEPS more for a rank's
+    step time (host clock around synchronized steps).  The uniform spatial
+    kernels are perturbed alike on every rank: uniform kernels make the
+    biases' gradient nearly a constant over the map, which the spatial
+    softmax cancels to rounding noise.  Records the groups of each call of
+    ``grouped_conv_f32``."""
+    from jointpose_torch import get_config
+    from jointpose_torch.configs import MeshConfig
+    from jointpose_torch.data.pipeline import make_dataset
+    from jointpose_torch.ops import mrf_xla
+    from jointpose_torch.parallel.mesh import shard_batch, shard_state
+    from jointpose_torch.train import create_state, make_train_step
+
+    cfg = get_config("flagship").replace(mesh=MeshConfig(
+        data=mesh.shape["data"], model=mesh.shape["model"], spatial=spatial))
+    state = create_state(cfg, torch.Generator().manual_seed(PARALLEL_SEED), device=device, mesh=mesh)
+    raw = state.model.spatial_model.raw_kernels
+    with torch.no_grad():
+        raw += 0.5 * torch.randn(raw.shape, generator=torch.Generator().manual_seed(PARALLEL_SEED)).to(
+            raw.device)
+    state = shard_state(state, mesh)
+    batch = make_dataset(cfg.data, device)[0].get_batch(np.arange(cfg.train.batch_size))
+    local = shard_batch(batch, mesh)
+    step = make_train_step(cfg, "joint", mesh)
+    function, groups = mrf_xla.grouped_conv_f32, []
+
+    def recording(p, kern, n):
+        groups.append(n)
+        return function(p, kern, n)
+
+    reset(counters)
+    mrf_xla.grouped_conv_f32 = recording
+    try:
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+            state, metrics = step(state, local)
+            torch.cuda.synchronize(device)
+            res = {"metrics": {k: float(v) for k, v in metrics.items()},
+                   "params": {n: p.detach().to("cpu", copy=True)
+                              for n, p in state.model.named_parameters()},
+                   "grads": {n: p.grad.to("cpu", copy=True) for n, p in state.model.named_parameters()},
+                   "launches": {n: fn.launches for n, fn in counters.items()},
+                   "groups": list(groups), "rows": int(local["image"].shape[0]),
+                   "sliced": sorted(state.model.model_sliced_parameters()),
+                   "spatial": state.model.spatial}
+            times = []
+            for _ in range(PRESET_TIMED_STEPS):
+                t0 = time.perf_counter()
+                state, _ = step(state, local)
+                torch.cuda.synchronize(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        mrf_xla.grouped_conv_f32 = function
+    res["step_ms"] = float(np.median(times))
+    return res
 
 
 class _Spy:
@@ -2833,6 +3223,11 @@ def parallel_child(task: str, out: str) -> None:
     res["step"] = parallel_step(mesh, device, counters, cudnn=False)
     res["step_s"] = time.perf_counter() - t0
     res["step_cudnn"] = parallel_step(mesh, device, counters, cudnn=True)
+    t0 = time.perf_counter()
+    res["step_preset"] = parallel_preset_step(mesh, device, counters)
+    if task == "model":
+        res["step_preset_spatial"] = parallel_preset_step(mesh, device, counters, spatial=True)
+    res["preset_s"] = time.perf_counter() - t0
     if task == "data":
         from jointpose_torch.train import fit
 
@@ -3057,6 +3452,97 @@ def inference_mesh_phase(joint, fit_cfg, ckpt_dir: str, tmp: str, counters: dict
     return out
 
 
+def preset_step_checks(ranks: dict, smi: str) -> dict:
+    """``flagship`` as its preset stands ('auto' -> 'xla', bf16) sharded over
+    data 2, 2x2 and 2x2 spatial (``parallel_preset_step`` in the worlds of
+    ``parallel_phase``, by task) against its one-device step, at the CPU
+    tests' bf16 bars (PRESET_*): the loss, every gradient, the parameters,
+    grouped_conv_f32's groups (9, or 5 of the padded 10 sources at model
+    2), the warp once and no MRF kernel.  Prints a rank's step time."""
+    from jointpose_torch import get_config
+
+    shared = torch.cuda.device_count() == 1
+    train_cfg = get_config("flagship").train
+    preset_flip = 2 * train_cfg.learning_rate * max(1.0, train_cfg.mrf_lr_mult) + STEP_PARAM_ATOL
+    pref = ranks["reference"][0]["step_preset"]
+    preset_params = sum(w.numel() for w in pref["params"].values())
+
+    def compare_preset(got: dict) -> dict:
+        out = {"loss_rel": abs(got["metrics"]["loss"] - pref["metrics"]["loss"])
+               / abs(pref["metrics"]["loss"]),
+               "grad": max((rel_err(got["grads"][n], g)[0], n) for n, g in pref["grads"].items()),
+               "param": (0.0, ""), "exempt": 0, "beyond": 0, "flip_share": 0.0}
+        for n, w in pref["params"].items():
+            g = pref["grads"][n].double().abs()
+            held = g >= PRESET_GRAD_RTOL * g.max()
+            diff = (got["params"][n].double() - w.double()).abs()
+            share = diff / (STEP_PARAM_ATOL + STEP_PARAM_RTOL * w.double().abs())
+            if held.any():
+                out["param"] = max(out["param"], (share[held].max().item(), n))
+            if not held.all():
+                out["exempt"] += int((~held).sum())
+                out["beyond"] += int((share[~held] > 1).sum())
+                out["flip_share"] = max(out["flip_share"], diff[~held].max().item() / preset_flip)
+        return out
+
+    check(pref["groups"] == [9] and pref["launches"]["shear_warp"] == 1
+          and all(pref["launches"][n] == 0 for n in MRF_KERNELS),
+          f"the one-device step of flagship as its preset stands ran grouped_conv_f32 with "
+          f"groups {pref['groups']} and launched {pref['launches']}")
+    flips_p = int(PRESET_FLIP_SHARE * preset_params)
+    print(f"parallel step, flagship as the preset stands (mrf 'auto' -> 'xla', bf16, augmentation "
+          f"with the shear warp, global batch {train_cfg.batch_size}, cuDNN's deterministic "
+          f"algorithms), one device: loss {pref['metrics']['loss']:.7f}, grouped_conv_f32 with "
+          f"{pref['groups']} groups, launches {pref['launches']}; a step {pref['step_ms']:.3f} ms "
+          f"(median of {PRESET_TIMED_STEPS}, host clock); on {smi}")
+    summary = {"reference_step_ms": pref["step_ms"], "warp_launches": pref["launches"]["shear_warp"]}
+    for task, key, what, sources in (("data", "step_preset", "data 2", 9),
+                                     ("model", "step_preset", "2x2", 5),
+                                     ("model", "step_preset_spatial", "2x2 spatial", 5)):
+        cs = []
+        for r, res in enumerate(ranks[task]):
+            got = res[key]
+            c = compare_preset(got)
+            cs.append(c)
+            check(c["loss_rel"] <= PRESET_LOSS_RTOL, f"the preset's {what} step's loss strays on "
+                  f"rank {r}: {c['loss_rel']:.3e}")
+            check(c["grad"][0] <= PRESET_GRAD_RTOL, f"the preset's {what} step's {c['grad'][1]} "
+                  f"gradient strays on rank {r}: {c['grad'][0]:.3e}")
+            check(c["param"][0] <= 1.0, f"the preset's {what} step's {c['param'][1]} strays on "
+                  f"rank {r}")
+            check(c["flip_share"] <= 1.0, f"the preset's {what} step moved a parameter by more "
+                  f"than a flipped update on rank {r}")
+            check(c["beyond"] <= flips_p, f"the preset's {what} step left {c['beyond']} "
+                  f"parameters beyond the tolerance on rank {r} (limit {flips_p})")
+            check(got["groups"] == [sources] and got["launches"]["shear_warp"] == 1
+                  and all(got["launches"][n] == 0 for n in MRF_KERNELS),
+                  f"the preset's {what} step ran grouped_conv_f32 with groups {got['groups']} and "
+                  f"launched {got['launches']} on rank {r}, not {sources} groups and the warp once")
+            check(got["spatial"] == (key == "step_preset_spatial"),
+                  f"the preset's {what} step's spatial flag")
+        worst = max(cs, key=lambda c: c["grad"][0])
+        ms = [res[key]["step_ms"] for res in ranks[task]]
+        print(f"parallel step {what}, flagship as the preset stands (bf16, 'xla', "
+              f"{ranks[task][0][key]['rows']} rows a rank): against one device, worst rank: loss rel "
+              f"{max(c['loss_rel'] for c in cs):.3e} (limit {PRESET_LOSS_RTOL:g}); gradients rel "
+              f"{worst['grad'][0]:.3e} (limit {PRESET_GRAD_RTOL:g}, worst {worst['grad'][1]}); "
+              f"parameters whose gradient is at least {PRESET_GRAD_RTOL:g} of their tensor's "
+              f"largest at {max(c['param'][0] for c in cs):.4f} of the tolerance; the other "
+              f"{cs[0]['exempt']} of {preset_params} exempt, at most "
+              f"{max(c['beyond'] for c in cs)} beyond the tolerance (limit {flips_p}), at most "
+              f"{max(c['flip_share'] for c in cs):.3f} of a flipped update; grouped_conv_f32 with "
+              f"{ranks[task][0][key]['groups']} groups a rank; launches "
+              f"{ranks[task][0][key]['launches']}; a step a rank "
+              f"{', '.join(f'{t:.3f}' for t in ms)} ms (median of {PRESET_TIMED_STEPS}, host "
+              f"clock{'; the ranks share one card over gloo: no claim' if shared else ''}); "
+              f"on {smi}")
+        summary[f"{key}_{task}"] = {"worst": worst, "step_ms": ms}
+    print("parallel: the preset's steps took " + ", ".join(
+        f"{ranks[task][0]['preset_s']:.1f} s in the {task} world" for task in ranks))
+    return summary
+
+
+
 def parallel_phase(joint, counters: dict, smi: str) -> dict:
     """The mesh over processes and the pipelined predictor on the one card.
 
@@ -3191,6 +3677,8 @@ def parallel_phase(joint, counters: dict, smi: str) -> dict:
     trunk = [n for n in ref["params"] if n.startswith("detector.trunk")]
     check(len(trunk) == 6 and ranks["model"][0]["step_spatial"]["sliced"] == sorted(tp_sliced + trunk),
           "the spatial step does not sum every trunk parameter over 'model'")
+
+    summary["step_preset"] = preset_step_checks(ranks, smi)
 
     # 2. The data-2 fit and its checkpoint on one device.
     fits = [res["fit"] for res in ranks["data"]]
@@ -4194,6 +4682,10 @@ def main() -> int:
             "ms": warp_ms[fn.__name__],
             "plain_ms": plain_warp_ms,
             "bound_ms": b4, "bound_by": by4, "library_ms": None,
+            # Row 4 on flagship's own path ('xla'): its launches in the
+            # one-device step of the parallel phase.
+            **({"launches_flagship_preset": parallel["step_preset"]["warp_launches"]}
+               if fn is shear_warp else {}),
         })
     # The head-conv tails in bf16, the served path's type, over the
     # tensor-core peak of the input type (fc.tail_cost).

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
 """Where a served request's or a training step's time goes on the card, by kernel.
 
-    python3 profile_serve.py [--preset joint|joint_default|joint_fft|flagship_pallas] [--batch 8]
-                             [--requests 4]
-    python3 profile_serve.py --train [--batch 32] [--requests 4]
+    python3 profile_serve.py [--preset joint|joint_default|joint_fft|flagship|flagship_pallas]
+                             [--batch 8] [--requests 4]
+    python3 profile_serve.py --train [--preset flagship|flagship_pallas] [--batch 32] [--requests 4]
     python3 profile_serve.py --head-stages [--batch 8]
 
 Serves ``--requests`` requests of ``--batch`` uint8 images through the
 port's predictor (seeded random weights, as ``chip_smoke.py`` does) under
 ``torch.profiler``; with ``--train`` it takes ``--requests`` joint-stage
-training steps of ``flagship`` with ``mrf.impl='pallas'`` instead, after
-two warm-up steps.  Prints, per preset: the wall time per request or
+training steps instead (of ``flagship_pallas`` unless ``--preset`` names
+another), after two warm-up steps.  Prints, per preset: the wall time per request or
 step, the device's busy time (the sum of kernel times) and its idle
 share, the kernels by total device time, and the PyTorch ops that
 launched them by their input shapes (which convolution a kernel belongs
 to).  ``joint_fft`` is ``joint``
 with ``head_conv_impl='fft'``, ``joint_default`` is ``joint`` at MRF
-precision 'default' (the serving default: the single-pass Fourier tail).  With ``--head-stages`` it times the stages
+precision 'default' (the serving default: the single-pass Fourier tail),
+``flagship`` is the preset as it stands at 'default' (MRF 'auto' -> 'xla',
+the direct grouped conv; bf16), ``flagship_pallas`` the preset with
+``mrf.impl='pallas'`` (the fused epilogue).  With ``--head-stages`` it times the stages
 of the Fourier head conv at the paper head instead (bf16): the input's
 forward transforms, the kernel's column DFT, the fused tail and the
 inverse column product, beside cuDNN's direct conv.  Needs a CUDA card.
@@ -34,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-PRESETS = ("joint", "joint_default", "joint_fft", "flagship_pallas")
+PRESETS = ("joint", "joint_default", "joint_fft", "flagship", "flagship_pallas")
 # The port's own kernels (jointpose_torch/csrc/), listed whatever their rank.
 PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
                 "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel",
@@ -53,6 +56,8 @@ def _config(preset: str):
         cfg = cfg.replace(detector=dataclasses.replace(cfg.detector, head_conv_impl=head))
         return with_mrf_precision(cfg, "default" if preset == "joint_default" else "high")
     cfg = get_config("flagship")
+    if preset == "flagship":
+        return with_mrf_precision(cfg, "default")
     return cfg.replace(mrf=dataclasses.replace(cfg.mrf, impl="pallas"))
 
 
@@ -185,7 +190,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=PRESETS, action="append")
     ap.add_argument("--train", action="store_true",
-                    help="profile training steps of flagship_pallas instead of requests")
+                    help="profile training steps (of flagship_pallas unless --preset says) instead "
+                         "of requests")
     ap.add_argument("--head-stages", action="store_true",
                     help="time the stages of the Fourier head conv instead")
     ap.add_argument("--batch", type=int, default=None, help="default 8 served, 32 trained")
@@ -204,7 +210,8 @@ def main(argv=None) -> int:
         print(json.dumps(res))
         return 0
     if args.train:
-        unit, make, presets, batch = "step", _train_unit, ["flagship_pallas"], args.batch or 32
+        presets = args.preset or ["flagship_pallas"]
+        unit, make, batch = "step", _train_unit, args.batch or 32
     else:
         unit, make, presets, batch = "request", _serve_unit, args.preset or PRESETS, args.batch or 8
     for preset in presets:

@@ -14,6 +14,11 @@ hold them against the reference's unsharded results computed here:
   2x2 step and one 2x2 step with spatial parallelism (the trunk's rows over
   'model', halo exchanges), against the reference's one-device step on the
   same converted weights, at ``tests/test_parallel.py``'s tolerances;
+- the same steps over data 2, 2x2 and 2x2 spatial on ``flagship``'s own
+  MRF path in bf16 (``compute_dtype='bfloat16'``, 'auto' at stride 2 ->
+  'xla': the grouped conv's autograd function, at model 2 on Kv 5 of the
+  padded 10 sources a rank), against the port's one-device step, which is
+  itself held against the reference's one-device bf16 step;
 - ``evaluate(mesh=)`` on the 2x2 mesh (its model tensor-parallel, and also
   spatial) and on a data-4 mesh, with a ragged last batch, against the
   reference's ``evaluate``;
@@ -47,6 +52,7 @@ from jointpose.configs import MeshConfig as JaxMeshConfig
 from jointpose.configs import get_config as jax_get_config
 from jointpose.data import augment as ja
 from jointpose.data import pipeline as jpipe
+from jointpose.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose.models.pose import PoseModel as JaxPoseModel
 from jointpose.ops.mrf_xla import mrf_message_pass_xla as jax_pass
 from jointpose.parallel import mesh as jmesh
@@ -58,6 +64,7 @@ from jointpose_torch.convert import params_from_flax, write_initial_checkpoint
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.parallel import mesh as tmesh
 from jointpose_torch.parallel import mrf_tp as ttp
+from jointpose_torch.train import create_state, make_train_step
 
 from test_torch_evaluate import _assert_evals_agree, _setup, _visible_counts
 
@@ -70,6 +77,30 @@ LOSS_RTOL, PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-3, 2e-5
 # as tests/test_torch_train.py's GRAD_RTOL.
 TP_ATOL, TP_GRAD_RTOL = 1e-5, 1e-4
 TP_GEOMETRY = {2: ((12, 16), (7, 9)), 4: ((10, 12), (5, 7))}  # n_model: (hw, odd window)
+# flagship's own MRF path in bf16, one step: the loss by |Δ| / |ref| and the
+# gradients by max|Δ| / max|ref| per tensor.  The sides round the same bf16
+# conv stacks in other orders (a rank's rows, a slice of the sources, rows
+# of the trunk, the reference's XLA): a few roundings of 2^-8 each.
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 1e-3, 1e-2
+# The port's one-device bf16 detector against the reference, by max|Δ| /
+# max|ref| per tensor, held against the reference's fp32 gradients: a bf16
+# forward rounds every activation, and on `tiny` each package's bf16
+# gradients lie up to 2.4e-2 (the port) and 2.8e-2 (the reference's
+# weights) from the fp32 ones.  The reference's bf16 bias gradients are no
+# reference on the CPU: XLA's CPU backend sums their bf16 cotangent in bf16,
+# 0.42 of the largest from its own fp32 gradients (the port sums in fp32).
+# The MRF's gradients, where both packages run the same grouped conv and
+# backward, are held against the reference's bf16 step at BF16_GRAD_RTOL.
+BF16_DETECTOR_GRAD_RTOL = 5e-2
+# Adam's first update is g / (|g| + eps), a sign where |g| >> eps.  A
+# parameter whose one-device gradient is at least the gradient bar of its
+# tensor's largest keeps its sign under any deviation within that bar, and
+# is held at tests/test_parallel.py's tolerance.  Below it a deviation may
+# flip the update: such parameters are held within one flipped update (2 lr
+# and the atol), and at most BF16_FLIP_SHARE of all parameters may end
+# beyond the tolerance (the fp32 sharded step's rule, ROADMAP.md queue 3, at the
+# bf16 bar).
+BF16_FLIP_SHARE = 1e-2
 
 CHILD = r"""
 import contextlib
@@ -156,6 +187,36 @@ for name, cfg, mesh, with_draw in (("dp", noaug, dp, False), ("dp_aug", aug, dp,
     out["step", name] = ({k: float(v) for k, v in metrics.items()},
                          {k: v.detach().numpy() for k, v in state.model.named_parameters()},
                          sorted(state.model.model_sliced_parameters()))
+
+# flagship's own MRF path in bf16 ('auto' at stride 2 -> 'xla'): the
+# grouped conv's autograd function, whose groups each call records.
+from jointpose_torch.ops import mrf_xla
+
+bf16 = noaug.replace(compute_dtype="bfloat16", mrf=dataclasses.replace(noaug.mrf, stride=2))
+bf16_spatial = bf16.replace(mesh=MeshConfig(data=2, model=2, spatial=True))
+function = mrf_xla.grouped_conv_f32
+groups = []
+
+
+def recording(p, kern, n):
+    groups.append(n)
+    return function(p, kern, n)
+
+
+mrf_xla.grouped_conv_f32 = recording
+init = torch.load(f"{data}/init_bf16.pt", weights_only=True)
+for name, cfg, mesh in (("dp", bf16, dp), ("2x2", bf16, make_mesh(MeshConfig(data=2, model=2))),
+                        ("2x2_spatial", bf16_spatial, make_mesh(bf16_spatial.mesh))):
+    groups.clear()
+    state = create_state(cfg, torch.Generator().manual_seed(0), device="cpu", mesh=mesh)
+    state.model.load_state_dict(init)
+    state = shard_state(state, mesh)
+    state, metrics = make_train_step(cfg, "joint", mesh)(state, shard_batch(batch, mesh))
+    out["bf16_step", name] = ({k: float(v) for k, v in metrics.items()},
+                              {k: v.detach().numpy() for k, v in state.model.named_parameters()},
+                              {k: v.grad.numpy() for k, v in state.model.named_parameters()},
+                              list(groups))
+mrf_xla.grouped_conv_f32 = function
 
 # evaluate(mesh=): the 2x2 mesh with its model tensor-parallel (and also
 # spatial), and data 4.
@@ -296,6 +357,29 @@ def _tiny_noaug(get):
                      train=dataclasses.replace(c.train, batch_size=8))
 
 
+def _bf16_xla(cfg):
+    """``cfg`` on flagship's own MRF path: bf16 compute, 'auto' at stride 2."""
+    return cfg.replace(compute_dtype="bfloat16", mrf=dataclasses.replace(cfg.mrf, stride=2))
+
+
+def _reference_loss_and_grads(jcfg, params, batch_j):
+    """The reference's joint-stage loss and gradients (``jtrain._make_step_body``'s
+    loss without augmentation), as numpy, the gradients by port name."""
+    targets = jtrain._render_targets(jcfg, batch_j["joints"], batch_j["visible"])
+    model = JaxPoseModel(jcfg)
+
+    def loss(p):
+        out = model.apply({"params": p}, batch_j["image"])
+        return (heatmap_loss(jcfg.train.detector_loss, out["detector_logits"], targets,
+                             batch_j["visible"])
+                + mrf_heatmap_loss(jcfg.train.mrf_loss, out["mrf_log_heatmaps"], targets,
+                                   batch_j["visible"]))
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
+    grads = params_from_flax(jax.tree_util.tree_map(np.asarray, grads))
+    return float(value), {k: v.numpy() for k, v in grads.items()}
+
+
 def _tp_inputs(n):
     hw, win = TP_GEOMETRY[n]
     k, b = 9, 4
@@ -319,6 +403,15 @@ def world(tmp_path_factory):
     jcfg = _tiny_noaug(jax_get_config)
     jstate = jtrain.create_state(jcfg, JaxPoseModel(jcfg), jax.random.PRNGKey(0))
     torch.save(params_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params)), data / "init.pt")
+    # The bf16 steps' weights: the uniform spatial kernels perturbed, as the
+    # served-slice tests do.  Uniform kernels wider than the coarse grid give
+    # every pixel the same response, so the biases' gradient is a constant
+    # over the map, which the spatial softmax cancels to rounding noise.
+    bf16_params = jax.tree_util.tree_map(np.asarray, jstate.params)
+    sm = bf16_params["spatial_model"]
+    sm["raw_kernels"] = sm["raw_kernels"] + 0.5 * np.random.RandomState(0).randn(
+        *sm["raw_kernels"].shape).astype(np.float32)
+    torch.save(params_from_flax(bf16_params), data / "init_bf16.pt")
     train_ds, _ = jpipe.make_dataset(jcfg.data)
     batch = {k: np.asarray(v) for k, v in train_ds.get_batch(jnp.arange(8, dtype=jnp.int32)).items()}
     np.savez(data / "batch.npz", **batch)
@@ -352,6 +445,19 @@ def world(tmp_path_factory):
         ref["step_aug"] = jax.jit(jtrain._make_step_body(jaug, "joint"))(jstate, batch_j)
     finally:
         jtrain.random_augment_params = monkey
+    # flagship's own MRF path in bf16: the port's one-device step and the
+    # reference's loss and gradients at the same config and weights.
+    tcfg_b = _bf16_xla(_tiny_noaug(get_config))
+    state = create_state(tcfg_b, torch.Generator().manual_seed(0), device="cpu")
+    state.model.load_state_dict(torch.load(data / "init_bf16.pt", weights_only=True))
+    state, metrics = make_train_step(tcfg_b, "joint")(
+        state, {k: torch.tensor(v) for k, v in batch.items()})
+    ref["bf16_step"] = ({k: float(v) for k, v in metrics.items()},
+                        {k: v.detach().numpy() for k, v in state.model.named_parameters()},
+                        {k: v.grad.numpy() for k, v in state.model.named_parameters()})
+    ref["bf16_reference"] = _reference_loss_and_grads(_bf16_xla(jcfg), bf16_params, batch_j)
+    ref["bf16_reference_fp32"] = _reference_loss_and_grads(
+        _bf16_xla(jcfg).replace(compute_dtype="float32"), bf16_params, batch_j)
     ref["eval"] = (jev.evaluate(variables, jpipe.from_host_arrays(arrays), jcfg_e, jmodel.apply),
                    _visible_counts(arrays, 10))
     with open(data / "eval_main.json") as f:
@@ -390,6 +496,20 @@ def test_pad_source_axis_matches_reference(n):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert got[0].shape[-1] % n == 0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_pad_source_axis_in_bf16_matches_reference(n):
+    """flagship's sharded pass pads bf16 unaries and kernels (its biases stay
+    fp32): the same zeros and unit biases as the reference, in the same types."""
+    p, k, b, _ = _tp_inputs(2)
+    want = jtp.pad_source_axis(jnp.asarray(p, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                               jnp.asarray(b), n)
+    got = ttp.pad_source_axis(torch.from_numpy(p).bfloat16(), torch.from_numpy(k).bfloat16(),
+                              torch.from_numpy(b), n)
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.bfloat16, torch.float32]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w, np.float32))
 
 
 def test_param_shardings_match_reference():
@@ -569,3 +689,72 @@ def test_a_capture_that_fails_on_one_rank_raises_on_every_rank(world, name):
         mesh_rank, raised = got["capture_failure", name]
         want = "stub capture failed" if mesh_rank == 1 else "failed on another rank of the mesh"
         assert raised is not None and want in raised, f"{name}, rank {got['rank']}: {raised}"
+
+
+def _max_rel(got, want):
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+def test_one_device_bf16_step_matches_reference(world):
+    """The port's one-device bf16 step on flagship's own MRF path against
+    the reference at the same config and weights: the loss and the MRF's
+    gradients against its bf16 step, the detector's gradients against its
+    fp32 step (``BF16_DETECTOR_GRAD_RTOL``'s comment)."""
+    _, ref = world
+    metrics, _, grads = ref["bf16_step"]
+    loss, want = ref["bf16_reference"]
+    _, exact = ref["bf16_reference_fp32"]
+    assert set(grads) == set(want) == set(exact)
+    assert metrics["loss"] == pytest.approx(loss, rel=BF16_LOSS_RTOL)
+    mrf = {n: _max_rel(grads[n], w) for n, w in want.items() if n.startswith("spatial_model")}
+    det = {n: _max_rel(grads[n], w) for n, w in exact.items() if n not in mrf}
+    own = max(_max_rel(want[n], w) for n, w in exact.items() if n not in mrf)
+    print(f"bf16 one-device step against the reference: loss {metrics['loss']:.7f} against "
+          f"{loss:.7f}; MRF gradients {max(mrf.values()):.3e} of the largest (bar "
+          f"{BF16_GRAD_RTOL:g}); detector gradients {max(det.values()):.3e} from the reference's "
+          f"fp32 step (bar {BF16_DETECTOR_GRAD_RTOL:g}), where the reference's own bf16 step is "
+          f"{own:.3e} from it")
+    assert len(mrf) == 2 and max(mrf.values()) <= BF16_GRAD_RTOL, mrf
+    assert max(det.values()) <= BF16_DETECTOR_GRAD_RTOL, det
+
+
+@pytest.mark.parametrize("name", ["dp", "2x2", "2x2_spatial"])
+def test_sharded_bf16_step_matches_one_device(world, name):
+    """flagship's own MRF path in bf16, sharded, against the port's
+    one-device step: the loss, every gradient, and the parameters after
+    Adam's first update, held where the update's sign is determined
+    (``BF16_FLIP_SHARE``'s comment)."""
+    ranks, ref = world
+    w_metrics, w_params, w_grads = ref["bf16_step"]
+    train = get_config("tiny").train
+    flip = 2 * train.learning_rate * max(1.0, train.mrf_lr_mult) + PARAM_ATOL
+    n_params = sum(w.size for w in w_params.values())
+    for got in ranks:
+        metrics, params, grads, _ = got["bf16_step", name]
+        what = f"{name}, rank {got['rank']}"
+        assert metrics["loss"] == pytest.approx(w_metrics["loss"], rel=BF16_LOSS_RTOL), what
+        worst = max((_max_rel(grads[n], w), n) for n, w in w_grads.items())
+        assert worst[0] <= BF16_GRAD_RTOL, (what, worst)
+        exempt = beyond = 0
+        for n, w in w_params.items():
+            g = np.abs(w_grads[n])
+            held = g >= BF16_GRAD_RTOL * g.max()
+            diff = np.abs(params[n].astype(np.float64) - w)
+            share = diff / (PARAM_ATOL + PARAM_RTOL * np.abs(w))
+            assert (share[held] <= 1).all(), f"{what}: {n}"
+            assert (diff[~held] <= flip).all(), f"{what}: {n} moved beyond one flipped update"
+            exempt += int((~held).sum())
+            beyond += int((share[~held] > 1).sum())
+        print(f"bf16 step {what}: loss rel {abs(metrics['loss'] / w_metrics['loss'] - 1):.3e}, "
+              f"gradients {worst[0]:.3e} (worst {worst[1]}); {exempt} of {n_params} parameters "
+              f"exempt, {beyond} of them beyond the tolerance")
+        assert beyond <= BF16_FLIP_SHARE * n_params, (what, beyond)
+
+
+@pytest.mark.parametrize("name,sources", [("dp", 9), ("2x2", 5), ("2x2_spatial", 5)])
+def test_sharded_bf16_step_runs_the_grouped_conv_function(world, name, sources):
+    """The bf16 step's pairwise conv is ``grouped_conv_f32`` once a forward,
+    on every source at data 2 and on a rank's 5 of the padded 10 at model 2."""
+    ranks, _ = world
+    for got in ranks:
+        assert got["bf16_step", name][3] == [sources], f"{name}, rank {got['rank']}"
