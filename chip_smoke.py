@@ -1989,12 +1989,12 @@ def observe_phase(config, joint, counters: dict, smi: str) -> None:
     class CountingHook(metrics.ProfilerHook):
         """The launch counters where the window opens and where it closes."""
 
-        def on_step(self, step: int) -> None:
-            edge = ("start" if step == self.start_step else
-                    "stop" if step >= self.stop_step and "stop" not in marks else None)
-            if edge:
-                marks[edge] = {name: fn.launches for name, fn in counters.items()}
-            super().on_step(step)
+        def on_step(self, step: int, steps: int = 1, ready: bool = True) -> None:
+            tracing = self._prof is not None
+            super().on_step(step, steps, ready)
+            if (self._prof is not None) != tracing:
+                marks["stop" if tracing else "start"] = {name: fn.launches
+                                                         for name, fn in counters.items()}
 
     hook_class, metrics.ProfilerHook = metrics.ProfilerHook, CountingHook
     try:

@@ -26,9 +26,8 @@ What the trace gives:
   num_runs``).  Launches of kernels the trace holds no launch event for
   are counted in ``ops`` and belong to no run.
 
-Trace timestamps are microseconds.  There are no FLOP or byte counts in
-a CUDA trace: ``OpTime.flops`` and ``bytes_accessed`` are 0 (``perf.
-step_cost`` counts both).
+Trace timestamps are microseconds.  A CUDA trace holds no FLOP or byte
+counts (``perf.count_cost`` counts both).
 """
 
 from __future__ import annotations
@@ -55,12 +54,8 @@ class OpTime:
 
     name: str
     duration_s: float
-    flops: float
-    bytes_accessed: float
     category: str = ""
     count: int = 0
-    tf_op: str = ""
-    source: str = ""
 
 
 @dataclass
@@ -79,14 +74,6 @@ class DeviceTiming:
     def median_run_s(self) -> float:
         d = sorted(self.run_durations_s)
         return d[len(d) // 2] if d else float("nan")
-
-    @property
-    def total_flops(self) -> float:
-        return sum(o.flops for o in self.ops)
-
-    @property
-    def total_bytes(self) -> float:
-        return sum(o.bytes_accessed for o in self.ops)
 
     def top_ops(self, n: int = 12) -> list[OpTime]:
         return sorted(self.ops, key=lambda o: -o.duration_s)[:n]
@@ -137,8 +124,7 @@ def parse_trace(trace_dir: str, program_name: str) -> DeviceTiming | None:
         name = str(e.get("name", ""))
         op = ops.get(name)
         if op is None:
-            op = ops[name] = OpTime(name=name, duration_s=0.0, flops=0.0, bytes_accessed=0.0,
-                                    category=e["cat"])
+            op = ops[name] = OpTime(name=name, duration_s=0.0, category=e["cat"])
         op.duration_s += dur * 1e-6
         op.count += 1
         launched = launches.get(_correlation(e))

@@ -5,19 +5,54 @@ the reference's records (``step``, ``time`` and the keyword metrics,
 scalars as floats), echoed to stdout, and a tensorboardX writer beside it
 where one is asked for and tensorboardX is importable.
 
-``ProfilerHook``: a ``torch.profiler`` trace of a window of training
-steps, with the CPU and (where the process has CUDA) the CUDA activity,
-written to ``<workdir>/profile/`` as a Chrome trace that
-``devtime.parse_trace(trace_dir, "train")`` reads and TensorBoard's
-profile plugin shows.
+``ProfilerHook``: a ``torch.profiler`` trace of a window of whole
+dispatches of training steps, with the CPU and (where the process has
+CUDA) the CUDA activity, written to ``<workdir>/profile/`` as a Chrome
+trace that ``devtime.parse_trace(trace_dir, "train")`` reads and
+TensorBoard's profile plugin shows.
+
+``span(name)``: a ``torch.profiler`` range ``jointpose/<name>`` around a
+layer's host work while a profiler is collecting, in the same trace and
+on the same clock as the kernels it launches; with no profiler
+collecting, a shared null context, at the cost of one flag's check.  The
+spans are flat: none encloses another on a thread.
+
+- the predictor (``predict.predictor_for``): ``input`` (the batch's copy
+  to the device), ``detector`` and ``mrf`` (``PoseModel.forward``), and
+  ``decode`` (heatmaps and coordinates);
+- the K-step dispatch (``train.DispatchGraphs.run``,
+  ``_CapturedDispatch.replay``, ``_eager_steps``): ``dispatch.prepare``
+  (the graphs' refresh and the static inputs' copies),
+  ``dispatch.rates`` (the K learning rates), ``dispatch.replay`` (the
+  graph's launch) and ``dispatch.outputs`` (counters, gradients and
+  metrics after it).  No span encloses a capture, which would enclose
+  the model's spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Any
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
+
+SPAN_PREFIX = "jointpose/"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range ``jointpose/<name>`` while a profiler collects, else a null
+    context (the module docstring)."""
+    # A flag that profile.start() and stop() set: record_function costs
+    # microseconds an entry even with no profiler running.
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 class MetricLogger:
@@ -66,13 +101,16 @@ class MetricLogger:
 
 
 class ProfilerHook:
-    """A ``torch.profiler`` trace of steps ``start_step`` to
-    ``start_step + num_steps - 1``.
+    """A ``torch.profiler`` trace of whole dispatches of training steps:
+    from the first dispatch that holds a step at or after ``start_step``
+    and that the loop calls ``ready``, through the dispatch that brings
+    the traced steps to ``num_steps`` or more.
 
-    The loop calls ``on_step(step)`` before each step and runs the step
-    inside ``annotation(step)``, a range named ``train#<step>``.  The trace
-    starts at ``start_step``, once the card has finished the earlier
-    steps, and is written when the window ends (or at ``close``, if
+    The loop calls ``on_step(step, steps, ready)`` before each dispatch
+    (steps ``step`` to ``step + steps - 1``) and runs the dispatch inside
+    ``annotation(step)``, a range named ``train#<step>``.  The trace starts
+    once the card has finished the earlier dispatches, and is written at
+    the first dispatch boundary past the window (or at ``close``, if
     training ends first), once the card has finished the window's work.
 
     The trace goes to ``<workdir>/profile``; with ``rank`` (a rank of a
@@ -87,20 +125,20 @@ class ProfilerHook:
         if rank is not None:
             self.trace_dir = os.path.join(self.trace_dir, f"rank{rank}")
         self.start_step = start_step
-        self.stop_step = start_step + num_steps
+        self.num_steps = num_steps
+        self.stop_step: int | None = None  # set when the window opens
         self._prof = None
 
-    def on_step(self, step: int) -> None:
-        if step == self.start_step and self._prof is None:
-            import torch
-            from torch.profiler import ProfilerActivity, profile
-
-            activities = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(ProfilerActivity.CUDA)
-                torch.cuda.synchronize()  # the window holds its own steps' work alone
-            self._prof = profile(activities=activities)
-            self._prof.start()
+    def on_step(self, step: int, steps: int = 1, ready: bool = True) -> None:
+        if self.stop_step is None:
+            if ready and step + steps > self.start_step:
+                activities = [ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    activities.append(ProfilerActivity.CUDA)
+                    torch.cuda.synchronize()  # the window holds its own dispatches' work alone
+                self._prof = profile(activities=activities)
+                self._prof.start()
+                self.stop_step = step + self.num_steps
         elif step >= self.stop_step and self._prof is not None:
             self._stop()
 
@@ -110,8 +148,6 @@ class ProfilerHook:
             self._stop()
 
     def _stop(self) -> None:
-        import torch
-
         from jointpose_torch.devtime import trace_path
 
         if torch.cuda.is_available():
@@ -122,6 +158,4 @@ class ProfilerHook:
         prof.export_chrome_trace(trace_path(self.trace_dir))
 
     def annotation(self, step: int):
-        from torch.profiler import record_function
-
         return record_function(f"train#{step}")

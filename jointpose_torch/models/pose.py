@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from jointpose_torch.configs import Config
+from jointpose_torch.metrics import span
 from jointpose_torch.models.detector import Detector
 from jointpose_torch.models.mrf import SpatialModel
 from jointpose_torch.ops.heatmaps import spatial_softmax
@@ -80,12 +81,14 @@ class PoseModel(nn.Module):
         never runs.  ``detector_only`` returns the detector logits alone,
         without running the spatial model (evaluation before the spatial
         model has its prior init)."""
-        logits = self.detector(unit_images(images, self.dtype))
+        with span("detector"):
+            logits = self.detector(unit_images(images, self.dtype))
         if freeze_detector:
             logits = logits.detach()
         out = {"detector_logits": logits}
         if self.spatial_model is not None and not detector_only:
-            out["mrf_log_heatmaps"] = self.spatial_model(_unaries(self.config, logits))
+            with span("mrf"):
+                out["mrf_log_heatmaps"] = self.spatial_model(_unaries(self.config, logits))
         return out
 
 

@@ -32,6 +32,7 @@ import torch
 
 from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config
+from jointpose_torch.metrics import span
 from jointpose_torch.models.detector import spatial_features
 from jointpose_torch.models.pose import PoseModel, make_logits_tail_fn, unit_images
 from jointpose_torch.ops.heatmaps import decode_probs, model_probs
@@ -128,11 +129,15 @@ def predictor_for(config: Config, model: torch.nn.Module, device: torch.device):
 
     @torch.inference_mode()
     def predict(images: torch.Tensor):
-        images = images.to(device)
-        probs = model_probs(model(images))
-        if config.eval_flip_tta:
-            probs = 0.5 * (probs + unflip_heatmaps(model_probs(model(flip_images(images)))))
-        coords = decode_probs(probs, stride, refine=config.decode_refine)
+        with span("input"):
+            images = images.to(device)
+        out = model(images)
+        flipped = model(flip_images(images)) if config.eval_flip_tta else None
+        with span("decode"):
+            probs = model_probs(out)
+            if flipped is not None:
+                probs = 0.5 * (probs + unflip_heatmaps(model_probs(flipped)))
+            coords = decode_probs(probs, stride, refine=config.decode_refine)
         return coords, probs
 
     return predict

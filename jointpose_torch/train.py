@@ -57,11 +57,14 @@ the next dispatch boundary and exits ``resilience.EXIT_PREEMPTED``; the
 heartbeat is written after each dispatch, eval, prior init and save (none
 before the first dispatch), and ``JOINTPOSE_FAULT_AT_STEP`` is checked
 after each dispatch, so that ``python -m jointpose_torch.resilience``
-supervises the run.  ``profile_steps`` (``--profile-steps``) traces steps
-``start + 5`` to ``start + 4 + profile_steps`` under
-``metrics.ProfilerHook`` into ``<workdir>/profile/`` (over a mesh of
-several ranks each rank traces the window into ``profile/rank<r>/``), one
-step a dispatch inside that window on every rank.  On CUDA the first step of each stage runs alone
+supervises the run.  ``profile_steps`` (``--profile-steps``) traces whole
+dispatches under ``metrics.ProfilerHook`` into ``<workdir>/profile/`` (over
+a mesh of several ranks each rank traces its window into
+``profile/rank<r>/``), a range ``train#<first step>`` each: from the first
+dispatch that holds step ``start + 5`` or a later one and replays a graph
+captured before it (or takes no graph), until they hold ``profile_steps``
+steps or more; the window cuts no dispatch, and its trace holds the
+dispatch's spans (``metrics.span``).  On CUDA the first step of each stage runs alone
 under ``perf.count_cost`` and logs the step's GFLOP and MB per image, the
 bound ``roofline_images_per_sec`` and the stage's first dispatch size
 ``steps_per_dispatch`` (the reference logs it on the TPU alone).
@@ -88,6 +91,7 @@ from jointpose_torch.data.augment import AugmentParams, augment_batch, random_au
 from jointpose_torch.data.pipeline import as_index
 from jointpose_torch.data.targets import image_to_heatmap_coords, render_gaussian_heatmaps
 from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
+from jointpose_torch.metrics import span
 from jointpose_torch.models.mrf import priors_to_raw_kernels
 from jointpose_torch.models.pose import PoseModel
 from jointpose_torch.predict import init_state_dict, resolve_device
@@ -435,8 +439,10 @@ def _eager_steps(state, k, body, lr_fn, inputs, batch_of):
     """The K steps one after another; each tensor of ``inputs`` crosses to
     the device once."""
     device = next(state.model.parameters()).device
-    inputs = {name: v.to(device, non_blocking=True) for name, v in inputs.items()}
-    lrs = _learning_rates(state.optimizer, lr_fn, state.step, k)
+    with span("dispatch.prepare"):
+        inputs = {name: v.to(device, non_blocking=True) for name, v in inputs.items()}
+    with span("dispatch.rates"):
+        lrs = _learning_rates(state.optimizer, lr_fn, state.step, k)
     for i in range(k):
         state, metrics = body(state, batch_of(inputs, i), lrs[i])
     return state, metrics
@@ -506,6 +512,11 @@ class DispatchGraphs:
             self.release()
         return stale
 
+    def replays(self, key, state) -> bool:
+        """Whether the next dispatch of ``key`` replays a graph captured
+        before it, as this rank sees the state now."""
+        return key in self.graphs and _graph_anchors(state) == self.anchors
+
     def release(self) -> None:
         """Drop the graphs and forget the warm stages.  Over an nccl mesh a
         graph holds the communicators of the collectives it captured:
@@ -520,7 +531,8 @@ class DispatchGraphs:
         with torch.cuda.device(device):
             if self.stream is None:
                 self.stream, self.pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
-            self.refresh(state, mesh)
+            with span("dispatch.prepare"):
+                self.refresh(state, mesh)
             if stage not in self.warm:
                 current = torch.cuda.current_stream()
                 self.stream.wait_stream(current)
@@ -586,16 +598,20 @@ class _CapturedDispatch:
 
     def replay(self, state, lr_fn, inputs):
         k = self.lrs.numel()
-        for name, v in inputs.items():
-            self.inputs[name].copy_(v, non_blocking=True)
-        self.lrs.copy_(_learning_rates(state.optimizer, lr_fn, state.step, k))
-        self.graph.replay()
-        state.step += k
-        for (holder, name), n in zip(self.counters, self.launches):
-            setattr(holder, name, getattr(holder, name) + n)
-        for p, g in zip(state.model.parameters(), self.grads):
-            p.grad = g
-        return state, {name: v.clone() for name, v in self.metrics.items()}
+        with span("dispatch.prepare"):
+            for name, v in inputs.items():
+                self.inputs[name].copy_(v, non_blocking=True)
+        with span("dispatch.rates"):
+            self.lrs.copy_(_learning_rates(state.optimizer, lr_fn, state.step, k))
+        with span("dispatch.replay"):
+            self.graph.replay()
+        with span("dispatch.outputs"):
+            state.step += k
+            for (holder, name), n in zip(self.counters, self.launches):
+                setattr(holder, name, getattr(holder, name) + n)
+            for p, g in zip(state.model.parameters(), self.grads):
+                p.grad = g
+            return state, {name: v.clone() for name, v in self.metrics.items()}
 
 
 def init_mrf_from_priors(state: TrainState, priors) -> TrainState:
@@ -774,13 +790,25 @@ def fit(
         )
         return take_steps(stage, first + 1, chunk - 1) if chunk > 1 else out
 
-    # A trace of a window after the run's first steps (cuDNN's algorithm
-    # choice and the kernel builds stay out of it), on every rank: the
-    # window cuts the dispatches, and ranks whose dispatches differed would
-    # pair one rank's boundary collectives with another's step collectives.
+    # A trace of whole dispatches after the run's first steps, on every
+    # rank, from the first that runs as the later ones of its kind do: it
+    # replays a graph captured before it (cuDNN's algorithm choice, the
+    # kernel builds, the warm-up and the capture stay out of the trace), or
+    # takes no graph.  The window cuts no dispatch.
     profiler = (ProfilerHook(workdir, start_step=start_step + 5, num_steps=profile_steps,
                              rank=mesh.rank if mesh.size > 1 else None)
                 if profile_steps > 0 else None)
+    k_dispatch = max(t.steps_per_dispatch, 1)
+    by_graph = k_dispatch > 1 and graph_dispatch(device, mesh)
+
+    def settled(stage: str, chunk: int) -> bool:
+        """Whether the dispatch of ``chunk`` steps replays a graph captured
+        before it or takes no graph."""
+        if chunk == 1 or not by_graph:
+            return True
+        fn = multi_fns.get((stage, chunk))
+        return fn is not None and state.graphs.replays(fn, state)
+
     costed: set[str] = set()  # stages whose cost was logged (on CUDA only)
 
     def now() -> float:
@@ -788,22 +816,14 @@ def fit(
             torch.cuda.synchronize(device)
         return time.time()
 
-    k_dispatch = max(t.steps_per_dispatch, 1)
-
     def dispatch_size(step: int) -> int:
         """Up to ``steps_per_dispatch`` steps, never across a log, eval,
-        stage or end boundary (the reference's chunking); a profiled window
-        takes one step a dispatch, so that each of its steps is a range of
-        its own in the trace.  Every rank of a mesh cuts alike."""
+        stage or end boundary (the reference's chunking).  Every rank of a
+        mesh cuts alike."""
         bounds = [(step // t.log_every + 1) * t.log_every,
                   (step // t.eval_every + 1) * t.eval_every,
                   det_steps if step < det_steps else total_steps, total_steps]
-        k = k_dispatch
-        if profiler is not None:
-            bounds += [profiler.start_step, profiler.stop_step]
-            if profiler.start_step <= step < profiler.stop_step:
-                k = 1
-        return min(k, min(b for b in bounds if b > step) - step)
+        return min(k_dispatch, min(b for b in bounds if b > step) - step)
 
     step = start_step
     t_last, n_last = now(), step
@@ -830,7 +850,7 @@ def fit(
                 costed.add(stage)
                 run = counted_steps
             if profiler is not None:
-                profiler.on_step(step)
+                profiler.on_step(step, chunk, settled(stage, chunk))
                 with profiler.annotation(step):
                     state, metrics = run(stage, step, chunk)
             else:

@@ -81,7 +81,6 @@ def test_device_ops_by_category_summed_per_name(tmp_path):
     assert [ops[n].category for n in ("conv", "Memcpy HtoD", "Memset")] == [
         "kernel", "gpu_memcpy", "gpu_memset"]
     assert [o.name for o in t.top_ops(2)] == ["conv", "warp"]
-    assert t.total_flops == 0 and t.total_bytes == 0  # a CUDA trace counts neither
 
 
 def test_other_programs_and_unlaunched_ops(tmp_path):

@@ -19,7 +19,7 @@ budget though the launcher exits 1, and one whose rank 1 hangs at step
 hung group running.
 
 A profiled two-process run (``--profile-steps 2`` at 4 steps a dispatch)
-leaves a trace of the window for each rank under ``profile/rank<r>/`` and
+leaves a trace of the window (the dispatch that holds step 5) for each rank under ``profile/rank<r>/`` and
 ends on the unbroken run's parameters exactly.
 """
 
@@ -137,10 +137,11 @@ def test_supervised_two_process_fit_resumes_after_a_fault(unbroken, tmp_path):
 
 
 def test_a_profiled_two_process_fit_traces_every_rank(unbroken, tmp_path):
-    """Every rank traces the window and cuts its dispatches at its bounds:
-    were rank 0 alone to take the window's steps one a dispatch, its
-    dispatch-boundary all-reduces would pair with its peer's gradient
-    all-reduces and the group would hang (the timeout)."""
+    """Every rank traces the window, whole dispatches that it does not cut:
+    the ranks' dispatches, and so their collectives, pair as in a run
+    without a profiler (a rank whose dispatches differed would pair its
+    dispatch-boundary all-reduces with its peer's gradient all-reduces,
+    and the group would hang: the timeout)."""
     workdir = str(tmp_path / "prof")
     _torchrun(*BASE, "--workdir", workdir, "--mesh-data", "2", "--joint-steps", "4",
               "--eval-every", "4", "--steps-per-dispatch", "4", "--profile-steps", "2", timeout=300)
@@ -150,7 +151,7 @@ def test_a_profiled_two_process_fit_traces_every_rank(unbroken, tmp_path):
             events = json.load(f)["traceEvents"]
         steps = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
                        and e["name"].startswith("train#"))
-        assert steps == ["train#5", "train#6"], rank
+        assert steps == ["train#4"], rank  # the dispatch of steps 4-7 holds step 5
     assert not glob.glob(os.path.join(workdir, "profile", "*.pt.trace.json"))
     # The window changes the trace alone: the unbroken run's parameters.
     got, want = _final_params(workdir), _final_params(unbroken[0])
