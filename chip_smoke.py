@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``jointpose_torch``).
 
-    python3 chip_smoke.py [--save-joint FILE] [--joint-reference FILE]
+    python3 chip_smoke.py [--save-joint FILE] [--joint-reference FILE] [--grouped-corr]
 
 ``--save-joint`` writes the served ``joint`` coordinates and heatmaps
 (phase 3) to an ``.npz``; ``--joint-reference`` compares them with such a
 file from another version of the port (same seeds, so same weights and
-images) and prints the differences.
+images) and prints the differences.  ``--grouped-corr`` builds and runs
+the MRF grouped correlation's entry of phase 12 alone.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and when
 the package is missing.  Phases, each fatal on failure:
@@ -161,9 +162,12 @@ the package is missing.  Phases, each fatal on failure:
    widths), the
    head-conv tail's ring and register-staged versions at batch 8 and 32;
    then the Fourier head against cuDNN and served ``joint`` with either
-   head at batch 1, 8, 16 and 32.  The int8 detector is timed in phase 9,
-   against the bf16 cuDNN detector in turns, with each conv's im2col and
-   ``torch._int_mm``.
+   head at batch 1, 8, 16 and 32; then ``flagship``'s MRF grouped
+   correlation (``grouped_corr_phase``) at batch 32 and 128 against its
+   plain version, bit-repeatable, in turns with cuDNN's grouped fprop, and
+   its launches in a served ``flagship`` batch.  The int8 detector is
+   timed in phase 9, against the bf16 cuDNN detector in turns, with each
+   conv's im2col and ``torch._int_mm``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -896,6 +900,89 @@ def kstep_phase(smi: str) -> dict:
           f"joint {d[str(KSTEP_TIMED_K)]['joint'][-1]:.1f} / {f[str(KSTEP_TIMED_K)]['joint'][-1]:.1f}; "
           f"on {smi}")
     return results
+
+
+# The MRF's grouped correlation (csrc/mrf_grouped_corr.cu) against the fp32
+# conv of the same bf16 values with TF32 off: both products exact, the fp32
+# sums of 425 of them in another order.
+GROUPED_CORR_RTOL = 1e-5
+
+
+def grouped_corr_phase(smi: str) -> dict:
+    """The forward of ``flagship``'s MRF conv on the card: the hand-written
+    grouped correlation (``ops.mrf_corr.mrf_grouped_corr``) at the coarse
+    grid (30x45, Kv = Ka = 9, 17x25, bf16 operands, fp32 out), batch 32 and
+    128: against its plain version (fp32 conv, TF32 off), twice bit for bit,
+    then timed by CUDA-graph replays in turns with cuDNN's grouped fprop as
+    the path called it before (``grouped_conv`` with fp32 out, TF32 on: the
+    library's time), beside its bound and the plain version's time; and its
+    launches in a served ``flagship`` batch.  Returns the kernels line's
+    entry, with the batch-32 numbers under ``batch32``."""
+    import jointpose_torch.ops.mrf_xla as mx
+    from jointpose_torch import get_config
+    from jointpose_torch.ops import mrf_corr as mc
+
+    flag = get_config("flagship")
+    k, (wh, ww) = flag.num_joints, flag.mrf.window
+    ch, cw = (n // flag.mrf.stride for n in flag.heatmap_hw)
+    gen = torch.Generator().manual_seed(21)
+    kernels, _ = mrf_params(gen, flag.mrf.window, k)
+    kern = kernels.reshape(wh, ww, 1, k * k).bfloat16()
+    rows = {}
+    for batch in (flag.train.batch_size, 128):
+        # The coarse pass's input: sums of 2x2 probabilities, in bf16.
+        p = (4 * unaries(gen, batch, ch, cw, k, torch.float32)).bfloat16()
+        got = mc.mrf_grouped_corr(p, kern, k)
+        again = mc.mrf_grouped_corr(p, kern, k)
+        want = mc.mrf_grouped_corr_plain(p, kern, k)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        check(torch.equal(got, again), f"mrf_grouped_corr at batch {batch}: two calls differ")
+        check(err[0] <= GROUPED_CORR_RTOL,
+              f"mrf_grouped_corr at batch {batch} disagrees with its plain version: {err}")
+
+        def library():
+            mx.grouped_conv(p, kern, k, torch.float32)
+
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            turns = [time_ms(fn, runs=10, per_graph=2) if fn is library else time_ms(fn)
+                     for fn in (library, lambda: mc.mrf_grouped_corr(p, kern, k),
+                                lambda: mc.mrf_grouped_corr(p, kern, k), library)]
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        plain_ms = time_ms(lambda: mc.mrf_grouped_corr_plain(p, kern, k), runs=10, per_graph=2)
+        n_bytes, n_ops = mc.corr_cost(p, kern, k)
+        b_ms, by = bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+        ms, library_ms = min(turns[1], turns[2]), min(turns[0], turns[3])
+        rows[batch] = {"ms": ms, "library_ms": library_ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": by, "max_rel_err": err[0],
+                       "max_abs_err": err[1], "turns_ms": turns,
+                       "tiling": mc.tiling(ch, k, k, wh, ww)}
+        print(f"mrf_grouped_corr at batch {batch} (p {tuple(p.shape)} bf16, kernels "
+              f"{tuple(kern.shape)} bf16, fp32 out; tiling (mt, kcc, dyc) {rows[batch]['tiling']}): "
+              f"against the fp32 conv of the same values, TF32 off, rel err / max abs "
+              f"{err[0]:.3e} / {err[1]:.3e} (limit {GROUPED_CORR_RTOL:g}); two calls bit-identical; "
+              f"CUDA-graph replays in turns, cuDNN's grouped fprop (TF32) / kernel / kernel / cuDNN: "
+              f"{' / '.join(f'{t:.6f}' for t in turns)} ms; kernel {ms:.6f} ms, "
+              f"{library_ms / ms:.1f}x faster than cuDNN, bound {b_ms:.6f} ms by {by} "
+              f"({b_ms / ms:.1%} of it; {n_ops / 1e9:.3f} GFLOP at {n_ops / ms / 1e9:.1f} TFLOP/s); "
+              f"plain {plain_ms:.6f} ms; on {smi}")
+        check(b_ms <= ms, "mrf_grouped_corr beats its bound: the bound is wrong")
+        del p, got, again, want
+    served = serve(flag, seed=3, counters={"mrf_grouped_corr": mc.mrf_grouped_corr}, requests=2,
+                   batch=BATCH)
+    launches = served["launches"]["mrf_grouped_corr"]
+    print(f"mrf_grouped_corr launches in 2 served batches of {BATCH} of flagship as the preset "
+          f"stands: {launches}")
+    check(launches == 2, f"served flagship launched mrf_grouped_corr {launches} times in 2 batches")
+    top = rows[128]
+    return {"name": "mrf_grouped_corr", "route": "cuda",
+            "source": "jointpose_torch/csrc/mrf_grouped_corr.cu",
+            "replaces": None, "launches": launches,
+            "max_abs_err": top["max_abs_err"], "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "batch32": rows[flag.train.batch_size]}
 
 
 # The fp32-output grouped conv's hand-written backward (the reference's
@@ -4032,6 +4119,8 @@ def main() -> int:
                         help=argparse.SUPPRESS)  # a process of the kstep phase
     parser.add_argument("--nccl-kstep-child", nargs=2, metavar=("TASK", "DIR"),
                         help=argparse.SUPPRESS)  # a rank of the nccl_kstep phase's worlds
+    parser.add_argument("--grouped-corr", action="store_true",
+                        help="run only the MRF grouped correlation's entry and exit")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -4074,11 +4163,15 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     t0 = time.perf_counter()
-    _build.build(_build.kernel_names())
-    print(f"build: {time.perf_counter() - t0:.2f} s for {_build.kernel_names()}")
+    names = ["mrf_grouped_corr"] if opts.grouped_corr else _build.kernel_names()
+    _build.build(names)
+    print(f"build: {time.perf_counter() - t0:.2f} s for {names}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if opts.grouped_corr:
+        print(json.dumps({"kernels": [grouped_corr_phase(smi)]}))
+        return 0
     gen = torch.Generator().manual_seed(0)
     k = 9
 
@@ -4823,6 +4916,7 @@ def main() -> int:
           f"TFLOP/s for the bf16 head-conv tails, TF32 tensor-core peak "
           f"{TF32_FLOPS_PER_S / 1e12} TFLOP/s at a third for the 3xTF32 MRF tail and in full for "
           f"its single pass (H100 SXM data sheet)")
+    kernels.append(grouped_corr_phase(smi))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

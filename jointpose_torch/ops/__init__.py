@@ -6,7 +6,7 @@ def launch_counters() -> list[tuple[object, str]]:
     """Every kernel wrapper's launch counter, as (holder, attribute): what a
     captured CUDA graph adds to on each replay (``train.DispatchGraphs``),
     so that a counter keeps meaning launches that reached the card."""
-    from jointpose_torch.ops import fft_conv, mrf_epilogue, mrf_fft_fused, warp
+    from jointpose_torch.ops import fft_conv, mrf_corr, mrf_epilogue, mrf_fft_fused, warp
 
     return [
         (mrf_epilogue.mrf_epilogue, "launches"), (mrf_epilogue.mrf_epilogue_bwd, "launches"),
@@ -16,4 +16,5 @@ def launch_counters() -> list[tuple[object, str]]:
         (warp.shear_warp_rowmajor, "launches"), (warp.shear_warp_rowmajor_two_pass, "launches"),
         (fft_conv.tail_kdft_resident, "launches"), (fft_conv.tail_kdft, "launches"),
         (fft_conv.tail_kf, "launches"), (fft_conv.tail_kdft_regstaged, "launches"),
+        (mrf_corr.mrf_grouped_corr, "launches"),
     ]

@@ -10,8 +10,10 @@ extent k is padded (k-1)//2 before and k//2 after.
 
 The message pass asks for fp32 responses.  Where p is in a narrower type
 (bf16 on the card), the conv goes through ``grouped_conv_f32``, an
-autograd function with the reference's hand-written backward: no
-grouped dgrad or wgrad, only dense convolutions.
+autograd function whose forward on the card is the hand-written
+correlation of ``ops/mrf_corr.py`` (on the CPU, its plain version: the
+fp32 grouped conv) and whose backward is the reference's hand-written
+one: no grouped dgrad or wgrad, only dense convolutions.
 
 - dL/dk is the v == v' diagonal of the weight gradient of the
   zero-embedded dense conv (``dense_embed``);
@@ -29,7 +31,8 @@ before, (k-1)//2 after).
 changes nothing here: the reference's None and ``Precision.DEFAULT``
 both leave its direct conv at the backend's default
 (``jointpose/ops/mrf_xla.py:196-197``), and the port's conv runs at
-PyTorch's (cuDNN's TF32 flag) for either value.
+PyTorch's (cuDNN's TF32 flag) for either value; the card's correlation of
+narrow operands has exact products and fp32 sums whatever the flag.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from jointpose_torch.ops import mrf_corr
 from jointpose_torch.ops.mrf_fft import single_pass
 
 # Width positions packed into channels by ``dp_s2d``, and the most groups
@@ -178,8 +182,9 @@ class _GroupedConvF32(torch.autograd.Function):
         ctx.groups = groups
         ctx.save_for_backward(p, kern)
         # p and the kernels in a type fp32 holds exactly: the fp32 conv is
-        # the narrow-operand conv with an fp32 result.
-        return grouped_conv(p, kern, groups, torch.float32)
+        # the narrow-operand conv with an fp32 result, on the card the
+        # hand-written correlation of ``ops/mrf_corr.py``.
+        return mrf_corr.mrf_grouped_corr(p.contiguous(), kern.contiguous(), groups)
 
     @staticmethod
     def backward(ctx, g):

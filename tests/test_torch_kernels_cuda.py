@@ -14,6 +14,7 @@ from jointpose_torch.configs import AugmentConfig, MRFConfig
 from jointpose_torch.data.augment import inverse_affine, random_augment_params
 from jointpose_torch.models.mrf import SpatialModel
 from jointpose_torch.ops import fft_conv as tfc
+from jointpose_torch.ops import mrf_corr as tmc
 from jointpose_torch.ops import mrf_epilogue as tme
 from jointpose_torch.ops import mrf_fft_fused as tmff
 from jointpose_torch.ops import warp as tw
@@ -34,6 +35,10 @@ WARP_ATOL = 2e-5
 # summation order flips roundings by one bf16 step (2^-8 of the largest
 # value); two steps are allowed.
 TAIL_RTOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+# The grouped correlation against the fp32 conv of the same bf16 (fp16)
+# values: both products are exact, the fp32 sums of wh*ww of them run in
+# another order, some units in the last place of the largest response.
+CORR_RTOL = 1e-5
 K = 9
 
 
@@ -722,3 +727,95 @@ def test_head_conv_tails_at_shard_local_shapes(cuda, entry, geom):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert _rel(got, tfc.tail_kdft_plain(xr, xi, ar, ai, t)) <= TAIL_RTOL[torch.bfloat16]
+
+
+# (B, H, W, Kv, Ka, wh, ww): flagship's coarse grid and window at batches 1,
+# 8 and 32; a tensor-parallel source slice (Kv 5); a stride-1 11x15 window on
+# the 60x90 heatmap; an even window; a ragged H and W under one tile; a window
+# taller than the image; joint's 45x67 window at stride 2, staged in several
+# kernel-row and input-chunk stages; targets in two chunks of a warp (Ka 12).
+CORR_SHAPES = [(1, 30, 45, 9, K, 17, 25), (8, 30, 45, 9, K, 17, 25), (32, 30, 45, 9, K, 17, 25),
+               (4, 30, 45, 5, K, 17, 25), (2, 60, 90, 9, K, 11, 15), (3, 30, 45, 9, K, 6, 8),
+               (2, 13, 21, 9, K, 5, 7), (2, 7, 5, 9, K, 17, 25), (2, 23, 34, 9, K, 45, 67),
+               (2, 12, 20, 2, 12, 11, 15)]
+
+
+def _corr_operands(shape, dtype, device, seed=0, signed=False):
+    b, h, w, kv, ka, wh, ww = shape
+    g = torch.Generator().manual_seed(seed)
+    if signed:
+        p, kern = torch.randn(b, h, w, kv, generator=g), torch.randn(wh, ww, 1, kv * ka, generator=g)
+    else:
+        p = torch.rand(b, h, w, kv, generator=g)
+        kern = torch.nn.functional.softplus(torch.randn(wh, ww, 1, kv * ka, generator=g) - 3)
+    return p.to(device, dtype), kern.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", CORR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_grouped_corr_kernel_matches_plain(cuda, shape, dtype):
+    p, kern = _corr_operands(shape, dtype, cuda, seed=sum(shape))
+    before = tmc.mrf_grouped_corr.launches
+    got = tmc.mrf_grouped_corr(p, kern, shape[3])
+    torch.cuda.synchronize()
+    assert tmc.mrf_grouped_corr.launches == before + 1
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    want = tmc.mrf_grouped_corr_plain(p, kern, shape[3])
+    assert got.shape == want.shape
+    assert _rel(got, want) <= CORR_RTOL
+    assert torch.equal(tmc.mrf_grouped_corr(p, kern, shape[3]), got)  # bit for bit
+
+
+def test_grouped_corr_kernel_on_signed_values(cuda):
+    p, kern = _corr_operands((4, 30, 45, K, K, 17, 25), torch.bfloat16, cuda, seed=3, signed=True)
+    got = tmc.mrf_grouped_corr(p, kern, K)
+    assert _rel(got, tmc.mrf_grouped_corr_plain(p, kern, K)) <= CORR_RTOL
+
+
+def test_grouped_corr_kernel_in_a_graph_and_batch_alone(cuda):
+    """Captured and replayed it gives the eager call's bits, and an image's
+    responses do not depend on the batch around it (the tiling does)."""
+    p, kern = _corr_operands((128, 30, 45, K, K, 17, 25), torch.bfloat16, cuda, seed=8)
+    eager = tmc.mrf_grouped_corr(p, kern, K)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmc.mrf_grouped_corr(p, kern, K)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tmc.mrf_grouped_corr.launches
+    with torch.cuda.graph(graph):
+        captured = tmc.mrf_grouped_corr(p, kern, K)
+    assert tmc.mrf_grouped_corr.launches == before + 1
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    assert torch.equal(tmc.mrf_grouped_corr(p[5:6].contiguous(), kern, K), eager[5:6])
+
+
+def test_grouped_conv_f32_forward_on_the_card_is_the_kernel(cuda):
+    from jointpose_torch.ops.mrf_xla import grouped_conv_f32
+
+    p, kern = _corr_operands((2, 30, 45, K, K, 17, 25), torch.bfloat16, cuda, seed=9)
+    p.requires_grad_(True)
+    before = tmc.mrf_grouped_corr.launches
+    resp = grouped_conv_f32(p, kern, K)
+    assert tmc.mrf_grouped_corr.launches == before + 1
+    assert torch.equal(resp.detach(), tmc.mrf_grouped_corr(p.detach(), kern, K))
+    (dp,) = torch.autograd.grad(resp.sum(), p)
+    assert dp.dtype == torch.bfloat16 and bool(torch.isfinite(dp).all())
+
+
+def test_grouped_corr_wrapper_raises_on_what_it_cannot_take(cuda):
+    p, kern = _corr_operands((1, 12, 16, K, K, 5, 7), torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        tmc.mrf_grouped_corr(p.float(), kern.float(), K)
+    with pytest.raises(TypeError):
+        tmc.mrf_grouped_corr(p, kern.half(), K)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmc.mrf_grouped_corr(p.transpose(1, 2), kern, K)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmc.mrf_grouped_corr(p, kern.transpose(0, 1), K)
+    with pytest.raises(ValueError):
+        tmc.mrf_grouped_corr(p, kern, 3)
