@@ -26,7 +26,14 @@ spans are flat: none encloses another on a thread.
   ``dispatch.rates`` (the K learning rates), ``dispatch.replay`` (the
   graph's launch) and ``dispatch.outputs`` (counters, gradients and
   metrics after it).  No span encloses a capture, which would enclose
-  the model's spans.
+  the model's spans;
+- the fused Fourier MRF pass's backward (``ops/mrf_fft_fused._FusedPass``):
+  ``mrf.vjp`` (the plain Fourier pass recomputed under autograd and its
+  VJP), on the thread that runs the backward (the autograd engine's, on
+  the card), once a step.  Its counter ``_FusedPass.recomputes`` is one
+  of ``ops.launch_counters()``, so a replayed K-step graph adds K to it.
+  A replayed graph opens no host span: there the recompute shows only as
+  its kernels.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from torch import nn
 from jointpose_torch.configs import DetectorConfig
 from jointpose_torch.ops.fft_conv import FFTConv
 from jointpose_torch.ops.mrf_xla import same_pad
+from jointpose_torch.ops.wide_conv import takes_wide_route, wide_conv
 from jointpose_torch.parallel.mesh import param_shardings
 from jointpose_torch.parallel.mrf_tp import enter_model_region, leave_model_region, model_slice
 from jointpose_torch.parallel.spatial import ProcessRows, halo_rows
@@ -52,7 +53,8 @@ class Conv(nn.Module):
 
     The parameters are left uninitialized: a model gets its weights from
     ``load_state_dict`` (``predict.init_state_dict`` or
-    ``convert.params_from_flax``).
+    ``convert.params_from_flax``).  A stride-1 kernel of 7 or wider takes
+    its weight gradient on the card from ``ops/wide_conv.py``.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
@@ -76,11 +78,14 @@ class Conv(nn.Module):
         wl, wr = same_pad(w, self.kernel, self.stride)
         w_ = weight.to(x.dtype)
         b_ = None if bias is None else bias.to(x.dtype)
-        if ht == hb and wl == wr:
-            return F.conv2d(x, w_, b_, stride=self.stride, padding=(ht, wl))
-        # Asymmetric SAME padding, e.g. (1, 2) for a stride-2 5×5 conv on
-        # an even input: F.conv2d's symmetric padding would shift the grid.
-        return F.conv2d(F.pad(x, (wl, wr, ht, hb)), w_, b_, stride=self.stride)
+        padding = (ht, wl)
+        if ht != hb or wl != wr:
+            # Asymmetric SAME padding, e.g. (1, 2) for a stride-2 5×5 conv on
+            # an even input: F.conv2d's symmetric padding would shift the grid.
+            x, padding = F.pad(x, (wl, wr, ht, hb)), (0, 0)
+        if takes_wide_route(x, w_, self.stride):
+            return wide_conv(x, w_, b_, padding)
+        return F.conv2d(x, w_, b_, stride=self.stride, padding=padding)
 
 
 def _pool2x2(x: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,9 @@ do, in a scratch of output-sized planes).  ``fused_tail_emulated``
 repeats the kernels' arithmetic (rows first, 3xTF32 or one TF32 pass) in
 plain PyTorch, to size its error on the CPU.
 ``mrf_message_pass_fft_fused`` wraps it in a ``torch.autograd.Function``
-whose backward recomputes the plain Fourier pass at the same precision.
+whose backward recomputes the plain Fourier pass at the same precision,
+inside the span ``jointpose/mrf.vjp``, and counts each recompute in
+``_FusedPass.recomputes``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import ctypes
 import torch
 
 from jointpose_torch import _build, perf
+from jointpose_torch.metrics import span
 from jointpose_torch.ops.mrf_fft import (
     TAIL_COLS, TAIL_ROWS, forward_ffts, matmul_precision, mrf_message_pass_fft, single_pass,
     tf32_round,
@@ -344,17 +347,21 @@ class _FusedPass(torch.autograd.Function):
         out = fused_tail(pf, kf, tables, biases.float().contiguous(), eps, precision)
         return out.permute(0, 2, 3, 1)
 
+    recomputes = 0  # backward passes run, each one recompute and its VJP
+
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-        with torch.enable_grad():
-            out = mrf_message_pass_fft(*inputs, eps=ctx.eps, precision=ctx.precision)
-        wanted = [t for t in inputs if t.requires_grad]
-        # The recompute's own backward matmuls run at the pass's precision too.
-        with matmul_precision(ctx.precision, g.device):
-            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+        with span("mrf.vjp"):
+            _FusedPass.recomputes += 1
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+            with torch.enable_grad():
+                out = mrf_message_pass_fft(*inputs, eps=ctx.eps, precision=ctx.precision)
+            wanted = [t for t in inputs if t.requires_grad]
+            # The recompute's own backward matmuls run at the pass's precision too.
+            with matmul_precision(ctx.precision, g.device):
+                grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+            return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
 
 
 def mrf_message_pass_fft_fused(

@@ -10,7 +10,10 @@ gradients) against the JAX reference, in fp32 on the CPU.
   both optimizers, with and without the detector freeze, with
   ``mrf_lr_mult=10``: this catches a per-parameter step count or a
   skipped zero-gradient update, which optax never does;
-- one augmented step per warp, both sides fed the same AugmentParams.
+- one augmented step per warp, both sides fed the same AugmentParams;
+- one augmented step of a joint-like ``tiny`` (max pools, the stride-1
+  MRF over a (23, 31) window through the fused Fourier pass at 'high',
+  the shear warp, crops of (0.8, 1.0)): the paper model's training path.
 """
 
 import dataclasses
@@ -159,8 +162,17 @@ def _batch(cfg, seed=0):
              "visible": torch.from_numpy(visible)})
 
 
-def _twin_states(jcfg, tcfg):
+def _twin_states(jcfg, tcfg, mrf_noise=None):
     jstate = jtrain.create_state(jcfg, JaxPoseModel(jcfg), jax.random.PRNGKey(0))
+    if mrf_noise is not None:  # the MRF's kernels and biases moved off their init
+        rs = np.random.RandomState(mrf_noise)
+        scale = {"raw_kernels": 1.0, "raw_bias": 0.5}
+
+        def moved(path, x):
+            s = scale.get(getattr(path[-1], "key", None))
+            return x if s is None else x + s * rs.standard_normal(x.shape).astype(np.float32)
+
+        jstate = jstate.replace(params=jax.tree_util.tree_map_with_path(moved, jstate.params))
     model = PoseModel(tcfg)
     model.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params)))
     tstate = ttrain.TrainState(model, ttrain.make_optimizer(tcfg, model), 0,
@@ -219,6 +231,53 @@ def test_augmented_joint_step_matches_reference(warp_impl, monkeypatch):
     jstate, jmet = jax.jit(jtrain._make_step_body(jcfg, "joint"))(jstate, jbatch)
     tstate, tmet = ttrain.make_train_step(tcfg, "joint")(tstate, tbatch, aug=tdraw)
     _assert_step_matches(jstate, jmet, tstate, tmet, warp_impl)
+
+
+def test_joint_like_step_matches_reference(monkeypatch):
+    def cfg(get):
+        c = _tiny(get, optimizer="adamw")
+        return c.replace(mrf=dataclasses.replace(c.mrf, window=(23, 31), use_pallas=True),
+                         augment=dataclasses.replace(c.augment, enabled=True, warp_impl="shear",
+                                                     crop_frac_range=(0.8, 1.0)))
+
+    jcfg, tcfg = cfg(jax_get_config), cfg(get_config)
+    assert tcfg.detector.pool_mode == "max" and tcfg.mrf.stride == 1
+    assert tcfg.mrf.precision == jcfg.mrf.precision == "high"
+    draw = ja.random_augment_params(jax.random.PRNGKey(3), jcfg.train.batch_size, jcfg.augment,
+                                    jcfg.data.image_hw)
+    monkeypatch.setattr(jtrain, "random_augment_params", lambda *a: draw)
+    tdraw = ta.AugmentParams(*(torch.from_numpy(np.array(x)) for x in draw))
+    jbatch, tbatch = _batch(jcfg, seed=1)
+    # At the init the MRF biases' gradients are rounding noise, which
+    # Adam's first step scales up to a whole update: start off it.
+    jstate, tstate = _twin_states(jcfg, tcfg, mrf_noise=2)
+    recomputes = tmff._FusedPass.recomputes
+    jstate, jmet = jax.jit(jtrain._make_step_body(jcfg, "joint"))(jstate, jbatch)
+    tstate, tmet = ttrain.make_train_step(tcfg, "joint")(tstate, tbatch, aug=tdraw)
+    assert tmff._FusedPass.recomputes - recomputes == 1
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    moments = params_from_flax(jax.tree_util.tree_map(np.asarray, jstate.opt_state[0][0].mu))
+    got = dict(tstate.model.named_parameters())
+    assert set(got) == set(want) == set(moments)
+    group = tstate.optimizer.param_groups[0]
+    # Adam's first update is lr·g/(|g| + eps): within a hundred eps of zero
+    # it scales the gradients' rounding up to a good part of an update, so
+    # a weight is held where its gradient (first moment / (1 - β1)) is above.
+    floor = (1 - group["betas"][0]) * 100 * group["eps"]
+    held_n = 0
+    for name, w in want.items():
+        m_ref, m_got = moments[name], tstate.optimizer.state[got[name]]["exp_avg"]
+        assert _rel(m_got, m_ref) <= GRAD_RTOL, name
+        held = m_ref.abs() >= floor
+        held_n += int(held.sum())
+        err = (got[name].detach() - w).abs()[held].max().item() / max(1.0, w.abs().max().item())
+        assert err <= PARAM_TOL, (name, err)
+    assert held_n > 0.9 * sum(w.numel() for w in want.values())
+    assert set(tmet) == set(jmet)
+    for key in ("loss", "detector_loss", "mrf_loss"):
+        assert float(tmet[key]) == pytest.approx(float(jmet[key]), rel=LOSS_RTOL), key
+    assert float(tmet["grad_norm"]) == pytest.approx(float(jmet["grad_norm"]), rel=NORM_RTOL)
+    assert tstate.step == int(jstate.step)
 
 
 def test_every_parameter_shares_one_step_count():
