@@ -92,7 +92,9 @@ the package is missing.  Phases, each fatal on failure:
    8])`` and its HTTP handler, 64 npy requests of 1-8 uint8 images from 8
    client threads and one JSON request, through the single-pass tail;
    one batch at 'high' against 'default'; ``flagship`` at 'default'
-   (bit-equal to 'high': its direct conv ignores the flag); then ``python
+   (bit-equal to 'high': its direct conv ignores the flag), and as its
+   preset stands ('xla'), with the predictor's call at batch 128 eagerly
+   and by its CUDA graph in turns; then ``python
    -m jointpose_torch.serve`` as a process: /healthz, /predict, SIGTERM;
    then the int8 deployment of ``joint`` at full width: calibrate on 64
    images of the synthetic source generated on the card, quantize, write
@@ -2363,7 +2365,10 @@ def serve_preset_checks(tmp: str, batches: list, counters: dict, smi: str) -> di
     logits and MRF log-heatmaps against the port's CPU path; the
     predictor's device time by CUDA-graph replays at SERVE_TIMED_BATCHES
     beside ``perf.step_cost``'s count and its bound, with the MRF's grouped
-    conv forward's share.  Returns the numbers it printed."""
+    conv forward's share; the predictor's whole call at batch 128, host
+    copy and ``coords.cpu()`` included, eagerly and by its CUDA graph in
+    turns, with the graphs' captures and replays.  Returns the numbers it
+    printed."""
     from jointpose_torch import get_config
     from jointpose_torch.checkpoint import reconcile_config
     from jointpose_torch.configs import with_mrf_precision
@@ -2472,10 +2477,47 @@ def serve_preset_checks(tmp: str, batches: list, counters: dict, smi: str) -> di
               f"{bound:.1f} images/s ({t['images_per_s'] / bound:.1%} of it); the MRF's grouped "
               f"conv forward {conv_ms:.4f} ms ({t['mrf_conv_share']:.1%} of a call); on {smi}")
         check(t["images_per_s"] <= bound, f"batch {b}: a measured rate above its bound")
+
+    # The predictor's own call at batch 128 as a batch scorer makes it (a
+    # pinned uint8 batch in, the coordinates back on the host), eagerly
+    # (``graphs.forward``) and by its CUDA graph, in turns.  time_ms above
+    # warmed and captured this key (the input's device is not in the key);
+    # its own capture and step_cost's count ran the call eagerly.
+    graphs = predict.graphs
+    check(graphs.captures == len(SERVE_TIMED_BATCHES) and graphs.replays > 0,
+          f"serve: the predictor captured {graphs.captures} graphs for "
+          f"{len(SERVE_TIMED_BATCHES)} keys, replayed {graphs.replays}")
+    host = torch.randint(0, 256, (128, h, w, 3), generator=gen, dtype=torch.uint8).pin_memory()
+
+    def eager():
+        with torch.inference_mode():
+            return graphs.forward(host)[0].cpu()
+
+    def by_graph():
+        return predict(host)[0].cpu()
+
+    check(torch.equal(eager(), by_graph()), "serve: the replayed call differs from the eager one")
+    replays = graphs.replays
+    call_ms = {"eager": [], "graph": []}
+    for order in ((eager, by_graph), (by_graph, eager)) * 3:
+        for fn in order:
+            start = time.perf_counter()
+            for _ in range(10):
+                fn()
+            call_ms["eager" if fn is eager else "graph"].append((time.perf_counter() - start) * 100)
+    check(graphs.replays == replays + 60 and graphs.captures == len(SERVE_TIMED_BATCHES),
+          f"serve: 60 calls by graph replayed {graphs.replays - replays} times")
+    call = {k: float(np.median(v)) for k, v in call_ms.items()}
+    print(f"serve flagship as the preset stands, the predictor's call at batch 128 from a pinned "
+          f"uint8 batch to coords.cpu(), host clock, median of 6 blocks of 10 in turns: eagerly "
+          f"{call['eager']:.4f} ms ({128e3 / call['eager']:.1f} images/s), by its CUDA graph "
+          f"{call['graph']:.4f} ms ({128e3 / call['graph']:.1f} images/s), "
+          f"{call['eager'] / call['graph']:.3f}x; graphs captured {graphs.captures}, replayed "
+          f"{graphs.replays}; on {smi}")
     secs = time.perf_counter() - t0
     print(f"serve flagship as the preset stands: the block took {secs:.1f} s")
     return {"launches": launches, "metrics": m, "errors": {k: e[0] for k, e in errs.items()},
-            "coords_equal": equal, "timed": timed, "seconds": secs}
+            "coords_equal": equal, "timed": timed, "call_ms": call, "seconds": secs}
 
 
 def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:

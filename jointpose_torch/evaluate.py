@@ -48,7 +48,10 @@ def flip_images(images: torch.Tensor) -> torch.Tensor:
 def unflip_heatmaps(heatmaps: torch.Tensor) -> torch.Tensor:
     """Mirror (B, H, W, K) heatmaps computed on flipped images back and
     swap the left and right joint channels."""
-    return heatmaps.flip(2)[..., list(skeleton.FLIP_PERM)]
+    # Channels stacked, not indexed by a list: a list index crosses to the
+    # device as a pageable copy, which a CUDA graph cannot capture.
+    flipped = heatmaps.flip(2)
+    return torch.stack([flipped[..., j] for j in skeleton.FLIP_PERM], dim=-1)
 
 
 def torso_diameter(joints_xy: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,15 @@ on the same clock as the kernels it launches; with no profiler
 collecting, a shared null context, at the cost of one flag's check.  The
 spans are flat: none encloses another on a thread.
 
-- the predictor (``predict.predictor_for``): ``input`` (the batch's copy
-  to the device), ``detector`` and ``mrf`` (``PoseModel.forward``), and
-  ``decode`` (heatmaps and coordinates);
+- the predictor (``predict.predictor_for``), eagerly: ``input`` (the
+  batch's copy to the device), ``detector`` and ``mrf``
+  (``PoseModel.forward``), and ``decode`` (heatmaps and coordinates); by
+  its CUDA graph (``predict.PredictorGraphs``): ``input`` (the copy into
+  the graph's static buffer) and ``replay`` (the graph's launch and the
+  clones of its outputs).  A key's capture opens the eager call's spans
+  once.  Its counters ``PredictorGraphs.captures`` and ``.replays``
+  (``predict.graphs`` on the returned function) count the calls that
+  captured a graph and those that replayed one captured before;
 - the K-step dispatch (``train.DispatchGraphs.run``,
   ``_CapturedDispatch.replay``, ``_eager_steps``): ``dispatch.prepare``
   (the graphs' refresh and the static inputs' copies),

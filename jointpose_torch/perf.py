@@ -167,6 +167,11 @@ def count_cost():
         cost.flops += flops.get_total_flops()
 
 
+def counting() -> bool:
+    """Whether a ``count_cost`` is open, on any thread."""
+    return bool(_active)
+
+
 def step_cost(fn: Callable, *args, **kwargs) -> dict:
     """{'flops', 'bytes'} of one real call ``fn(*args, **kwargs)`` (see the
     module docstring for what is counted).  The call runs: a caller that

@@ -27,6 +27,7 @@ the batch split over 'data', the trunk's image rows over 'model'
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -37,6 +38,7 @@ from jointpose_torch.models.detector import spatial_features
 from jointpose_torch.models.pose import PoseModel, make_logits_tail_fn, unit_images
 from jointpose_torch.ops.heatmaps import decode_probs, model_probs
 from jointpose_torch.parallel.spatial import DeviceRows
+from jointpose_torch.perf import counting
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -122,13 +124,18 @@ class DeviceMeshModel:
 
 def predictor_for(config: Config, model: torch.nn.Module, device: torch.device):
     """``build_predictor``'s fn around a model already on ``device`` (a
-    ``PoseModel``, or the int8 model of ``ops/quant.py``)."""
+    ``PoseModel``, or the int8 model of ``ops/quant.py``).
+
+    Where ``graph_predictor`` holds, a call is a replay of a CUDA graph of
+    the whole eager call (``PredictorGraphs``); the returned tensors are
+    the caller's either way.  The function's ``graphs`` attribute is that
+    ``PredictorGraphs``: its ``captures`` and ``replays`` count how often
+    the graphs engaged (both 0 where the call stays eager)."""
     from jointpose_torch.evaluate import flip_images, unflip_heatmaps
 
     stride = config.data.heatmap_stride
 
-    @torch.inference_mode()
-    def predict(images: torch.Tensor):
+    def forward(images: torch.Tensor):
         with span("input"):
             images = images.to(device)
         out = model(images)
@@ -140,7 +147,145 @@ def predictor_for(config: Config, model: torch.nn.Module, device: torch.device):
             coords = decode_probs(probs, stride, refine=config.decode_refine)
         return coords, probs
 
+    graphs = PredictorGraphs(forward, model, device)
+
+    @torch.inference_mode()
+    def predict(images: torch.Tensor):
+        return graphs(images)
+
+    predict.graphs = graphs
     return predict
+
+
+def graph_predictor(device: torch.device, model) -> bool:
+    """Whether ``predictor_for``'s calls may replay CUDA graphs, by rule:
+    on CUDA, for a ``PoseModel`` of one device (no mesh: its collectives
+    run on the host).  ``DeviceMeshModel``'s forward crosses devices; the
+    int8 model of ``ops/quant.py`` stays eager too.  A call also stays
+    eager while a capture is underway on the caller's stream (the call is
+    then part of the caller's graph) and while ``perf.count_cost`` counts
+    (it counts the ops dispatched, which a replay hides)."""
+    return device.type == "cuda" and isinstance(model, PoseModel) and model.mesh is None
+
+
+def _graph_anchors(model: torch.nn.Module) -> list[int]:
+    """Where the tensors live that a captured call reads in place: the
+    model's parameters and buffers."""
+    return [t.data_ptr() for t in (*model.parameters(), *model.buffers())]
+
+
+class PredictorGraphs:
+    """The graph form of the predictor's call: one ``torch.cuda.CUDAGraph``
+    per input key (shape, dtype), each reading a static input buffer; all
+    of a predictor's graphs share one memory pool and one capture stream.
+
+    - A key's first call on a thread runs eagerly on the capture stream:
+      it builds the kernels, and creates the thread's cuDNN and cuBLAS
+      handles and their workspaces for that stream (a capture cannot
+      allocate them: a service warms its keys on one thread and captures
+      on its dispatcher's).  The key's next call captures (``captures``)
+      and replays the graph; later calls, on any thread, replay it
+      (``replays``).  A capture that fails raises: nothing falls back to
+      eager in silence.
+    - A replay copies the caller's images into the key's static buffer
+      (span ``input``; synchronous from host memory, as ``images.to``),
+      then launches the graph and clones its coordinates and heatmaps on
+      the same stream (span ``replay``), so that a caller keeps each
+      call's answers while it makes the next.
+    - A capture puts the kernels' launch counters (``ops.launch_counters``)
+      back as it found them; each replay adds the launches the capture
+      recorded, so a counter keeps meaning launches that reached the card.
+    - The graphs read the model's parameters in place: when one of them,
+      or a buffer, moves to other storage, the graphs are dropped and each
+      key starts again from an eager call.
+    - Where ``graph_predictor`` does not hold, or a capture is underway on
+      the current stream, or a cost count is running, the call is the
+      eager ``forward`` as it stands.
+    """
+
+    def __init__(self, forward, model: torch.nn.Module, device: torch.device):
+        self.forward = forward  # images -> (coords, probs), eagerly
+        self.model = model
+        self.device = device
+        self.enabled = graph_predictor(device, model)
+        self.graphs: dict = {}
+        self.warm: set = set()
+        self.anchors: list[int] | None = None
+        self.stream = None
+        self.pool = None
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, images: torch.Tensor):
+        if not self.enabled or torch.cuda.is_current_stream_capturing() or counting():
+            return self.forward(images)
+        key = (tuple(images.shape), images.dtype)
+        warm = (key, threading.get_ident())
+        with torch.cuda.device(self.device):
+            anchors = _graph_anchors(self.model)
+            if anchors != self.anchors:
+                self.release()
+                self.anchors = anchors
+            if self.stream is None:
+                self.stream, self.pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
+            graph = self.graphs.get(key)
+            if graph is None and warm not in self.warm:
+                current = torch.cuda.current_stream()
+                self.stream.wait_stream(current)
+                with torch.cuda.stream(self.stream):
+                    out = self.forward(images)
+                current.wait_stream(self.stream)
+                self.warm.add(warm)
+                return out
+            if graph is None:
+                graph = self.graphs[key] = _CapturedCall(self.forward, images, self.device,
+                                                         self.stream, self.pool)
+                self.captures += 1
+            else:
+                self.replays += 1
+            return graph.replay(images)
+
+    def release(self) -> None:
+        """Drop the graphs, their memory pool and the warm keys of every
+        thread."""
+        self.graphs.clear()
+        self.warm.clear()
+        self.anchors = None
+        self.pool = None
+        self.stream = None
+
+
+class _CapturedCall:
+    """One captured predictor call, its static input and its outputs."""
+
+    def __init__(self, forward, images, device, stream, pool):
+        from jointpose_torch.ops import launch_counters
+
+        self.images = torch.empty(images.shape, dtype=images.dtype, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.counters = launch_counters()
+        before = [getattr(holder, name) for holder, name in self.counters]
+        try:
+            # 'thread_local': a service's other threads wait on the card's
+            # events while its dispatcher captures; the default 'global'
+            # mode refuses their calls and invalidates the capture.
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.coords, self.probs = forward(self.images)
+            self.launches = [getattr(holder, name) - n
+                             for (holder, name), n in zip(self.counters, before)]
+        finally:
+            for (holder, name), n in zip(self.counters, before):
+                setattr(holder, name, n)
+
+    def replay(self, images: torch.Tensor):
+        with span("input"):
+            self.images.copy_(images)
+        with span("replay"):
+            self.graph.replay()
+            for (holder, name), n in zip(self.counters, self.launches):
+                setattr(holder, name, getattr(holder, name) + n)
+            return self.coords.clone(), self.probs.clone()
 
 
 def init_state_dict(config: Config, generator: torch.Generator) -> dict[str, torch.Tensor]:

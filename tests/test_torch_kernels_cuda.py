@@ -819,3 +819,167 @@ def test_grouped_corr_wrapper_raises_on_what_it_cannot_take(cuda):
         tmc.mrf_grouped_corr(p, kern.transpose(0, 1), K)
     with pytest.raises(ValueError):
         tmc.mrf_grouped_corr(p, kern, 3)
+
+
+# The predictor's paths held by graph against eager: flagship's own ('auto'
+# -> 'xla' at stride 2, row 9 once a pass), the same with the flip TTA, and
+# joint's served paths (the fused Fourier tail at 'default', row 3', and
+# with the Fourier head conv, rows 6-8).
+PREDICTOR_PATHS = {
+    "xla": ({"impl": "auto", "stride": 2}, "direct", False),
+    "xla_flip_tta": ({"impl": "auto", "stride": 2}, "direct", True),
+    "fft_default": ({"impl": "fft", "use_pallas": True, "precision": "default"}, "direct", False),
+    "fft_head": ({"impl": "fft", "use_pallas": True, "precision": "default"}, "fft", False),
+}
+
+
+def _graph_predictor(device, path="xla"):
+    """``tiny`` in bf16 with the refined decode on one of PREDICTOR_PATHS,
+    its MRF kernels off their uniform init; returns (config, weights,
+    ``build_predictor``'s function)."""
+    import dataclasses
+
+    from jointpose_torch import get_config
+    from jointpose_torch.predict import build_predictor, init_state_dict
+
+    mrf, head, tta = PREDICTOR_PATHS[path]
+    cfg = get_config("tiny")
+    cfg = cfg.replace(compute_dtype="bfloat16", decode_refine=True, eval_flip_tta=tta,
+                      detector=dataclasses.replace(cfg.detector, head_conv_impl=head),
+                      mrf=dataclasses.replace(cfg.mrf, **mrf))
+    g = torch.Generator().manual_seed(4)
+    state = init_state_dict(cfg, g)
+    state["spatial_model.raw_kernels"] += 0.5 * torch.randn(
+        state["spatial_model.raw_kernels"].shape, generator=g)
+    return cfg, state, build_predictor(cfg, state, device)
+
+
+def _pose_images(cfg, batch, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 256, (batch, *cfg.data.image_hw, 3), generator=g, dtype=torch.uint8)
+    return x if dtype == torch.uint8 else x.float() / 255.0
+
+
+def _eager_pose_call(cfg, state, images):
+    """An eager ``PoseModel`` call on the card and the decode, as the
+    predictor's eager form runs them."""
+    from jointpose_torch.evaluate import flip_images, unflip_heatmaps
+    from jointpose_torch.models.pose import PoseModel
+    from jointpose_torch.ops.heatmaps import decode_probs, model_probs
+
+    model = PoseModel(cfg)
+    model.load_state_dict(state)
+    model = model.cuda().eval()
+    with torch.inference_mode():
+        images = images.cuda()
+        probs = model_probs(model(images))
+        if cfg.eval_flip_tta:
+            probs = 0.5 * (probs + unflip_heatmaps(model_probs(model(flip_images(images)))))
+        return decode_probs(probs, cfg.data.heatmap_stride, refine=True), probs
+
+
+@pytest.mark.parametrize("path", sorted(PREDICTOR_PATHS))
+def test_the_predictor_replays_a_graph_per_key_bit_equal_to_eager(cuda, path):
+    """Two batch shapes, each with uint8 and float32 images, from the host
+    and from the card: one capture a key, a replay for every call after a
+    key's first two, every kernel's launches counted as eagerly (row 9's
+    once a forward on flagship's path), and each call's answers bit-equal
+    to an eager call.  Every call sees other images, so answers read after
+    all the calls show that a later call overwrote none of an earlier
+    one's."""
+    from jointpose_torch.ops import launch_counters
+
+    def launches():
+        return [getattr(holder, name) for holder, name in launch_counters()]
+
+    cfg, state, predict = _graph_predictor(cuda, path)
+    keys = [(b, dtype) for b in (2, 5) for dtype in (torch.uint8, torch.float32)]
+    calls = 4
+    kept = []
+    for i, (b, dtype) in enumerate(keys):
+        per_call = None
+        for n in range(calls):
+            images = _pose_images(cfg, b, dtype, seed=10 * i + n)
+            before, corr = launches(), tmc.mrf_grouped_corr.launches
+            coords, probs = predict(images if n % 2 else images.cuda())
+            grew = [a - c for a, c in zip(launches(), before)]
+            assert grew == (per_call or grew) and any(grew)
+            per_call = grew
+            if path.startswith("xla"):
+                assert tmc.mrf_grouped_corr.launches == corr + (2 if cfg.eval_flip_tta else 1)
+            kept.append((images, coords, probs))
+    assert predict.graphs.captures == len(keys)
+    assert predict.graphs.replays == len(keys) * (calls - 2)
+    for images, coords, probs in kept:
+        want_coords, want_probs = _eager_pose_call(cfg, state, images)
+        assert torch.equal(coords, want_coords) and torch.equal(probs, want_probs)
+
+
+def test_the_predictor_stays_eager_inside_a_capture_and_a_cost_count(cuda):
+    from jointpose_torch.perf import step_cost
+
+    cfg, state, predict = _graph_predictor(cuda)
+    images = _pose_images(cfg, 2, torch.uint8, seed=1).cuda()
+    want = _eager_pose_call(cfg, state, images)
+    predict(images)  # the key's eager first call
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        coords, probs = predict(images)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(coords, want[0]) and torch.equal(probs, want[1])
+    cost = step_cost(predict, images)
+    assert cost["flops"] > 0
+    assert predict.graphs.captures == predict.graphs.replays == 0
+    coords, probs = predict(images)  # the key's second call of its own captures
+    assert predict.graphs.captures == 1
+    assert torch.equal(coords, want[0]) and torch.equal(probs, want[1])
+
+
+def test_the_predictor_recaptures_when_the_weights_move(cuda):
+    """A parameter on new storage drops the graphs: the key starts again
+    from an eager call, and the answers follow the new weights."""
+    cfg, state, predict = _graph_predictor(cuda)
+    images = _pose_images(cfg, 2, torch.uint8, seed=2)
+    for _ in range(3):
+        predict(images)
+    assert (predict.graphs.captures, predict.graphs.replays) == (1, 1)
+    model = predict.graphs.model
+    moved = model.spatial_model.raw_kernels.detach() + 0.25
+    model.spatial_model.raw_kernels = torch.nn.Parameter(moved)
+    state = {**state, "spatial_model.raw_kernels": moved.cpu()}
+    for _ in range(3):
+        coords, probs = predict(images)
+    assert (predict.graphs.captures, predict.graphs.replays) == (2, 2)
+    want = _eager_pose_call(cfg, state, images)
+    assert torch.equal(coords, want[0]) and torch.equal(probs, want[1])
+
+
+def test_a_key_warmed_on_one_thread_captures_on_another(cuda):
+    """As ``PoseService`` calls it: its start-up warms a key on one thread,
+    its dispatcher thread captures.  The dispatcher's first call of the key
+    runs eagerly (a capture cannot create that thread's cuDNN and cuBLAS
+    handles), its second captures, its third replays."""
+    import threading
+
+    cfg, state, predict = _graph_predictor(cuda)
+    images = _pose_images(cfg, 2, torch.uint8, seed=3)
+    predict(images)
+    got, errors = [], []
+
+    def dispatcher():
+        try:
+            for _ in range(3):
+                got.append(predict(images))
+            torch.cuda.synchronize()
+        except Exception as e:  # raised again below, on the test's thread
+            errors.append(e)
+
+    thread = threading.Thread(target=dispatcher)
+    thread.start()
+    thread.join(timeout=300)
+    assert not thread.is_alive() and not errors, errors
+    assert (predict.graphs.captures, predict.graphs.replays) == (1, 1)
+    want = _eager_pose_call(cfg, state, images)
+    for coords, probs in got:
+        assert torch.equal(coords, want[0]) and torch.equal(probs, want[1])

@@ -4,7 +4,9 @@ MetricLogger's records, ``enabled=False`` and ``use_tensorboard``;
 trace under ``<workdir>/profile/`` holds whole dispatches from the one
 that holds step ``start_step + 5``; and the program's spans
 (``metrics.span``) in the predictor and the K-step dispatch, which cost
-no ``record_function`` with no profiler collecting."""
+no ``record_function`` with no profiler collecting; off the card the
+predictor's call stays eager (its graph form is held on the card, in
+``test_torch_kernels_cuda.py``)."""
 
 import dataclasses
 import glob
@@ -12,6 +14,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -20,6 +23,7 @@ from jointpose_torch import get_config, metrics
 from jointpose_torch import train as ttrain
 from jointpose_torch.data.pipeline import make_dataset
 from jointpose_torch.devtime import parse_trace
+from jointpose_torch.parallel.mesh import make_device_mesh
 from jointpose_torch.predict import build_predictor, init_state_dict
 
 
@@ -97,9 +101,10 @@ def _flat(spans):
     return all(end <= nxt for (_, _, end), (_, nxt, _) in zip(spans, spans[1:]))
 
 
-def _tiny_predictor():
+def _tiny_predictor(mesh=None):
     cfg = get_config("tiny").replace(eval_flip_tta=False)
-    predict = build_predictor(cfg, init_state_dict(cfg, torch.Generator().manual_seed(0)), "cpu")
+    predict = build_predictor(cfg, init_state_dict(cfg, torch.Generator().manual_seed(0)), "cpu",
+                              mesh=mesh)
     images = torch.randint(0, 256, (2, *cfg.data.image_hw, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(1))
     return predict, images
@@ -114,6 +119,24 @@ def test_the_predictor_opens_its_four_spans_in_turn(tmp_path):
     spans = _spans(prof, tmp_path)
     assert [name for name, _, _ in spans] == ["input", "detector", "mrf", "decode"] * 2
     assert _flat(spans)  # none inside another
+
+
+@pytest.mark.parametrize("data", [0, 2], ids=["one_device", "device_mesh"])
+def test_off_the_card_the_predictor_stays_eager(tmp_path, data):
+    """On the CPU, and over a device mesh, no graph engages: no capture, no
+    replay, the eager call's spans (a mesh row's model opens its own), and
+    each call returns tensors of its own."""
+    predict, images = _tiny_predictor(make_device_mesh(data, 1, "cpu") if data else None)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        first = predict(images)
+        second = predict(images)
+    assert not predict.graphs.enabled
+    assert predict.graphs.captures == predict.graphs.replays == 0
+    model_spans = ["detector", "mrf"] * max(data, 1)
+    assert [name for name, _, _ in _spans(prof, tmp_path)] == (
+        ["input", *model_spans, "decode"] * 2)
+    for a, b in zip(first, second):
+        assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
 
 
 def test_an_eager_dispatch_opens_its_copy_and_rate_spans(tmp_path):

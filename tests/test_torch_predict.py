@@ -231,3 +231,26 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(ValueError, match="exclusive"):
         serve.main(["--config", "tiny", "--checkpoint", str(tmp_path), "--device", "cpu",
                     "--quantize-artifact", "q.npz", "--mesh-data", "2"])
+
+
+@pytest.mark.parametrize("case", ["pose_on_cuda", "pose_on_cpu", "pose_over_a_process_mesh",
+                                  "device_mesh_model", "int8_model"])
+def test_graphs_engage_only_for_a_one_device_pose_model_on_cuda(case):
+    """``predict.graph_predictor``'s rule, decided from what the predictor
+    is given (no card is needed to decide it)."""
+    from jointpose_torch.ops.quant import QuantizedPoseModel
+    from jointpose_torch.parallel.mesh import Mesh, make_device_mesh
+    from jointpose_torch.predict import DeviceMeshModel, graph_predictor
+
+    cfg = get_config("tiny")
+    cuda = torch.device("cuda")
+    model, device = {
+        "pose_on_cuda": lambda: (PoseModel(cfg), cuda),
+        "pose_on_cpu": lambda: (PoseModel(cfg), torch.device("cpu")),
+        "pose_over_a_process_mesh": lambda: (PoseModel(cfg, mesh=Mesh(1, 2)), cuda),
+        "device_mesh_model": lambda: (DeviceMeshModel(
+            cfg, init_state_dict(cfg, torch.Generator().manual_seed(0)),
+            make_device_mesh(2, 1, "cpu")), cuda),
+        "int8_model": lambda: (QuantizedPoseModel(cfg, {}, PoseModel(cfg).spatial_model), cuda),
+    }[case]()
+    assert graph_predictor(device, model) == (case == "pose_on_cuda")
