@@ -16,19 +16,17 @@ the package is missing.  Phases, each fatal on failure:
    ``jointpose_torch/csrc/`` (one ``nvcc`` per source, all at once);
 2. with TF32 off, hold each kernel against its plain PyTorch version on
    the card at its main-path shape: the epilogue forward (serving and
-   training batch, bf16 and f32; also against its first design, which
-   adds the logs one by one, and that design's tiled layout, which must
-   be bit-identical to it) and backward (twice, bit-identical), the
-   fused Fourier MRF tail in both forms, 3xTF32 and one TF32 pass (on
-   dense unaries and on unaries concentrated on a few pixels; the one
-   pass on ``wgmma`` also at batch 32, against its earlier ``mma.sync``
-   design and in its own grouping of the sums, a rerun bit-identical),
-   both shear-warp entries on a random full augmentation draw and on
-   extreme maps (each orientation's fused kernel bit-equal to its
-   two-launch form, which stays as a timed entry), and the three Fourier
-   head-conv tails at the paper head
-   (bf16 and f32, and against each other; the build form's ring version
-   also against its register-staged version, and at training batch 32);
+   training batch, bf16 and f32, within a rounding of the plain version,
+   which adds the logs one by one; a rerun bit-identical) and backward
+   (twice, bit-identical), the fused Fourier MRF tail in both forms,
+   3xTF32 and one TF32 pass (on dense unaries and on unaries concentrated
+   on a few pixels; the one pass on ``wgmma`` also at batch 32, against
+   its arithmetic emulated, also in its own grouping of the sums, a rerun
+   bit-identical), both shear-warp entries on a random full augmentation
+   draw and on extreme maps (each orientation bit-equal to its strips in
+   plain PyTorch, ``ops.warp.shear_warp_strips``), and the three Fourier
+   head-conv tails at the paper head (bf16 and f32, and against each
+   other; the build form's ring version also at training batch 32);
    then ``fft_conv2d`` against cuDNN's direct conv in f32; and the
    Fourier MRF pass at 'high' with TF32 switched on globally against the
    same with it off, forward and gradients (bit-equal: precision is the
@@ -155,14 +153,11 @@ the package is missing.  Phases, each fatal on failure:
    supervised group (``python -m jointpose_torch.resilience
    --nproc-per-node 4``) through a fault, a SIGTERM and a hang of a rank,
    bit-equal to an unbroken run, with its time to recover;
-12. time each kernel and its plain version at the main-path shape, the
-   epilogue forward also against its first design and an empty launch,
-   in turns: the two forms of the Fourier MRF tail, the one pass on
-   ``wgmma`` against its ``mma.sync`` design at batch 8 and 32 (and at
-   the shard-local Kv 5 and 3 in the parallel phase), each orientation's
-   fused shear warp and its two-launch form (and the fused kernel's strip
-   widths), the
-   head-conv tail's ring and register-staged versions at batch 8 and 32;
+12. time each kernel and its plain version at the main-path shape: the
+   two forms of the Fourier MRF tail in turns, the one pass on ``wgmma``
+   at batch 8 and 32 (and at the shard-local Kv 5 and 3 in the parallel
+   phase), each orientation's shear warp (and the kernel's strip widths),
+   the head-conv tail's ring version at batch 8 and 32;
    then the Fourier head against cuDNN and served ``joint`` with either
    head at batch 1, 8, 16 and 32; then ``flagship``'s MRF grouped
    correlation (``grouped_corr_phase``) at batch 32 and 128 against its
@@ -233,12 +228,10 @@ TAIL_RTOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
 # fft_conv2d against the direct conv in f32 (the reference's head parity bound).
 CONV_RTOL = 1e-4
 # The epilogue forward sums one log of a product of mantissas per output
-# where its first design adds nine rounded logs: a rounding of the result
-# apart (measured 2.1e-7), max|kernel - first design| / max|first design|.
+# where the plain version adds nine rounded logs: a rounding of the result
+# apart (measured 2.1e-7 against a kernel that added them one by one),
+# max|kernel - plain| / max|plain|.
 EPILOGUE_PRODUCT_RTOL = 1e-6
-# The kernel may not be slower than its first design, timed in turns in one
-# process; 5% covers the spread between two timings of one kernel.
-EPILOGUE_SLOWER_LIMIT = 1.05
 # `fit` of `tiny` on the card against the CPU after 4 + 4 steps, per tensor
 # max|Δ| / max|CPU|: the MRF paths' parity tolerance, for parameters and for
 # the restored models' heatmaps.
@@ -711,16 +704,17 @@ def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True,
     from jointpose_torch.models.mrf import select_impl
 
     captures = []
+    capture = train_mod.DispatchGraphs._capture
 
-    class Counted(train_mod._CapturedDispatch):
-        def __init__(self, *args):
-            super().__init__(*args)
-            captures.append(1)
+    def counted(self, *args):
+        entry = capture(self, *args)
+        captures.append(1)
+        return entry
 
     det = joint = 30
     epilogue = select_impl(cfg.mrf) == "pallas"
     out: dict = {}
-    plain, train_mod._CapturedDispatch = train_mod._CapturedDispatch, Counted
+    train_mod.DispatchGraphs._capture = counted
     try:
         for k in sizes:
             c = cfg.replace(train=dataclasses.replace(cfg.train, detector_steps=det,
@@ -756,7 +750,7 @@ def _fit_rates(cfg, root: str, counters: dict, device=None, lead: bool = True,
             del result
             torch.cuda.empty_cache()
     finally:
-        train_mod._CapturedDispatch = plain
+        train_mod.DispatchGraphs._capture = capture
     return out
 
 
@@ -2178,11 +2172,11 @@ def observe_phase(config, joint, counters: dict, smi: str) -> None:
                                       program_name="serve_joint")
     check(dev is not None and dev.num_runs == iters, "measure_device_time: no runs on the card")
     tail_ops = sum(o.count for o in dev.ops if "mrf_tail_wgmma_kernel" in o.name)
-    old_ops = sum(o.count for o in dev.ops if "mrf_fft_tail_kernel" in o.name)
-    check(tail_ops == iters and old_ops == 0
+    high_ops = sum(o.count for o in dev.ops if "mrf_fft_tail_kernel" in o.name)
+    check(tail_ops == iters and high_ops == 0
           and fused_tail.launches_1pass - before == iters + warmup,
-          f"measure_device_time: row 3' (wgmma) appears {tail_ops} times in {iters} runs, its "
-          f"earlier design {old_ops} times")
+          f"measure_device_time: row 3' (wgmma) appears {tail_ops} times in {iters} runs, the "
+          f"3xTF32 kernel {high_ops} times")
     graph_ms = time_ms(lambda: predict(images))
     busy_ms = sum(o.duration_s for o in dev.ops) * 1e3 / iters
     print(f"measure_device_time, served joint (bf16, MRF 'default', batch {BATCH}): median run "
@@ -2352,8 +2346,7 @@ SERVE_BF16_RTOL = 2e-2
 # The batches of the served device time: 128 is bench.py's headline batch.
 SERVE_TIMED_BATCHES = (8, 32, 128)
 # The MRF kernels of rows 1, 2, 3 and 3′, none of which this path launches.
-MRF_KERNELS = ("mrf_epilogue", "mrf_epilogue_bwd", "mrf_fft_tail", "mrf_fft_tail_1pass",
-               "mrf_fft_tail_1pass_mma_sync")
+MRF_KERNELS = ("mrf_epilogue", "mrf_epilogue_bwd", "mrf_fft_tail", "mrf_fft_tail_1pass")
 
 
 def serve_preset_checks(tmp: str, batches: list, counters: dict, smi: str) -> dict:
@@ -2584,11 +2577,10 @@ def serve_phase(joint, flag_cfg, counters: dict, smi: str) -> dict:
         check(json_reply[0] == 200 and len(json_reply[1]["predictions"]) == 1, "serve: the JSON request")
         check(health[0] == 200 and health[1]["step"] == 0, "serve: /healthz")
         m = health[1]["batcher"]
-        check(launches["mrf_fft_tail_1pass"] == dispatches and launches["mrf_fft_tail"] == 0
-              and launches["mrf_fft_tail_1pass_mma_sync"] == 0,
+        check(launches["mrf_fft_tail_1pass"] == dispatches and launches["mrf_fft_tail"] == 0,
               f"serve 'default': the single-pass tail launched {launches['mrf_fft_tail_1pass']} "
-              f"times, its earlier design {launches['mrf_fft_tail_1pass_mma_sync']} and the "
-              f"3xTF32 tail {launches['mrf_fft_tail']} times in {dispatches} dispatches")
+              f"times and the 3xTF32 tail {launches['mrf_fft_tail']} times in {dispatches} "
+              f"dispatches")
         check(m["shed_requests"] == 0, "serve: requests were shed")
         print(f"serve joint through jointpose_torch.serve (bf16, MRF precision 'default', "
               f"PoseService(batch_size=16, batch_buckets=[1, 8]), ThreadingHTTPServer, started in "
@@ -2988,16 +2980,12 @@ def kernel_counters() -> dict:
     """Every kernel wrapper's launch counter, by the kernels line's names."""
     from jointpose_torch.ops import fft_conv as fc
     from jointpose_torch.ops.mrf_epilogue import mrf_epilogue, mrf_epilogue_bwd
-    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_1pass_mma_sync
-    from jointpose_torch.ops.warp import (
-        shear_warp, shear_warp_rowmajor, shear_warp_rowmajor_two_pass,
-    )
+    from jointpose_torch.ops.mrf_fft_fused import fused_tail
+    from jointpose_torch.ops.warp import shear_warp, shear_warp_rowmajor
 
     return {"mrf_epilogue": mrf_epilogue, "mrf_epilogue_bwd": mrf_epilogue_bwd,
             "mrf_fft_tail": fused_tail, "mrf_fft_tail_1pass": Count(fused_tail, "launches_1pass"),
-            "mrf_fft_tail_1pass_mma_sync": fused_tail_1pass_mma_sync,
             "shear_warp": shear_warp, "shear_warp_rowmajor": shear_warp_rowmajor,
-            "shear_warp_rowmajor_two_pass": shear_warp_rowmajor_two_pass,
             "fft_conv_tail_kdft_resident": fc.tail_kdft_resident,
             "fft_conv_tail_kdft": fc.tail_kdft, "fft_conv_tail_kf": fc.tail_kf}
 
@@ -4031,9 +4019,7 @@ def shard_kernel_checks(joint, flag, smi: str) -> dict:
         mrf_epilogue_plain,
     )
     from jointpose_torch.ops.mrf_fft import forward_ffts
-    from jointpose_torch.ops.mrf_fft_fused import (
-        fused_tail, fused_tail_1pass_mma_sync, fused_tail_emulated, fused_tail_plain,
-    )
+    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_emulated, fused_tail_plain
     from jointpose_torch.ops.mrf_fft_fused import tail_cost as mrf_tail_cost
     from jointpose_torch.ops.mrf_xla import pairwise_conv
     from jointpose_torch.ops.warp import shear_warp, shear_warp_reference, warp_cost
@@ -4103,16 +4089,8 @@ def shard_kernel_checks(joint, flag, smi: str) -> dict:
                 check(again, f"{name} at {shape}: a second run is not bit-identical")
             t_ops = tf32_ops_ms(flops, passes)
             spectra = (pf, kf) if passes == 3 else padded
-            call = lambda prec=prec, a=spectra: fused_tail(*a, tables, bs, precision=prec)
-            if passes == 1:  # in turns with its earlier design: mma.sync, wgmma, wgmma, mma.sync
-                old = lambda: fused_tail_1pass_mma_sync(pf, kf, tables, bs)
-                turns = [time_ms(f) for f in (old, call, call, old)]
-                kernel_ms = min(turns[1], turns[2])
-                print(f"parallel kernel {name} at {shape} in turns, mma.sync / wgmma / wgmma / "
-                      f"mma.sync: {' / '.join(f'{t:.6f}' for t in turns)} ms; on {smi}")
-                out[f"{name}_mma_sync {shape}"] = {"ms": min(turns[0], turns[3])}
-            else:
-                kernel_ms = time_ms(call)
+            kernel_ms = time_ms(lambda prec=prec, a=spectra: fused_tail(*a, tables, bs,
+                                                                        precision=prec))
             report(name, shape, err, limit, kernel_ms,
                    time_ms(lambda: fused_tail_plain(pf, kf, tables, bs)),
                    (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
@@ -4182,21 +4160,17 @@ def main() -> int:
     from jointpose_torch.ops.mrf_epilogue import bwd_cost as epilogue_bwd_cost
     from jointpose_torch.ops.mrf_epilogue import fwd_cost as epilogue_fwd_cost
     from jointpose_torch.ops.mrf_epilogue import (
-        mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_fwd_empty,
-        mrf_epilogue_fwd_pervalue, mrf_epilogue_fwd_tiled, mrf_epilogue_plain,
+        mrf_epilogue, mrf_epilogue_bwd, mrf_epilogue_bwd_plain, mrf_epilogue_plain,
     )
     from jointpose_torch.ops.mrf_fft import (
         fft_pairwise_conv, forward_ffts, matmul_precision, mrf_message_pass_fft,
     )
-    from jointpose_torch.ops.mrf_fft_fused import (
-        fused_tail, fused_tail_1pass_mma_sync, fused_tail_emulated, fused_tail_plain,
-    )
+    from jointpose_torch.ops.mrf_fft_fused import fused_tail, fused_tail_emulated, fused_tail_plain
     from jointpose_torch.ops.mrf_fft_fused import tail_cost as mrf_tail_cost
     from jointpose_torch.ops.mrf_xla import pairwise_conv
     from jointpose_torch.ops import warp as warp_ops
     from jointpose_torch.ops.warp import (
-        shear_warp, shear_warp_reference, shear_warp_rowmajor, shear_warp_rowmajor_two_pass,
-        shear_warp_two_pass, warp_cost,
+        shear_warp, shear_warp_reference, shear_warp_rowmajor, shear_warp_strips, warp_cost,
     )
 
     smi = subprocess.run(
@@ -4231,23 +4205,13 @@ def main() -> int:
                 unaries(gen, batch, ch, cw, k, dtype), kern1.to(dtype))
             got = mrf_epilogue(resp, bias1, eps)
             want = mrf_epilogue_plain(resp, bias1, eps)
-            first = mrf_epilogue_fwd_pervalue(resp, bias1, eps)
-            tiled = mrf_epilogue_fwd_tiled(resp, bias1, eps)
             torch.cuda.synchronize()
             epi_err[batch, dtype] = rel_err(got, want)
-            from_first = rel_err(got, first)
             print(f"kernel mrf_epilogue {dtype} {tuple(resp.shape)}: rel err "
-                  f"{epi_err[batch, dtype][0]:.3e} (limit {KERNEL_RTOL:g}), max abs err "
-                  f"{epi_err[batch, dtype][1]:.3e}; from its first design (the logs added one by "
-                  f"one) rel {from_first[0]:.3e} (limit {EPILOGUE_PRODUCT_RTOL:g}), max abs "
-                  f"{from_first[1]:.3e}; the first design's tiled layout is "
-                  f"{'bit-identical to it' if torch.equal(tiled, first) else 'DIFFERENT'}")
-            check(epi_err[batch, dtype][0] <= KERNEL_RTOL,
+                  f"{epi_err[batch, dtype][0]:.3e} (limit {EPILOGUE_PRODUCT_RTOL:g}: the plain "
+                  f"version adds the logs one by one), max abs err {epi_err[batch, dtype][1]:.3e}")
+            check(epi_err[batch, dtype][0] <= EPILOGUE_PRODUCT_RTOL,
                   f"mrf_epilogue {dtype} batch {batch} disagrees with its plain version")
-            check(from_first[0] <= EPILOGUE_PRODUCT_RTOL,
-                  f"mrf_epilogue {dtype} batch {batch} strays from its first design")
-            check(torch.equal(tiled, first), "the tiled epilogue forward is not bit-identical "
-                  "to the first design, whose summation order it keeps")
             check(torch.equal(mrf_epilogue(resp, bias1, eps), got),
                   "mrf_epilogue: a second run is not bit-identical")
     resp1 = resps[BATCH, torch.bfloat16]  # the flagship path's responses are bf16
@@ -4292,40 +4256,32 @@ def main() -> int:
     check(tail_err[0] <= KERNEL_RTOL, "mrf_fft_tail disagrees with its plain version")
     check(tail_err[0] <= MRF_TAIL_RTOL, "mrf_fft_tail: 3xTF32 strays from the fp32 plain version")
 
-    def single_pass_parity(pf_, kf_, bias_, what: str) -> tuple[tuple[float, float], ...]:
+    def single_pass_parity(pf_, kf_, bias_, what: str) -> tuple[float, float]:
         """The single-pass form (the wgmma kernel) against its own arithmetic
-        (stacked, and in its own grouping of the sums), against fp32 and
-        against its earlier design (the mma.sync kernel's one-pass form);
-        returns (rel, max abs) of the kernel and of that design against
-        fp32."""
-        before = (fused_tail.launches_1pass, fused_tail_1pass_mma_sync.launches)
+        (stacked, and in its own grouping of the sums) and against fp32;
+        returns (rel, max abs) of the kernel against fp32."""
+        before = fused_tail.launches_1pass
         got1 = fused_tail(pf_, kf_, tables, bias_, joint.mrf.eps, precision="default")
-        old1 = fused_tail_1pass_mma_sync(pf_, kf_, tables, bias_, joint.mrf.eps)
         torch.cuda.synchronize()
-        check((fused_tail.launches_1pass, fused_tail_1pass_mma_sync.launches)
-              == (before[0] + 1, before[1] + 1), "the single-pass tails did not count their launches")
+        check(fused_tail.launches_1pass == before + 1,
+              "the single-pass tail did not count its launch")
         emu = rel_err(got1, fused_tail_emulated(pf_, kf_, tables, bias_, joint.mrf.eps, passes=1))
         grouped = rel_err(got1, fused_tail_emulated(pf_, kf_, tables, bias_, joint.mrf.eps,
                                                     passes=1, chunk=32))
-        plain = fused_tail_plain(pf_, kf_, tables, bias_, joint.mrf.eps)
-        fp32, old_fp32, from_old = rel_err(got1, plain), rel_err(old1, plain), rel_err(got1, old1)
+        fp32 = rel_err(got1, fused_tail_plain(pf_, kf_, tables, bias_, joint.mrf.eps))
         again1 = fused_tail(pf_, kf_, tables, bias_, joint.mrf.eps, precision="default")
         print(f"kernel mrf_fft_tail_1pass (wgmma){what} {tuple(got1.shape)}: against its arithmetic "
               f"in plain PyTorch (one TF32 pass) rel err {emu[0]:.3e} (limit {KERNEL_RTOL:g}), max "
               f"abs {emu[1]:.3e}, in its own grouping of the sums rel {grouped[0]:.3e}; against fp32 "
-              f"rel err {fp32[0]:.3e} (limit {SINGLE_PASS_RTOL:g}), max abs {fp32[1]:.3e}; against "
-              f"its earlier design (mma.sync, itself {old_fp32[0]:.3e} from fp32) rel "
-              f"{from_old[0]:.3e}; a second run is "
-              f"{'bit-identical' if torch.equal(again1, got1) else 'DIFFERENT'}")
+              f"rel err {fp32[0]:.3e} (limit {SINGLE_PASS_RTOL:g}), max abs {fp32[1]:.3e}; a second "
+              f"run is {'bit-identical' if torch.equal(again1, got1) else 'DIFFERENT'}")
         check(emu[0] <= KERNEL_RTOL and grouped[0] <= KERNEL_RTOL,
               f"mrf_fft_tail_1pass{what} disagrees with its plain version")
-        check(fp32[0] <= SINGLE_PASS_RTOL and old_fp32[0] <= SINGLE_PASS_RTOL,
-              f"mrf_fft_tail_1pass{what} strays from fp32")
-        check(from_old[0] <= KERNEL_RTOL, f"mrf_fft_tail_1pass{what} strays from its earlier design")
+        check(fp32[0] <= SINGLE_PASS_RTOL, f"mrf_fft_tail_1pass{what} strays from fp32")
         check(torch.equal(again1, got1), "mrf_fft_tail_1pass: a second run is not bit-identical")
-        return fp32, old_fp32
+        return fp32
 
-    tail1_err, tail1_old_err = single_pass_parity(pf, kf, bias2, "")
+    tail1_err = single_pass_parity(pf, kf, bias2, "")
     # Training batch 32: 2592 units, a run of about 10 a warpgroup.
     p32 = unaries(torch.Generator().manual_seed(16), tb, jh, jw, k, torch.float32)
     pf32, kf32, _ = forward_ffts(p32, kern2)
@@ -4378,27 +4334,25 @@ def main() -> int:
         print(f"kernel {fn.__name__} {tuple(images.shape)}: max abs err "
               f"{warp_err[fn.__name__]:.3e} (limit {WARP_ATOL:g})")
         check(warp_err[fn.__name__] <= WARP_ATOL, f"{fn.__name__} disagrees with its plain version")
-    # Each orientation's fused kernel goes through its two-launch form's fp32
-    # operations in the same order: bit-equal to it, on the draw and on
-    # extreme maps.
+    # Each orientation's kernel goes through its strips' fp32 operations in
+    # the order ``shear_warp_strips`` takes them: bit-equal to it, on the
+    # draw and on extreme maps.
     for what, (ai_, bi_) in (("the random full draw", (a_inv, b_inv)),
                              ("extreme maps", extreme_affines(tb, h, w))):
         want = shear_warp_reference(images, ai_, bi_)
-        for fused_fn, two_fn in ((shear_warp, shear_warp_two_pass),
-                                 (shear_warp_rowmajor, shear_warp_rowmajor_two_pass)):
-            fused = fused_fn(images, ai_, bi_)
-            two = two_fn(images, ai_, bi_)
-            err = (fused - want).abs().max().item()
+        for fn in (shear_warp, shear_warp_rowmajor):
+            got = fn(images, ai_, bi_)
+            strips = shear_warp_strips(images.cpu(), ai_.cpu(), bi_.cpu(),
+                                       rowmajor=fn is shear_warp_rowmajor).cuda()
+            err = (got - want).abs().max().item()
             torch.cuda.synchronize()
-            same = torch.equal(fused, two)
-            print(f"kernel {fused_fn.__name__} (fused, strips of {warp_ops.strip_width(h, 3)} "
-                  f"columns) on {what}: {'bit-equal to' if same else 'DIFFERENT from'} its "
-                  f"two-launch form; max abs err {err:.3e} from the plain version (limit "
-                  f"{WARP_ATOL:g})")
-            check(same, f"the fused {fused_fn.__name__} differs from its two-launch form on {what}")
-            check(err <= WARP_ATOL,
-                  f"the fused {fused_fn.__name__} disagrees with its plain version on {what}")
-    del fused, two, want
+            same = torch.equal(got, strips)
+            print(f"kernel {fn.__name__} (fused, strips of {warp_ops.strip_width(h, 3)} columns) "
+                  f"on {what}: {'bit-equal to' if same else 'DIFFERENT from'} its strips in plain "
+                  f"PyTorch; max abs err {err:.3e} from the plain version (limit {WARP_ATOL:g})")
+            check(same, f"{fn.__name__} differs from its strips in plain PyTorch on {what}")
+            check(err <= WARP_ATOL, f"{fn.__name__} disagrees with its plain version on {what}")
+    del got, strips, want
 
     # --- kernels 4-6: the three Fourier head-conv tails at the paper head
     # (60x90, 9x9, 128 -> 512, serving batch), on the spectra the conv's own
@@ -4430,23 +4384,13 @@ def main() -> int:
             check(conv_tail_err[name, dtype][0] <= TAIL_RTOL[dtype],
                   f"{name} {dtype} disagrees with its plain version")
         if dtype == torch.bfloat16:
-            # The build form's path runs the ring version; its register-staged
-            # version, the timed entry it replaced, against both.
+            # The build form's path runs the ring version, kf the register-staged one.
             nph = ops[0].shape[1]
             bodies = {name: fc.tail_body(name.removeprefix("fft_conv_tail_"), nph, BATCH, ci, co,
                                          kk, jh, 2) for name in tails}
+            print(f"kernel bodies {bodies}")
             check(bodies == {"fft_conv_tail_kdft_resident": "ring", "fft_conv_tail_kdft": "ring",
                              "fft_conv_tail_kf": "regstaged"}, f"head-conv tail bodies {bodies}")
-            reg = fc.tail_kdft_regstaged(*ops, ct)
-            torch.cuda.synchronize()
-            reg_err = rel_err(reg, want)
-            ring_reg = rel_err(outs["fft_conv_tail_kdft_resident"], reg)
-            print(f"kernel bodies {bodies}; the register-staged version against the plain version: "
-                  f"rel err {reg_err[0]:.3e}; the ring version against it: rel err {ring_reg[0]:.3e}, "
-                  f"max abs {ring_reg[1]:.3e} (limit {TAIL_RTOL[dtype]:g})")
-            check(reg_err[0] <= TAIL_RTOL[dtype] and ring_reg[0] <= TAIL_RTOL[dtype],
-                  "the ring and register-staged head-conv tails disagree")
-            del reg
         if dtype == torch.float32:
             names = list(tails)
             for i, a in enumerate(names):
@@ -4462,16 +4406,14 @@ def main() -> int:
     check(fc.select_tail(xr.shape[1], tb, kk, 2) == "kdft"
           and fc.tail_body("kdft", xr.shape[1], tb, ci, co, kk, jh, 2) == "ring",
           "batch 32 does not take the batch-tiled ring version")
-    got32, reg32 = fc.tail_kdft(*tail32_args), fc.tail_kdft_regstaged(*tail32_args)
+    got32 = fc.tail_kdft(*tail32_args)
     want32 = fc.tail_kdft_plain(*tail32_args)
     torch.cuda.synchronize()
-    err32, reg_err32 = rel_err(got32, want32), rel_err(got32, reg32)
+    err32 = rel_err(got32, want32)
     print(f"kernel fft_conv_tail_kdft bf16 at batch {tb} (ring): rel err {err32[0]:.3e} (limit "
-          f"{TAIL_RTOL[torch.bfloat16]:g}), max abs {err32[1]:.3e}; against the register-staged "
-          f"version rel {reg_err32[0]:.3e}")
-    check(err32[0] <= TAIL_RTOL[torch.bfloat16] and reg_err32[0] <= TAIL_RTOL[torch.bfloat16],
-          "fft_conv_tail_kdft at batch 32 disagrees")
-    del got32, reg32, want32, feats32
+          f"{TAIL_RTOL[torch.bfloat16]:g}), max abs {err32[1]:.3e}")
+    check(err32[0] <= TAIL_RTOL[torch.bfloat16], "fft_conv_tail_kdft at batch 32 disagrees")
+    del got32, want32, feats32
     # The whole function in f32 against cuDNN's direct conv (TF32 off).
     with torch.no_grad():
         got = fc.fft_conv2d(feats[:2], hkernel)
@@ -4688,46 +4630,30 @@ def main() -> int:
     tail_turns = [time_ms(lambda prec=prec: fused_tail(
         *(padded8 if prec == "default" else (pf, kf)), tables, bias2, precision=prec))
         for prec in ("high", "default", "default", "high")]
-    # The single pass on wgmma against its earlier design (mma.sync) in turns,
-    # earlier / wgmma / wgmma / earlier, at serving batch 8 and training batch
-    # 32, each on the spectra its path gives it: the served pass's come with
-    # rows padded to 8 bins (forward_ffts(padded_bins=True)).
-    one_pass_turns = {}
+    # The single pass at serving batch 8 and training batch 32, on the
+    # spectra its path gives it: rows padded to 8 bins
+    # (forward_ffts(padded_bins=True)).
+    one_pass_ms = {}
     for batch, p_ in ((BATCH, p2), (tb, p32)):
-        spectra = forward_ffts(p_, kern2)[:2]
-        dense = [tuple(t.contiguous() for t in x) for x in spectra]
         padded = forward_ffts(p_, kern2, padded_bins=True)[:2]
-        old_call = lambda a=dense: fused_tail_1pass_mma_sync(*a, tables, bias2)
-        new_call = lambda a=padded: fused_tail(*a, tables, bias2, precision="default")
-        one_pass_turns[batch] = [time_ms(f) for f in (old_call, new_call, new_call, old_call)]
+        one_pass_ms[batch] = time_ms(lambda a=padded: fused_tail(*a, tables, bias2,
+                                                                 precision="default"))
     del p32
     with matmul_precision("default", pf[0].device):
         plain_tf32_ms = time_ms(lambda: fused_tail_plain(pf, kf, tables, bias2))
     b4, by4 = bound(*warp_cost(images, a_inv, b_inv))
-    # Row 1 at both shapes, in turns with its first design and its tiled
-    # layout in this one process, and the floor: an empty launch of its grid.
+    # Row 1 at both shapes.
     epi_ms = {}
     for batch, resp in ((BATCH, resp1), (tb, resp1_train)):
         n_rows = resp.shape[0] * resp.shape[1] * resp.shape[2]
-        turns = [time_ms(lambda f=f, r=resp: f(r, bias1)) for f in
-                 (mrf_epilogue_fwd_pervalue, mrf_epilogue, mrf_epilogue_fwd_tiled,
-                  mrf_epilogue_fwd_tiled, mrf_epilogue, mrf_epilogue_fwd_pervalue)]
-        epi_ms[batch] = {
-            "kernel": min(turns[1], turns[4]), "first": min(turns[0], turns[5]),
-            "tiled": min(turns[2], turns[3]),
-            "empty": time_ms(lambda r=resp: mrf_epilogue_fwd_empty(r, bias1)),
+        epi_ms[batch] = e = {
+            "kernel": time_ms(lambda r=resp: mrf_epilogue(r, bias1)),
             "plain": time_ms(lambda r=resp: mrf_epilogue_plain(r, bias1)),
             "bound": bound(*epilogue_fwd_cost(resp, bias1))[0],
         }
-        e = epi_ms[batch]
         print(f"time mrf_epilogue forward at batch {batch} ({n_rows} rows x {k * k} bf16): kernel "
-              f"{turns[1]:.6f} / {turns[4]:.6f} ms, its first design {turns[0]:.6f} / "
-              f"{turns[5]:.6f} ms, the first design tiled {turns[2]:.6f} / {turns[3]:.6f} ms, an "
-              f"empty launch of the kernel's grid {e['empty']:.6f} ms, plain {e['plain']:.6f} ms, "
-              f"byte bound {e['bound']:.6f} ms ({e['bound'] / e['kernel']:.1%} of the kernel's "
-              f"time), on {smi}")
-        check(e["kernel"] <= EPILOGUE_SLOWER_LIMIT * e["first"],
-              f"mrf_epilogue at batch {batch} is slower than its first design")
+              f"{e['kernel']:.6f} ms, plain {e['plain']:.6f} ms, byte bound {e['bound']:.6f} ms "
+              f"({e['bound'] / e['kernel']:.1%} of the kernel's time), on {smi}")
     kernels = [
         {
             "name": "mrf_epilogue", "route": "cuda",
@@ -4766,54 +4692,28 @@ def main() -> int:
             "replaces": "jointpose/ops/mrf_fft_pallas.py:50",
             "launches": served_default["launches"]["mrf_fft_tail_1pass"],
             "max_abs_err": tail1_err[1],
-            "ms": min(one_pass_turns[BATCH][1], one_pass_turns[BATCH][2]),
-            "plain_ms": plain_tf32_ms,
-            "bound_ms": b2_1, "bound_by": by2_1, "library_ms": None,
-        },
-        {
-            # Its earlier design, the mma.sync kernel's one-pass form: a timed
-            # entry that no path takes.
-            "name": "mrf_fft_tail_1pass_mma_sync", "route": "cuda",
-            "source": "jointpose_torch/csrc/mrf_fft_tail.cu",
-            "replaces": "jointpose/ops/mrf_fft_pallas.py:50",
-            "launches": served_default["launches"]["mrf_fft_tail_1pass_mma_sync"],
-            "max_abs_err": tail1_old_err[1],
-            "ms": min(one_pass_turns[BATCH][0], one_pass_turns[BATCH][3]),
+            "ms": one_pass_ms[BATCH],
             "plain_ms": plain_tf32_ms,
             "bound_ms": b2_1, "bound_by": by2_1, "library_ms": None,
         },
     ]
     plain_warp_ms = time_ms(lambda: shear_warp_reference(images, a_inv, b_inv), runs=5, per_graph=1)
-    # The fused warp and its two-pass form in turns: two-pass, fused, fused, two-pass.
-    warp_turns = [time_ms(lambda fn=fn: fn(images, a_inv, b_inv))
-                  for fn in (shear_warp_two_pass, shear_warp, shear_warp, shear_warp_two_pass)]
+    warp_ms = {fn.__name__: time_ms(lambda fn=fn: fn(images, a_inv, b_inv))
+               for fn in (shear_warp, shear_warp_rowmajor)}
     strips = {tw: time_ms(lambda tw=tw: warp_ops._fused(images, a_inv, b_inv, tw))
               for tw in (4, 8, 16, 32, 64)}
-    # The row-major orientation's fused kernel and its two-launch form in
-    # turns: two-launch, fused, fused, two-launch.
-    rowmajor_turns = [time_ms(lambda fn=fn: fn(images, a_inv, b_inv)) for fn in (
-        shear_warp_rowmajor_two_pass, shear_warp_rowmajor, shear_warp_rowmajor,
-        shear_warp_rowmajor_two_pass)]
-    warp_ms = {"shear_warp": min(warp_turns[1], warp_turns[2]),
-               "shear_warp_rowmajor": min(rowmajor_turns[1], rowmajor_turns[2]),
-               "shear_warp_rowmajor_two_pass": min(rowmajor_turns[0], rowmajor_turns[3])}
-    print(f"time shear_warp in turns, two-pass / fused / fused / two-pass: "
-          f"{' / '.join(f'{t:.6f}' for t in warp_turns)} ms; the fused kernel by strip width "
+    print(f"time shear_warp {warp_ms['shear_warp']:.6f} ms, shear_warp_rowmajor "
+          f"{warp_ms['shear_warp_rowmajor']:.6f} ms; the fused kernel by strip width "
           f"{ {tw: round(t, 6) for tw, t in strips.items()} } ms (the shape rule picks "
-          f"{warp_ops.strip_width(h, 3)}); byte bound {b4:.6f} ms, {b4 / warp_ms['shear_warp']:.1%} of "
-          f"the fused kernel's time; on {smi}")
-    print(f"time shear_warp_rowmajor in turns, two-launch / fused / fused / two-launch: "
-          f"{' / '.join(f'{t:.6f}' for t in rowmajor_turns)} ms; byte bound {b4:.6f} ms, "
-          f"{b4 / warp_ms['shear_warp_rowmajor']:.1%} of the fused kernel's time, "
-          f"{b4 / warp_ms['shear_warp_rowmajor_two_pass']:.1%} of the two-launch form's; on {smi}")
-    for fn, line in ((shear_warp, 155), (shear_warp_rowmajor, 52),
-                     (shear_warp_rowmajor_two_pass, 52)):
+          f"{warp_ops.strip_width(h, 3)}); byte bound {b4:.6f} ms, {b4 / warp_ms['shear_warp']:.1%} "
+          f"and {b4 / warp_ms['shear_warp_rowmajor']:.1%} of the two orientations' times; on {smi}")
+    for fn, line in ((shear_warp, 155), (shear_warp_rowmajor, 52)):
         kernels.append({
             "name": fn.__name__, "route": "cuda",
             "source": "jointpose_torch/csrc/shear_warp.cu",
             "replaces": f"jointpose/ops/warp_pallas.py:{line}",
             "launches": trained["launches"][fn.__name__],
-            "max_abs_err": warp_err[fn.__name__ if fn is shear_warp else "shear_warp_rowmajor"],
+            "max_abs_err": warp_err[fn.__name__],
             "ms": warp_ms[fn.__name__],
             "plain_ms": plain_warp_ms,
             "bound_ms": b4, "bound_by": by4, "library_ms": None,
@@ -4830,28 +4730,17 @@ def main() -> int:
         for fn, a in ((fc.tail_kdft_plain, x_ops),
                       (fc.tail_kf_plain, tail_args["fft_conv_tail_kf", torch.bfloat16]))
     }
-    # The build form's ring version and its register-staged version in turns
-    # (register-staged, ring, ring, register-staged) at serving batch 8
-    # through the resident entry and at training batch 32 through the
-    # batch-tiled one; the K_f-from-memory entry, whose kernel this change
-    # leaves as it was, beside them.
+    # The build form's ring version at serving batch 8 through the resident
+    # entry and at training batch 32 through the batch-tiled one; the
+    # K_f-from-memory entry (the register-staged version) beside them.
     x8 = tail_args["fft_conv_tail_kdft_resident", torch.bfloat16]
-    ring_turns = {
-        8: [time_ms(lambda f=f: f(*x8)) for f in (fc.tail_kdft_regstaged, fc.tail_kdft_resident,
-                                                  fc.tail_kdft_resident, fc.tail_kdft_regstaged)],
-        tb: [time_ms(lambda f=f: f(*tail32_args)) for f in (fc.tail_kdft_regstaged, fc.tail_kdft,
-                                                             fc.tail_kdft, fc.tail_kdft_regstaged)],
-    }
+    ring_ms = {8: time_ms(lambda: fc.tail_kdft_resident(*x8)),
+               tb: time_ms(lambda: fc.tail_kdft(*tail32_args))}
     kf_ms = time_ms(lambda: fc.tail_kf(*tail_args["fft_conv_tail_kf", torch.bfloat16]))
-    bound32 = bound(*fc.tail_cost(*tail32_args, True), BF16_FLOPS_PER_S)
-    for batch, turns in ring_turns.items():
-        ring_ms, reg_ms = min(turns[1], turns[2]), min(turns[0], turns[3])
-        bt = bound32[0] if batch == tb else None
-        print(f"time the build form at batch {batch} in turns, register-staged / ring / ring / "
-              f"register-staged: {' / '.join(f'{t:.6f}' for t in turns)} ms; ring {ring_ms:.6f} ms "
-              f"against {reg_ms:.6f} ({ring_ms / reg_ms:.3f} of it)"
-              + (f"; byte bound at batch {tb} {bt:.6f} ms ({bt / ring_ms:.1%})" if bt else "")
-              + f"; fft_conv_tail_kf {kf_ms:.6f} ms; on {smi}")
+    bound32 = bound(*fc.tail_cost(*tail32_args, True), BF16_FLOPS_PER_S)[0]
+    print(f"time the build form's ring version: {ring_ms[8]:.6f} ms at batch 8, "
+          f"{ring_ms[tb]:.6f} ms at batch {tb} (byte bound {bound32:.6f} ms, "
+          f"{bound32 / ring_ms[tb]:.1%}); fft_conv_tail_kf {kf_ms:.6f} ms; on {smi}")
     for (name, fn), line in zip(tails.items(), (478, 307, 284)):
         args = tail_args[name, torch.bfloat16]
         built = fn is not fc.tail_kf
@@ -4862,7 +4751,7 @@ def main() -> int:
             "replaces": f"jointpose/ops/fft_conv.py:{line}",
             "launches": tail_launches[name],
             "max_abs_err": conv_tail_err[name, torch.bfloat16][1],
-            "ms": (min(ring_turns[8][1], ring_turns[8][2]) if fn is fc.tail_kdft_resident
+            "ms": (ring_ms[8] if fn is fc.tail_kdft_resident
                    else kf_ms if fn is fc.tail_kf else time_ms(lambda fn=fn, args=args: fn(*args))),
             "plain_ms": plain_tail_ms[fc.tail_kdft_plain if built else fc.tail_kf_plain],
             "bound_ms": bt, "bound_by": bby, "library_ms": None,
@@ -4907,18 +4796,12 @@ def main() -> int:
         "mrf_fft_tail": call_ms(lambda: fused_tail(pf, kf, tables, bias2)),
         "mrf_fft_tail_1pass": call_ms(lambda: fused_tail(*padded8, tables, bias2,
                                                          precision="default")),
-        "mrf_fft_tail_1pass_mma_sync": call_ms(lambda: fused_tail_1pass_mma_sync(pf, kf, tables,
-                                                                                 bias2)),
         "shear_warp": call_ms(lambda: shear_warp(images, a_inv, b_inv)),
         "shear_warp_rowmajor": call_ms(lambda: shear_warp_rowmajor(images, a_inv, b_inv)),
-        "shear_warp_rowmajor_two_pass": call_ms(lambda: shear_warp_rowmajor_two_pass(
-            images, a_inv, b_inv)),
     }
     per = {"mrf_fft_tail": (REQUESTS, "request (joint serving)"),
            "mrf_fft_tail_1pass": (served_default["dispatches"],
                                   "dispatch (joint serving at 'default')"),
-           "mrf_fft_tail_1pass_mma_sync": (served_default["dispatches"],
-                                           "dispatch (joint serving at 'default')"),
            "fft_conv_tail_kdft_resident": (REQUESTS, "request (joint serving, 'fft' head)"),
            "fft_conv_tail_kdft": (1, "request (joint serving, 'fft' head, steered)"),
            "fft_conv_tail_kf": (1, "request (joint serving, 'fft' head, steered)")}
@@ -4941,13 +4824,10 @@ def main() -> int:
           f"{one_row['bound_ms'] / one_row['ms']:.1%} of its bound (TF32 "
           f"{flops2 / TF32_FLOPS_PER_S * 1e3:.4f} ms, bytes {t_bytes2:.4f} ms); its plain version "
           f"with TF32 products {plain_tf32_ms:.4f} ms; on {smi}")
-    for batch, turns in one_pass_turns.items():
-        new_ms, old_ms = min(turns[1], turns[2]), min(turns[0], turns[3])
+    for batch, ms in one_pass_ms.items():
         ops_ms = tf32_ops_ms(flops2 * batch // BATCH, 1)
-        print(f"mrf_fft_tail_1pass at batch {batch} in turns, mma.sync / wgmma / wgmma / mma.sync: "
-              f"{' / '.join(f'{t:.6f}' for t in turns)} ms; wgmma {new_ms:.6f} ms against "
-              f"{old_ms:.6f} ({new_ms / old_ms:.3f} of it), {ops_ms / new_ms:.1%} of the TF32 bound "
-              f"{ops_ms:.6f} ms (the earlier design {ops_ms / old_ms:.1%}); on {smi}")
+        print(f"mrf_fft_tail_1pass (wgmma) at batch {batch}: {ms:.6f} ms, {ops_ms / ms:.1%} of the "
+              f"TF32 bound {ops_ms:.6f} ms; on {smi}")
     check(one_row["bound_ms"] <= one_row["ms"], "mrf_fft_tail_1pass beats its bound: the bound is wrong")
     print("shear_warp_rowmajor is the reference's cross-orientation oracle: no preset's path "
           "launches it, so its main-path count is 0; it ran in its parity phase above")

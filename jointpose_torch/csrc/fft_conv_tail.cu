@@ -647,12 +647,11 @@ __global__ void __launch_bounds__(kThreads) tail_mma_kernel(MmaArgs p) {
 // ---------------------------------------------------------------------------
 // The ring version of the build form (the two kdft entries, bf16), taken
 // ahead of tail_mma_kernel<true> on the shapes it takes.  Cut out one stage
-// at a time (profile_tail_stages.py --version regstaged), the
-// register-staged version spends its time on the loads of the next step's
-// operands, the K_f build and the inverse row DFT: one step's loads go
-// global -> registers -> shared behind three block-wide barriers at 8 warps
-// an SM, the build pads its 18 taps to 32, and the inverse reads its table
-// from global memory per k-step.  Here:
+// at a time, the register-staged version spends its time on the loads of
+// the next step's operands, the K_f build and the inverse row DFT: one
+// step's loads go global -> registers -> shared behind three block-wide
+// barriers at 8 warps an SM, the build pads its 18 taps to 32, and the
+// inverse reads its table from global memory per k-step.  Here:
 //   - every thread issues cp.async copies into a 3-stage shared-memory ring
 //     (the a' chunk and the X tiles of one step, zero-filled where ragged),
 //     two steps ahead, so a step's loads are in flight for two steps; two
@@ -1050,25 +1049,6 @@ extern "C" int fft_conv_tail_kdft(const void* xr, const void* xi, const void* ar
                    g, ph, b, ci, co, kh, h, tb};
   return by_dtype<true>(p, itemsize, stream);
 }
-
-// The register-staged tensor-core version of the build form, which the ring
-// version replaced on the rows 6 and 7 path, kept as a timed entry: the
-// kdft entry's arguments, and only the shapes that version takes.
-extern "C" int fft_conv_tail_kdft_regstaged(const void* xr, const void* xi, const void* ar,
-                                            const void* ai, const void* gr, const void* irt,
-                                            const void* gpack, const void* irpack, void* out,
-                                            int g, int ph, int b, int ci, int co, int kh, int h,
-                                            int tb, int itemsize, void* stream) {
-  const TailArgs p{xr, xi, ar, ai, static_cast<const float2*>(gr),
-                   static_cast<const float2*>(irt), gpack, irpack, out,
-                   g, ph, b, ci, co, kh, h, tb};
-  if (!mma_takes(p, itemsize, true)) return (int)cudaErrorInvalidValue;
-  return launch_mma<true>(p, static_cast<cudaStream_t>(stream));
-}
-
-// Shared memory of one block of the ring version; the wrapper's shape rule
-// reads it from here.
-extern "C" long long fft_conv_tail_ring_smem_bytes(int ph, int h) { return ring_smem_bytes(ph, h); }
 
 // Row 8: K_f (G, Ph, Ci, Co) read from device memory.
 extern "C" int fft_conv_tail_kf(const void* xr, const void* xi, const void* kr, const void* ki,

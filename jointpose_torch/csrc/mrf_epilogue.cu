@@ -26,17 +26,8 @@
 // product: x = m * 2^e with m in [1, 2), sum_v log x_v = log(prod_v m_v) +
 // ln2 * sum_v e_v, with the mantissas multiplied in index order in fp32.
 // That is a different rounding from adding Kv rounded logs (measured: one
-// ulp of the result apart, and nearer the float64 sum); the first design,
-// which adds the logs one by one, stays as the entry
-// mrf_epilogue_fwd_pervalue, the yardstick the kernel is held and timed
-// against.  A second layout is kept for timing only, mrf_epilogue_fwd_tiled:
-// resp walked as 16-byte vectors like the backward (a group of 8 bf16 or 4
-// f32 rows is exactly Kv*Ka vectors), a block's tile of whole groups copied
-// into shared memory by cp.async with the next tile in flight, thread (r, a)
-// summing out of shared memory, one wave of blocks looping over tiles.  It
-// is bit-identical to the first design and slower than it at both the
-// serving and the training shape (two barriers a tile and a quarter of the
-// threads in flight cost more than the wider loads save), so no path runs it.
+// ulp of the result apart, and nearer the float64 sum); a sum that meets an
+// infinity or a NaN is taken again log by log, which passes it on.
 //
 // Backward: the TPU kernel accumulates dbias across its sequential grid in
 // one VMEM block.  CUDA blocks run in no order, and float atomics would
@@ -119,9 +110,8 @@ __device__ __forceinline__ float fwd_row_sum_product(const T* __restrict__ row,
   return acc;
 }
 
-// One thread per (row, a), Kv scalar loads from device memory.  PRODUCT:
-// the sum as one log of a product; without it the first design.
-template <typename T, bool PRODUCT>
+// One thread per (row, a), Kv scalar loads from device memory.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mrf_epilogue_fwd_kernel(const T* __restrict__ resp, const float* __restrict__ bias,
                         float* __restrict__ out, long long rows, int kv, int ka, float eps) {
@@ -132,81 +122,8 @@ mrf_epilogue_fwd_kernel(const T* __restrict__ resp, const float* __restrict__ bi
   if (idx >= rows * ka) return;
   const long long r = idx / ka;
   const int a = (int)(idx - r * ka);
-  const T* row = resp + r * (long long)(kv * ka);
-  out[idx] = PRODUCT ? fwd_row_sum_product(row, bias_s, kv, ka, a, eps)
-                     : fwd_row_sum(row, bias_s, kv, ka, a, eps);
+  out[idx] = fwd_row_sum_product(resp + r * (long long)(kv * ka), bias_s, kv, ka, a, eps);
 }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The tiled layout, for timing.  `whole` groups of 16/sizeof(T) rows go through shared
-// memory, `tile_groups` of them a tile; dynamic shared memory holds two
-// tiles of tile_groups * kv * ka 16-byte vectors and the kv * ka biases.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mrf_epilogue_fwd_tiled_kernel(const T* __restrict__ resp, const float* __restrict__ bias,
-                              float* __restrict__ out, long long rows, long long whole,
-                              int tile_groups, int kv, int ka, float eps) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  extern __shared__ uint4 tile_s[];
-  const int kk = kv * ka;
-  const int tile_vecs = tile_groups * kk;
-  float* bias_s = reinterpret_cast<float*>(tile_s + 2 * tile_vecs);
-  for (int i = threadIdx.x; i < kk; i += blockDim.x) bias_s[i] = bias[i];
-  const uint4* src = reinterpret_cast<const uint4*>(resp);
-  const long long tiles = whole ? (whole + tile_groups - 1) / tile_groups : 0;
-
-  auto groups_of = [&](long long tile) {
-    const long long left = whole - tile * tile_groups;
-    return (int)(left < tile_groups ? left : tile_groups);
-  };
-  auto fetch = [&](long long tile, int b) {
-    const uint4* from = src + tile * tile_vecs;
-    uint4* to = tile_s + b * tile_vecs;
-    const int n = groups_of(tile) * kk;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async16(to + i, from + i);
-  };
-
-  long long tile = blockIdx.x;
-  if (tile < tiles) fetch(tile, 0);
-  cp_async_commit();
-  __syncthreads();  // bias_s
-  for (int b = 0; tile < tiles; tile += gridDim.x, b ^= 1) {
-    if (tile + gridDim.x < tiles) fetch(tile + gridDim.x, b ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the copies just issued: this tile has landed
-    __syncthreads();
-    const T* rows_s = reinterpret_cast<const T*>(tile_s + b * tile_vecs);
-    const int n_out = groups_of(tile) * VEC * ka;
-    float* out_t = out + tile * tile_groups * VEC * ka;
-    for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-      const int r = o / ka;
-      out_t[o] = fwd_row_sum(rows_s + r * kk, bias_s, kv, ka, o - r * ka, eps);
-    }
-    __syncthreads();  // the next iteration's copies overwrite the other buffer, read last time
-  }
-  cp_async_wait<0>();
-
-  // Rows past the last whole group, one value at a time.
-  const long long total = rows * ka;
-  for (long long idx = whole * VEC * ka + (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const long long r = idx / ka;
-    out[idx] = fwd_row_sum(resp + r * kk, bias_s, kv, ka, (int)(idx - r * ka), eps);
-  }
-}
-
-// A launch of the forward's grid and block that reads and writes nothing:
-// the floor any kernel of this shape sits on.
-__global__ void __launch_bounds__(kThreads) mrf_epilogue_empty_kernel() {}
 
 // A 16-byte vector of T as floats and back (bf16 rounds to nearest even).
 template <typename T> struct Vec16;
@@ -353,6 +270,29 @@ mrf_epilogue_bias_reduce_kernel(const float* __restrict__ partials, float* __res
   if (threadIdx.x == 0) dbias[j] = s[0];
 }
 
+}  // namespace
+
+// The forward: one block per kThreads outputs.
+extern "C" int mrf_epilogue_fwd(const void* resp, int resp_is_bf16, const void* bias, void* out,
+                                long long rows, int kv, int ka, float eps, void* stream) {
+  if (rows == 0) return 0;
+  const int blocks = (int)((rows * ka + kThreads - 1) / kThreads);
+  const size_t smem = sizeof(float) * kv * ka;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (resp_is_bf16) {
+    mrf_epilogue_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(resp), static_cast<const float*>(bias),
+        static_cast<float*>(out), rows, kv, ka, eps);
+  } else {
+    mrf_epilogue_fwd_kernel<float><<<blocks, kThreads, smem, s>>>(
+        static_cast<const float*>(resp), static_cast<const float*>(bias),
+        static_cast<float*>(out), rows, kv, ka, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
 int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -363,104 +303,6 @@ int sm_count() {
   }
   return n;
 }
-
-// The tiled layout's geometry: tiles of about kThreads outputs, so that one
-// pass of the block sums a tile, and so many blocks that all run at once.
-// Without a 16-byte boundary, or where two tiles do not fit the shared memory
-// a block has without opting in to more, no group is tiled (whole = 0).
-constexpr int kTiledBlocksPerSm = 4;
-constexpr size_t kTiledMaxSmem = 48 * 1024;
-
-struct TiledPlan {
-  long long whole;  // groups that go through shared memory
-  int tile_groups;
-  int blocks;
-  size_t smem;
-};
-
-TiledPlan tiled_plan(const void* resp, long long rows, int kv, int ka, int vec) {
-  TiledPlan p;
-  const int kk = kv * ka;
-  p.tile_groups = kThreads / (vec * ka) > 0 ? kThreads / (vec * ka) : 1;
-  const size_t bias_smem = sizeof(float) * kk;
-  const size_t tiles_smem = (size_t)2 * p.tile_groups * kk * 16;
-  const bool tiled =
-      reinterpret_cast<uintptr_t>(resp) % 16 == 0 && tiles_smem + bias_smem <= kTiledMaxSmem;
-  if (!tiled) p.tile_groups = 0;
-  p.whole = tiled ? rows / vec : 0;
-  p.smem = (tiled ? tiles_smem : 0) + bias_smem;
-  const long long tiles = p.whole ? (p.whole + p.tile_groups - 1) / p.tile_groups : 0;
-  const long long tail = ((rows - p.whole * vec) * ka + kThreads - 1) / kThreads;
-  long long blocks = tiles > tail ? tiles : tail;
-  const long long wave = (long long)sm_count() * kTiledBlocksPerSm;
-  if (blocks > wave) blocks = wave;
-  p.blocks = blocks < 1 ? 1 : (int)blocks;
-  return p;
-}
-
-// The forward's launch: one block per kThreads outputs.
-template <bool PRODUCT>
-int launch_fwd(const void* resp, int resp_is_bf16, const void* bias, void* out, long long rows,
-               int kv, int ka, float eps, void* stream) {
-  if (rows == 0) return 0;
-  const int blocks = (int)((rows * ka + kThreads - 1) / kThreads);
-  const size_t smem = sizeof(float) * kv * ka;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resp_is_bf16) {
-    mrf_epilogue_fwd_kernel<__nv_bfloat16, PRODUCT><<<blocks, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(resp), static_cast<const float*>(bias),
-        static_cast<float*>(out), rows, kv, ka, eps);
-  } else {
-    mrf_epilogue_fwd_kernel<float, PRODUCT><<<blocks, kThreads, smem, s>>>(
-        static_cast<const float*>(resp), static_cast<const float*>(bias),
-        static_cast<float*>(out), rows, kv, ka, eps);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int mrf_epilogue_fwd(const void* resp, int resp_is_bf16, const void* bias, void* out,
-                                long long rows, int kv, int ka, float eps, void* stream) {
-  return launch_fwd<true>(resp, resp_is_bf16, bias, out, rows, kv, ka, eps, stream);
-}
-
-// The first design: the logs added one by one.
-extern "C" int mrf_epilogue_fwd_pervalue(const void* resp, int resp_is_bf16, const void* bias,
-                                         void* out, long long rows, int kv, int ka, float eps,
-                                         void* stream) {
-  return launch_fwd<false>(resp, resp_is_bf16, bias, out, rows, kv, ka, eps, stream);
-}
-
-// The tiled layout, bit-identical to the first design.
-extern "C" int mrf_epilogue_fwd_tiled(const void* resp, int resp_is_bf16, const void* bias,
-                                      void* out, long long rows, int kv, int ka, float eps,
-                                      void* stream) {
-  if (rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const TiledPlan p = tiled_plan(resp, rows, kv, ka, resp_is_bf16 ? 8 : 4);
-  if (resp_is_bf16) {
-    mrf_epilogue_fwd_tiled_kernel<__nv_bfloat16><<<p.blocks, kThreads, p.smem, s>>>(
-        static_cast<const __nv_bfloat16*>(resp), static_cast<const float*>(bias),
-        static_cast<float*>(out), rows, p.whole, p.tile_groups, kv, ka, eps);
-  } else {
-    mrf_epilogue_fwd_tiled_kernel<float><<<p.blocks, kThreads, p.smem, s>>>(
-        static_cast<const float*>(resp), static_cast<const float*>(bias),
-        static_cast<float*>(out), rows, p.whole, p.tile_groups, kv, ka, eps);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The empty launch with the grid, block and shared memory of mrf_epilogue_fwd.
-extern "C" int mrf_epilogue_fwd_empty(long long rows, int kv, int ka, void* stream) {
-  if (rows == 0) return 0;
-  const int blocks = (int)((rows * ka + kThreads - 1) / kThreads);
-  mrf_epilogue_empty_kernel<<<blocks, kThreads, sizeof(float) * kv * ka,
-                              static_cast<cudaStream_t>(stream)>>>();
-  return (int)cudaGetLastError();
-}
-
-namespace {
 
 // Stage-1 geometry: `slots` groups of `vec` rows per block and step, and so
 // many steps a block that all blocks run at once (three per SM), at most

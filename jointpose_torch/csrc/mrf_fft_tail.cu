@@ -17,21 +17,15 @@
 // Bound on an H100: operations.  Rows first (T = Ir @ R, then
 // o = Re{T @ Ic}) a (b, v, a) pair costs 6*Ph*G + 8*H*Ph*G + 4*H*G*W + 4*H*W
 // flops (5.7 MFLOP at the paper geometry Ph=104, G=79, H=60, W=90; columns
-// first would cost 8.2) against 0.13 MB of Pf and Kf.  The kernel comes in
-// two forms, the template parameter P (passes):
-//   P = 3, precision HIGH/HIGHEST (TPU row 3).  The log amplifies the
-//     absolute error of small responses, so plain TF32 is out; the products
-//     run on the tensor cores as 3xTF32: each operand x is split into hi = x
-//     rounded to TF32 and lo = x - hi (exact; the tensor core reads its upper
-//     19 bits), and lo*hi + hi*lo are added before hi*hi into an fp32
-//     accumulator.  lo*lo, 2^-22 of a product, is dropped.  That is three mma
-//     per product: a third of the TF32 rate, 2.5 times the fp32 CUDA cores.
-//   P = 1, precision DEFAULT (the same TPU kernel compiled at
-//     lax.Precision.DEFAULT: one reduced-precision pass, fp32 accumulation).
-//     Each operand is rounded once to TF32 (hi alone) and each product is one
-//     mma: the full TF32 rate.  The TPU's pass is bf16; TF32 keeps three more
-//     mantissa bits and is the instruction the 3-pass form already issues.
-// Everything else (layout, roles, grid, combine pass) is shared.
+// first would cost 8.2) against 0.13 MB of Pf and Kf.  This kernel serves
+// precision HIGH/HIGHEST (TPU row 3).  The log amplifies the absolute error
+// of small responses, so plain TF32 is out; the products run on the tensor
+// cores as 3xTF32: each operand x is split into hi = x rounded to TF32 and
+// lo = x - hi (exact; the tensor core reads its upper 19 bits), and lo*hi +
+// hi*lo are added before hi*hi into an fp32 accumulator.  lo*lo, 2^-22 of a
+// product, is dropped.  That is three mma per product: a third of the TF32
+// rate, 2.5 times the fp32 CUDA cores.  Precision DEFAULT, one TF32 pass, is
+// the kernel of mrf_fft_tail_wgmma.cu.
 //
 // Design.  mma.sync.m16n8k8 TF32, 384 threads a block in two roles.
 //   Consumers (warps 0-7) do all the arithmetic on the tensor cores, 8 output
@@ -59,8 +53,8 @@
 //   flight per thread, also across steps, while the consumers multiply the
 //   current stage.  Named barriers (a full/empty pair per stage) hand the
 //   stages over.
-// Hi/lo splitting (or, for P = 1, the rounding) happens at fragment load
-// (three instructions a value, two): shared memory has no room for split copies.
+// Hi/lo splitting happens at fragment load (three instructions a value):
+// shared memory has no room for split copies.
 //
 // Grid.  The work is B*Ka tiles x Kv source joints (648 units at the paper
 // geometry, batch 8), and a tile is indivisible only up to the log: the sum
@@ -163,8 +157,8 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// An mma fragment of N values: split (hi and lo) for P = 3, hi alone for P = 1.
-template <int P, int N>
+// An mma fragment of N values, split into hi and lo.
+template <int N>
 struct Frag {
   uint32_t hi[N], lo[N];
   __device__ __forceinline__ void set(int e, float x) { split(x, hi[e], lo[e]); }
@@ -178,31 +172,19 @@ struct Frag {
     lo[e] = o.lo[f];
   }
 };
-template <int N>
-struct Frag<1, N> {
-  uint32_t hi[N];
-  __device__ __forceinline__ void set(int e, float x) { hi[e] = to_tf32(x); }
-  __device__ __forceinline__ void set_neg(int e, const Frag& o, int f) {
-    hi[e] = o.hi[f] ^ 0x80000000u;
-  }
-  __device__ __forceinline__ void copy(int e, const Frag& o, int f) { hi[e] = o.hi[f]; }
-};
-template <int P>
-using AFrag = Frag<P, 4>;
-template <int P>
-using BFrag = Frag<P, 2>;
-// For P = 3, c += a * b is three mma: a.lo*b.hi and a.hi*b.lo (the small
-// terms, first), then a.hi*b.hi; for P = 1 the last alone.  The callers give
+using AFrag = Frag<4>;
+using BFrag = Frag<2>;
+// c += a * b is three mma: a.lo*b.hi and a.hi*b.lo (the small terms,
+// first), then a.hi*b.hi.  The callers give
 // one term to all their accumulators before the next term, so that an mma
 // does not wait for the one before it.
-__device__ __forceinline__ void mma_lh(float (&c)[4], const AFrag<3>& a, const BFrag<3>& b) {
+__device__ __forceinline__ void mma_lh(float (&c)[4], const AFrag& a, const BFrag& b) {
   mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
 }
-__device__ __forceinline__ void mma_hl(float (&c)[4], const AFrag<3>& a, const BFrag<3>& b) {
+__device__ __forceinline__ void mma_hl(float (&c)[4], const AFrag& a, const BFrag& b) {
   mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
 }
-template <int P>
-__device__ __forceinline__ void mma_hh(float (&c)[4], const AFrag<P>& a, const BFrag<P>& b) {
+__device__ __forceinline__ void mma_hh(float (&c)[4], const AFrag& a, const BFrag& b) {
   mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
@@ -242,7 +224,6 @@ __device__ __forceinline__ Tile tile_of(const Args& p, int tile) {
   return t;
 }
 
-template <int P>
 __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* ir_s = reinterpret_cast<float2*>(smem_raw);                       // (kRows, irs)
@@ -374,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) tt[j][e] = 0.f;
       for (int ks = 0; ks < nks; ++ks) {
-        AFrag<P> a1, a2;  // [Ir_re; Ir_im] and [-Ir_im; Ir_re]
+        AFrag a1, a2;  // [Ir_re; Ir_im] and [-Ir_im; Ir_re]
         {
           const float2 lo = ir_w[ks * 8], hi = ir_w[ks * 8 + 4];
           a1.set(0, lo.x);
@@ -387,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
             a2.copy(e + 1, a1, e);
           }
         }
-        BFrag<P> bre[kNJ], bim[kNJ];
+        BFrag bre[kNJ], bim[kNJ];
         const float2* bp = r_w + ks * 8 * kRStride;
 #pragma unroll
         for (int j = 0; j < kNJ; ++j) {
@@ -399,14 +380,12 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
         }
 #define JP_ROW_TERM(MMA, A, B) \
   _Pragma("unroll") for (int j = 0; j < kNJ; ++j) MMA(tt[j], A, B[j]);
-        if constexpr (P == 3) {
-          JP_ROW_TERM(mma_lh, a1, bre)
-          JP_ROW_TERM(mma_hl, a1, bre)
-          JP_ROW_TERM(mma_lh, a2, bim)
-          JP_ROW_TERM(mma_hl, a2, bim)
-        }
-        JP_ROW_TERM(mma_hh<P>, a1, bre)
-        JP_ROW_TERM(mma_hh<P>, a2, bim)
+        JP_ROW_TERM(mma_lh, a1, bre)
+        JP_ROW_TERM(mma_hl, a1, bre)
+        JP_ROW_TERM(mma_lh, a2, bim)
+        JP_ROW_TERM(mma_hl, a2, bim)
+        JP_ROW_TERM(mma_hh, a1, bre)
+        JP_ROW_TERM(mma_hh, a2, bim)
 #undef JP_ROW_TERM
       }
       // The stage is consumed; the last stages of the run are not refilled.
@@ -417,14 +396,14 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
       // the accumulators (depth t is bin 2t of the tile, depth t + 4 bin 2t + 1).
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
-        BFrag<P> tr, ti;
+        BFrag tr, ti;
         tr.set(0, tt[j][0]);
         tr.set(1, tt[j][1]);
         ti.set(0, tt[j][2]);
         ti.set(1, tt[j][3]);
         const float4* icp = ic_s + (c * (kGC / 2) + 4 * j + tq) * kIcStride + gq;
         {
-          AFrag<P> cre[kMW], cim[kMW];
+          AFrag cre[kMW], cim[kMW];
 #pragma unroll
           for (int m = 0; m < kMW; ++m) {
             const float4 lo = icp[16 * m], hi = icp[16 * m + 8];
@@ -439,14 +418,12 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_fft_tail_kernel(Args p) {
           }
 #define JP_COL_TERM(MMA, A, B) \
   _Pragma("unroll") for (int m = 0; m < kMW; ++m) MMA(o[m], A[m], B);
-          if constexpr (P == 3) {
-            JP_COL_TERM(mma_lh, cre, tr)
-            JP_COL_TERM(mma_hl, cre, tr)
-            JP_COL_TERM(mma_lh, cim, ti)
-            JP_COL_TERM(mma_hl, cim, ti)
-          }
-          JP_COL_TERM(mma_hh<P>, cre, tr)
-          JP_COL_TERM(mma_hh<P>, cim, ti)
+          JP_COL_TERM(mma_lh, cre, tr)
+          JP_COL_TERM(mma_hl, cre, tr)
+          JP_COL_TERM(mma_lh, cim, ti)
+          JP_COL_TERM(mma_hl, cim, ti)
+          JP_COL_TERM(mma_hh, cre, tr)
+          JP_COL_TERM(mma_hh, cim, ti)
 #undef JP_COL_TERM
         }
       }
@@ -519,20 +496,18 @@ extern "C" long long mrf_fft_tail_smem_bytes(int ph, int g_bins) {
 // Copies of the output the scratch must hold.
 extern "C" int mrf_fft_tail_scratch_parts() { return kMaxParts - 1; }
 
-// passes: 3 (3xTF32, precision HIGH/HIGHEST) or 1 (one TF32 pass, DEFAULT).
+// 3xTF32, precision HIGH/HIGHEST.
 extern "C" int mrf_fft_tail(const void* pf_re, const void* pf_im, const void* kf_re,
                             const void* kf_im, const void* ir, const void* ict_re,
                             const void* ict_im, const void* bias, void* out, void* scratch,
                             int batch, int kv, int ka, int ph, int g_bins, int h, int w,
-                            float eps, int passes, void* stream) {
-  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
+                            float eps, void* stream) {
   if (batch == 0 || ka == 0 || h == 0 || w == 0) return 0;
   const Plan plan = make_plan(ph, g_bins);
   if (plan.stages == 0 || kv < 1) return (int)cudaErrorInvalidValue;
   const long long smem = plan.smem(plan.stages);
-  void (*kernel)(Args) = passes == 1 ? mrf_fft_tail_kernel<1> : mrf_fft_tail_kernel<3>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(mrf_fft_tail_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // The (tile, v) units are dealt out in consecutive runs, one per block and
   // as many blocks as SMs; a run of at least Kv/2 units keeps a tile within
@@ -555,7 +530,7 @@ extern "C" int mrf_fft_tail(const void* pf_re, const void* pf_im, const void* kf
                   kv, ka, ph, g_bins, h, w,
                   plan.php, plan.irs, plan.nchunks, plan.stages, (int)units, per, n_out, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(args);
+  mrf_fft_tail_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess || per % kv == 0) return (int)err;  // whole tiles: nothing to add
   mrf_fft_tail_combine_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(

@@ -9,7 +9,7 @@
 // jointpose/ops/mrf_fft_pallas.py:_fused_kernel compiled at
 // lax.Precision.DEFAULT (one reduced-precision pass), the form the server
 // runs at its default MRF precision.  csrc/mrf_fft_tail.cu computes the same
-// function as its P = 1 form on mma.sync; that form stays as a timed entry.
+// function at 3xTF32 (precision HIGH/HIGHEST) on mma.sync.
 //
 // Inputs, f32 and contiguous:
 //   pf_re, pf_im  (B, Kv, Ph, G)    forward DFTs of the unaries (half column spectrum)

@@ -1,4 +1,4 @@
-// One shear pass of the two-pass affine image warp.
+// The two-pass (shear) affine image warp, both passes in one launch.
 //
 // For image b, line n (a source row in the first pass, an output column in
 // the second), output position o and channel c:
@@ -16,91 +16,36 @@
 // the dense fp32 reference rounds them (no contraction into FMAs).
 //
 // Bound on an H100: memory.  Each output value reads two source values
-// and does a few flops.  One thread per (line, output position) computes
-// the position and weights once and loops over the channels; the batch
-// index is blockIdx.y, so a thread finds its (n, o) with one 32-bit
-// division (64-bit divisions per value made the first version
-// integer-bound).  The logical (b, n, i|o, c) axes of source and output
-// are given as element strides, so one kernel serves both orientations,
-// reads the NHWC input directly and writes whatever layout the next pass
-// reads.  `order` names which of n and o the neighbouring threads walk,
-// which the wrapper picks so that they write neighbouring addresses.
-// shear_warp_two_pass and shear_warp_rowmajor_two_pass, each
-// orientation's earlier design kept as a timed entry beside the fused
-// kernel below, run this pass twice.
-//
-// The fused warp (`shear_warp_fused`, the production orientation, both
-// passes in one launch).  Two passes move the fp32 intermediate through
-// device memory: 133 MB at the training shape where the function needs
-// 66 MB.  A strip of output columns [x0, x0 + TW) is self-contained: pass 2
-// reads the intermediate only in those columns, over all H rows, and pass 1
-// makes those columns of every source row from the NHWC input.  So one
-// block per (image, strip) keeps its (H, TW, C) intermediate in shared
-// memory, and the intermediate never leaves the SM.  Its size depends on
-// the image's shape alone, not on the warp's parameters, which stay on the
-// device (the wrapper never reads them).  Each intermediate and output value
-// goes through the same fp32 operations in the same order as in the
-// two-pass kernel, so the result is bit-equal to it.  Neighbouring threads
+// and does a few flops.  Run as two launches, the passes would move the
+// fp32 intermediate through device memory: 133 MB at the training shape
+// where the function needs 66 MB.  A strip of output columns [x0, x0 + TW)
+// is self-contained: pass 2 reads the intermediate only in those columns,
+// over all H rows, and pass 1 makes those columns of every source row from
+// the NHWC input.  So one block per (image, strip) keeps its intermediate
+// in shared memory, and the intermediate never leaves the SM.  Its size
+// depends on the image's shape alone, not on the warp's parameters, which
+// stay on the device (the wrapper never reads them).  Each intermediate and
+// output value goes through the same fp32 operations in the same order as
+// in ops/warp.shear_warp_strips, which repeats the kernel per strip in
+// plain PyTorch, so the result is bit-equal to it.  Neighbouring threads
 // walk neighbouring columns of one row: the output rows of a strip are
 // written as contiguous TW * C floats.
 //
-// The same kernel serves the reference's row-major orientation
-// (`shear_warp_fused_rowmajor`, the cross-orientation oracle
-// shear_warp_rowmajor, in one launch where its two-pass form moves a (B, W,
-// H, C) intermediate through device memory): a template parameter keeps the
-// strip's intermediate as that orientation holds it, (TW, H, C), a line of
-// H * C values per output column, contiguous along H for pass 2, the line
-// stride made odd where it fits so that the columns' lines start in other
-// banks.  The values and their order of operations are the same, so it is
-// bit-equal to its two-launch form, shear_warp_rowmajor_two_pass.
+// `shear_warp_fused` is the production orientation: the strip's
+// intermediate is (H, TW, C).  `shear_warp_fused_rowmajor` serves the
+// reference's row-major orientation (the cross-orientation oracle
+// shear_warp_rowmajor): a template parameter keeps the strip's intermediate
+// as that orientation holds it, (TW, H, C), a line of H * C values per
+// output column, contiguous along H for pass 2, the line stride made odd
+// where it fits so that the columns' lines start in other banks.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-struct Strides {
-  long long b, n, x, c;  // x: the resample axis (i for the source, o for the output)
-};
-
-__global__ void __launch_bounds__(kThreads)
-shear_pass_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                  const float* __restrict__ pars, int lines, int s_in, int s_out, int chans,
-                  Strides ss, Strides ds, int order) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= lines * s_out) return;
-  const int b = blockIdx.y;
-  // order 0: n is the fastest-varying axis across threads; 1: o is.
-  int n, o;
-  if (order == 0) {
-    n = t % lines;
-    o = t / lines;
-  } else {
-    o = t % s_out;
-    n = t / s_out;
-  }
-  const float alpha = pars[3 * b], shear = pars[3 * b + 1], off = pars[3 * b + 2];
-  const float pos = __fadd_rn(__fadd_rn(__fmul_rn(alpha, (float)o), __fmul_rn(shear, (float)n)), off);
-  // Outside (-1, S_in) both taps lie outside the frame.
-  const bool in_frame = pos > -1.f && pos < (float)s_in;
-  const float f0 = in_frame ? floorf(pos) : 0.f;
-  const int i0 = (int)f0;
-  const bool tap0 = in_frame && i0 >= 0;
-  const bool tap1 = in_frame && i0 + 1 < s_in;
-  const float w0 = __fsub_rn(1.f, __fsub_rn(pos, f0));
-  const float w1 = __fsub_rn(1.f, fabsf(__fsub_rn(__fadd_rn(f0, 1.f), pos)));
-  const float* line = src + b * ss.b + n * ss.n;
-  float* out = dst + b * ds.b + n * ds.n + o * ds.x;
-  for (int c = 0; c < chans; ++c) {
-    float acc = 0.f;
-    if (tap0) acc = __fmul_rn(w0, __ldg(line + i0 * ss.x + c * ss.c));
-    if (tap1) acc = __fadd_rn(acc, __fmul_rn(w1, __ldg(line + (i0 + 1) * ss.x + c * ss.c)));
-    out[c * ds.c] = acc;
-  }
-}
-
 // Both taps of one hat at `pos` in a line of s_in values: their weights and
-// the first tap's index, rounded as shear_pass_kernel rounds them.
+// the first tap's index, rounded as the dense fp32 reference rounds them.
 struct Taps {
   int i0;
   bool tap0, tap1;
@@ -130,8 +75,9 @@ enum class Strip { kRows, kLines };
 // strip at a time and its C channels.  The passes' parameters come from the
 // inverse map (a_inv (B, 2, 2), b_inv (B, 2)) in the block itself, rounded
 // as ops/warp._pass_params rounds them (each product and quotient on its
-// own, no contraction), so that the call is one launch and bit-equal to the
-// two passes fed by that function.  `line`: floats per column line (kLines).
+// own, no contraction), so that the call is one launch and bit-equal to
+// shear_warp_strips, which takes them from that function.  `line`: floats
+// per column line (kLines).
 template <Strip kLayout>
 __global__ void __launch_bounds__(kThreads)
 shear_warp_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
@@ -235,10 +181,6 @@ int launch_fused(const void* src, void* dst, const void* a_inv, const void* b_in
 // Both passes of the production orientation: (B, H, W, C) f32 NHWC in and
 // out, the inverse map a_inv (B, 2, 2) and b_inv (B, 2) f32, strips of tw
 // columns.  The wrapper picks tw by its shape rule.
-extern "C" long long shear_warp_fused_smem_bytes(int h, int chans, int tw) {
-  return (long long)h * tw * chans * (long long)sizeof(float);
-}
-
 extern "C" int shear_warp_fused(const void* src, void* dst, const void* a_inv, const void* b_inv,
                                 int batch, int h, int w, int chans, int tw, void* stream) {
   return launch_fused<Strip::kRows>(src, dst, a_inv, b_inv, batch, h, w, chans, tw, stream);
@@ -249,21 +191,4 @@ extern "C" int shear_warp_fused_rowmajor(const void* src, void* dst, const void*
                                          const void* b_inv, int batch, int h, int w, int chans,
                                          int tw, void* stream) {
   return launch_fused<Strip::kLines>(src, dst, a_inv, b_inv, batch, h, w, chans, tw, stream);
-}
-
-// src_strides and dst_strides: 4 element strides each, (b, n, x, c).
-extern "C" int shear_pass(const void* src, void* dst, const void* pars, int batch, int lines,
-                          int s_in, int s_out, int chans, const long long* src_strides,
-                          const long long* dst_strides, int order, void* stream) {
-  const long long per_image = (long long)lines * s_out;
-  if (batch == 0 || per_image == 0 || chans == 0) return 0;
-  if (order < 0 || order > 1 || batch > 65535 || per_image > 0x7fffffffLL - kThreads)
-    return (int)cudaErrorInvalidValue;
-  const Strides ss{src_strides[0], src_strides[1], src_strides[2], src_strides[3]};
-  const Strides ds{dst_strides[0], dst_strides[1], dst_strides[2], dst_strides[3]};
-  const dim3 grid((unsigned)((per_image + kThreads - 1) / kThreads), (unsigned)batch);
-  shear_pass_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst), static_cast<const float*>(pars),
-      lines, s_in, s_out, chans, ss, ds, order);
-  return (int)cudaGetLastError();
 }

@@ -26,13 +26,12 @@ spans are flat: none encloses another on a thread.
   once.  Its counters ``PredictorGraphs.captures`` and ``.replays``
   (``predict.graphs`` on the returned function) count the calls that
   captured a graph and those that replayed one captured before;
-- the K-step dispatch (``train.DispatchGraphs.run``,
-  ``_CapturedDispatch.replay``, ``_eager_steps``): ``dispatch.prepare``
-  (the graphs' refresh and the static inputs' copies),
-  ``dispatch.rates`` (the K learning rates), ``dispatch.replay`` (the
-  graph's launch) and ``dispatch.outputs`` (counters, gradients and
-  metrics after it).  No span encloses a capture, which would enclose
-  the model's spans;
+- the K-step dispatch (``train.DispatchGraphs.run``, ``_eager_steps``):
+  ``dispatch.prepare`` (the graphs' refresh and the static inputs'
+  copies), ``dispatch.rates`` (the K learning rates), ``dispatch.replay``
+  (the graph's launch and the launch counters it adds) and
+  ``dispatch.outputs`` (the step count, gradients and metrics after it).
+  No span encloses a capture, which would enclose the model's spans;
 - the fused Fourier MRF pass's backward (``ops/mrf_fft_fused._FusedPass``):
   ``mrf.vjp`` (the plain Fourier pass recomputed under autograd and its
   VJP), on the thread that runs the backward (the autograd engine's, on

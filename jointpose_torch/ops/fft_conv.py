@@ -25,8 +25,7 @@ version beside it on CPU tensors:
 R never reach device memory on the first two.  Inside an entry the kernel
 body is a rule on the shapes too (``tail_body``): the build form runs the
 ring version where it fits, the register-staged tensor-core version or
-the CUDA-core version elsewhere; ``tail_kdft_regstaged`` runs the
-register-staged version on its own, as a timed entry.
+the CUDA-core version elsewhere.
 
 Numerics: every contraction accumulates fp32; intermediates round to the
 input's compute dtype (bf16 for bf16 inputs, else fp32).  The kernels and
@@ -56,7 +55,6 @@ _SIGNATURES = {
     "fft_conv_tail_kdft_resident": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "fft_conv_tail_kdft": ([_P] * 9 + [_I] * 9 + [_P], _I),
     "fft_conv_tail_kf": ([_P] * 7 + [_I] * 8 + [_P], _I),
-    "fft_conv_tail_kdft_regstaged": ([_P] * 9 + [_I] * 9 + [_P], _I),
 }
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # Tile constants of csrc/fft_conv_tail.cu.
@@ -400,32 +398,9 @@ def tail_kf(xr, xi, kr, ki, t) -> torch.Tensor:
     return out
 
 
-def tail_kdft_regstaged(xr, xi, a_re, a_im, t) -> torch.Tensor:
-    """The build form's register-staged tensor-core version, which the ring
-    version replaced on the rows 6 and 7 path, kept as a timed entry: the
-    ``kdft`` entry's batch tiles, bf16 shapes that version takes only."""
-    if xr.device.type == "cpu":
-        return tail_kdft_plain(xr, xi, a_re, a_im, t)
-    kh = a_re.shape[1] if a_re.dim() == 4 else 0
-    g, ph, b, ci, co, h = _check_tail("tail_kdft_regstaged", xr, xi, a_re, a_im, kh, t)
-    itemsize = xr.element_size()
-    if not (tail_fits("kdft", ph, b, kh, itemsize) and _regstaged_takes(
-            "kdft", ph, _entry_tile("kdft", ph, b, kh, itemsize), ci, co, kh, itemsize)):
-        raise ValueError(f"tail_kdft_regstaged does not take Ph={ph}, batch={b}, Ci={ci}, "
-                         f"Co={co}, kernel height {kh}, {xr.dtype}")
-    tb = _entry_tile("kdft", ph, b, kh, itemsize)
-    out = torch.empty((h, 2, g, b, co), dtype=xr.dtype, device=xr.device)
-    _run("fft_conv_tail_kdft_regstaged",
-         (xr, xi, a_re, a_im, t["gr"], t["ir_t"], t["gpack"], t["irpack"]), out,
-         (g, ph, b, ci, co, kh, h, tb, xr.element_size()))
-    tail_kdft_regstaged.launches += 1
-    return out
-
-
 tail_kdft_resident.launches = 0
 tail_kdft.launches = 0
 tail_kf.launches = 0
-tail_kdft_regstaged.launches = 0
 
 
 # --- the conv ---------------------------------------------------------------

@@ -26,13 +26,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "mrf_epilogue_fwd": ([_P, _I, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, _P], _I),
-    "mrf_epilogue_fwd_pervalue": (
-        [_P, _I, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, _P], _I
-    ),
-    "mrf_epilogue_fwd_tiled": (
-        [_P, _I, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, _P], _I
-    ),
-    "mrf_epilogue_fwd_empty": ([ctypes.c_longlong, _I, _I, _P], _I),
     "mrf_epilogue_bwd_partials": ([ctypes.c_longlong, _I, _I], _I),
     "mrf_epilogue_bwd": (
         [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, _P], _I
@@ -107,56 +100,23 @@ def _check(resp: torch.Tensor, biases: torch.Tensor, what: str) -> tuple[int, in
     return b * h * w, kv, ka
 
 
-def _launch_fwd(entry: str, resp: torch.Tensor, biases: torch.Tensor, eps: float) -> torch.Tensor:
-    rows, kv, ka = _check(resp, biases, entry)
-    lib = _build.load("mrf_epilogue", _SIGNATURES)
-    out = torch.empty((*resp.shape[:3], ka), dtype=torch.float32, device=resp.device)
-    with torch.cuda.device(resp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            resp.data_ptr(), int(resp.dtype == torch.bfloat16), biases.data_ptr(),
-            out.data_ptr(), rows, kv, ka, eps, stream,
-        )
-    _build.check(err, entry)
-    return out
-
-
 def mrf_epilogue_fwd(resp: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """The forward alone: the kernel on CUDA tensors, the plain version on CPU ones."""
     if resp.device.type == "cpu":
         return mrf_epilogue_plain(resp, biases, eps)
-    out = _launch_fwd("mrf_epilogue_fwd", resp, biases, eps)
+    rows, kv, ka = _check(resp, biases, "mrf_epilogue_fwd")
+    lib = _build.load("mrf_epilogue", _SIGNATURES)
+    out = torch.empty((*resp.shape[:3], ka), dtype=torch.float32, device=resp.device)
+    with torch.cuda.device(resp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mrf_epilogue_fwd(
+            resp.data_ptr(), int(resp.dtype == torch.bfloat16), biases.data_ptr(),
+            out.data_ptr(), rows, kv, ka, eps, stream,
+        )
+    _build.check(err, "mrf_epilogue_fwd")
     mrf_epilogue.launches += 1
     perf.count_kernel("mrf_epilogue", fwd_cost, resp, biases)
     return out
-
-
-def mrf_epilogue_fwd_pervalue(
-    resp: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
-) -> torch.Tensor:
-    """The forward kernel's first design (the Kv logs added one by one):
-    CUDA tensors only.  No path of the package calls it; the kernel is held
-    and timed against it."""
-    return _launch_fwd("mrf_epilogue_fwd_pervalue", resp, biases, eps)
-
-
-def mrf_epilogue_fwd_tiled(
-    resp: torch.Tensor, biases: torch.Tensor, eps: float = 1e-6
-) -> torch.Tensor:
-    """The first design's sums in the backward's layout (16-byte vectors
-    through shared memory): CUDA tensors only, bit-identical to
-    ``mrf_epilogue_fwd_pervalue`` and slower, kept for timing."""
-    return _launch_fwd("mrf_epilogue_fwd_tiled", resp, biases, eps)
-
-
-def mrf_epilogue_fwd_empty(resp: torch.Tensor, biases: torch.Tensor) -> None:
-    """Launch a kernel of the forward's grid, block and shared memory that
-    reads and writes nothing: the floor under the forward's time."""
-    rows, kv, ka = _check(resp, biases, "mrf_epilogue_fwd_empty")
-    lib = _build.load("mrf_epilogue", _SIGNATURES)
-    with torch.cuda.device(resp.device):
-        err = lib.mrf_epilogue_fwd_empty(rows, kv, ka, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "mrf_epilogue_fwd_empty")
 
 
 def mrf_epilogue_bwd(

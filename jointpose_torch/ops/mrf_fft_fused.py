@@ -12,9 +12,7 @@ kernel of ``csrc/mrf_fft_tail.cu`` on ``mma.sync``; at ``'default'`` one
 TF32 pass (the reference's ``Precision.DEFAULT``), the kernel of
 ``csrc/mrf_fft_tail_wgmma.cu`` on ``wgmma``.  Their launches are counted
 apart, in ``fused_tail.launches`` and ``fused_tail.launches_1pass``.
-``fused_tail_1pass_mma_sync`` is the single pass's earlier design, the
-``mma.sync`` kernel's one-pass form, kept as a timed entry that no path
-takes.  Only the forward DFTs' outputs cross device memory; the (B, Kv,
+Only the forward DFTs' outputs cross device memory; the (B, Kv,
 Ka, H, W) responses never exist (where a kernel splits an output tile's
 source joints over blocks or warpgroups, partial log-sums of that tile
 do, in a scratch of output-sized planes).  ``fused_tail_emulated``
@@ -42,7 +40,7 @@ from jointpose_torch.ops.mrf_fft import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mrf_fft_tail": ([_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P], _I),
+    "mrf_fft_tail": ([_P] * 10 + [_I] * 7 + [ctypes.c_float, _P], _I),
     "mrf_fft_tail_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "mrf_fft_tail_scratch_parts": ([], _I),
 }
@@ -234,8 +232,8 @@ def _padded_bins(t: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, -g % 8))[..., :g]
 
 
-def _mma_sync(pf, kf, tables, biases, eps: float, passes: int) -> torch.Tensor:
-    """One launch of ``csrc/mrf_fft_tail.cu`` (3xTF32 or one TF32 pass)."""
+def _mma_sync(pf, kf, tables, biases, eps: float) -> torch.Tensor:
+    """One launch of ``csrc/mrf_fft_tail.cu`` (3xTF32)."""
     b, kv, ka, ph, g, h, w, spectra = _operands(pf, kf, tables, biases, "fused_tail",
                                                 images=False)
     lib = _build.load("mrf_fft_tail", _SIGNATURES)
@@ -254,7 +252,7 @@ def _mma_sync(pf, kf, tables, biases, eps: float, passes: int) -> torch.Tensor:
         err = lib.mrf_fft_tail(
             *(t.data_ptr() for t in spectra), tables["ir"].data_ptr(),
             tables["ict_re"].data_ptr(), tables["ict_im"].data_ptr(), biases.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), b, kv, ka, ph, g, h, w, eps, passes, stream,
+            out.data_ptr(), scratch.data_ptr(), b, kv, ka, ph, g, h, w, eps, stream,
         )
     _build.check(err, "mrf_fft_tail")
     return out
@@ -301,7 +299,7 @@ def fused_tail(pf, kf, tables, biases, eps: float = 1e-6,
         out = _wgmma(pf, kf, tables, biases, eps)
         fused_tail.launches_1pass += 1
     else:
-        out = _mma_sync(pf, kf, tables, biases, eps, passes=3)
+        out = _mma_sync(pf, kf, tables, biases, eps)
         fused_tail.launches += 1
     perf.count_kernel("mrf_fft_tail_1pass" if one_pass else "mrf_fft_tail", tail_cost,
                       pf, kf, tables, biases)
@@ -310,21 +308,6 @@ def fused_tail(pf, kf, tables, biases, eps: float = 1e-6,
 
 fused_tail.launches = 0  # 3xTF32 launches
 fused_tail.launches_1pass = 0  # single-pass TF32 launches
-
-
-def fused_tail_1pass_mma_sync(pf, kf, tables, biases, eps: float = 1e-6) -> torch.Tensor:
-    """The single pass's earlier design, kept as a timed entry that no path
-    takes: the one-pass form of the ``mma.sync`` kernel of
-    ``csrc/mrf_fft_tail.cu`` (operands rounded at fragment load).  The
-    same function as ``fused_tail(..., precision='default')``."""
-    if pf[0].device.type == "cpu":
-        return fused_tail_plain(pf, kf, tables, biases, eps)
-    out = _mma_sync(pf, kf, tables, biases, eps, passes=1)
-    fused_tail_1pass_mma_sync.launches += 1
-    return out
-
-
-fused_tail_1pass_mma_sync.launches = 0
 
 
 class _FusedPass(torch.autograd.Function):

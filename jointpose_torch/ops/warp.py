@@ -13,20 +13,16 @@ axis-aligned maps, close to it under rotation.
 
 ``shear_warp`` (the reference's production orientation) and
 ``shear_warp_rowmajor`` (its cross-orientation oracle) both take and
-return NHWC.  On CUDA tensors they launch the kernels of
+return NHWC.  On CUDA tensors they launch the fused kernel of
 ``csrc/shear_warp.cu`` or raise; on CPU tensors they run the plain
 version ``shear_warp_reference``, the dense-hat fp32 oracle.  Each is one
-launch of the fused kernel: a block per (image, strip of output columns)
-keeps the strip's intermediate in shared memory, (H, TW, C) for
-``shear_warp`` and (TW, H, C), the row-major orientation's own, for
-``shear_warp_rowmajor`` (``strip_width`` is the shape rule of both;
-``shear_warp_strips`` repeats their arithmetic per strip in plain
-PyTorch).  ``shear_warp_two_pass`` and ``shear_warp_rowmajor_two_pass``,
-two launches of the one-pass kernel with the intermediate in device
-memory, are each orientation's earlier design, kept as timed entries:
-the fused kernels are bit-equal to them.  The kernels compute the two
-nonzero taps of each hat in fp32; the TPU kernel applies the dense hat
-as a bf16 matmul.
+launch: a block per (image, strip of output columns) keeps the strip's
+pass-1 intermediate in shared memory, (H, TW, C) for ``shear_warp`` and
+(TW, H, C), the row-major orientation's own, for ``shear_warp_rowmajor``
+(``strip_width`` is the shape rule of both).  ``shear_warp_strips``
+repeats the kernel's arithmetic per strip in plain PyTorch, and the
+kernel is bit-equal to it.  The kernel computes the two nonzero taps of
+each hat in fp32; the TPU kernel applies the dense hat as a bf16 matmul.
 """
 
 from __future__ import annotations
@@ -39,9 +35,7 @@ from jointpose_torch import _build, perf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "shear_pass": ([_P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _STRIDES, _I, _P], _I),
     "shear_warp_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "shear_warp_fused_rowmajor": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
 }
@@ -53,11 +47,6 @@ _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # H100 80GB HBM3 at 700 W (chip_smoke.py's sweep).
 _STRIP_WIDTHS = (32, 16, 8, 4, 2, 1)
 _STRIP_BUDGET = _SMEM_LIMIT // 8
-# Which axis neighbouring threads of the kernel walk, matched to the
-# output's memory order: the lines n for an output whose n sits next to
-# the channels, the positions o for a (B, N, C, S_out) output.
-_LINES_FASTEST = 0
-_POSITIONS_FASTEST = 1
 
 
 def _pass_params(a_inv: torch.Tensor, b_inv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -188,21 +177,6 @@ def _check(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, what:
         raise ValueError(f"{what}: a_inv must be ({b}, 2, 2) and b_inv ({b}, 2)")
 
 
-def _pass(src, dst, pars, geometry, src_strides, dst_strides, order) -> None:
-    """Launch one pass.  ``geometry`` is (B, lines, S_in, S_out, C); the
-    strides are (b, n, x, c) in elements."""
-    lib = _build.load("shear_warp", _SIGNATURES)
-    ss = (ctypes.c_longlong * 4)(*src_strides)
-    ds = (ctypes.c_longlong * 4)(*dst_strides)
-    pars = pars.contiguous()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.shear_pass(
-            src.data_ptr(), dst.data_ptr(), pars.data_ptr(), *geometry, ss, ds, order, stream,
-        )
-    _build.check(err, "shear_pass")
-
-
 def shear_warp(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> torch.Tensor:
     """Warp (B, H, W, C) f32 images by src = A_inv dst + b_inv -> (B, H, W, C) f32.
 
@@ -240,30 +214,6 @@ def _fused(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor, tw: i
 shear_warp.launches = 0
 
 
-def shear_warp_two_pass(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> torch.Tensor:
-    """The production orientation's earlier design, kept as a timed entry:
-    two launches of the one-pass kernel, the intermediate channel-major per
-    source row, (B, H, C, Xo), in device memory.  Pass 1 reads the NHWC
-    input directly; pass 2 reads the intermediate along y and writes NHWC.
-    """
-    if images.device.type == "cpu":
-        return shear_warp_reference(images, a_inv, b_inv)
-    _check(images, a_inv, b_inv, "shear_warp_two_pass")
-    b, h, w, c = images.shape
-    p1, p2 = _pass_params(a_inv, b_inv)
-    t1 = torch.empty((b, h, c, w), dtype=torch.float32, device=images.device)
-    _pass(images, t1, p1, (b, h, w, w, c), (h * w * c, w * c, c, 1), (h * c * w, c * w, 1, w),
-          _POSITIONS_FASTEST)
-    out = torch.empty_like(images)
-    _pass(t1, out, p2, (b, w, h, h, c), (h * c * w, 1, c * w, w), (h * w * c, c, w * c, 1),
-          _LINES_FASTEST)
-    shear_warp_two_pass.launches += 2
-    return out
-
-
-shear_warp_two_pass.launches = 0
-
-
 def shear_warp_rowmajor(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.Tensor) -> torch.Tensor:
     """The same warp in the reference's row-major orientation, in one
     launch of the fused kernel: each strip's pass-1 intermediate kept in
@@ -280,26 +230,3 @@ def shear_warp_rowmajor(images: torch.Tensor, a_inv: torch.Tensor, b_inv: torch.
 
 
 shear_warp_rowmajor.launches = 0
-
-
-def shear_warp_rowmajor_two_pass(images: torch.Tensor, a_inv: torch.Tensor,
-                                 b_inv: torch.Tensor) -> torch.Tensor:
-    """The row-major orientation's earlier design, kept as a timed entry:
-    two launches of the one-pass kernel, pass 1 mapping (B, H, W, C) to
-    (B, Xo, H, C) in device memory, pass 2 that to (B, Yo, Xo, C)."""
-    if images.device.type == "cpu":
-        return shear_warp_reference(images, a_inv, b_inv)
-    _check(images, a_inv, b_inv, "shear_warp_rowmajor_two_pass")
-    b, h, w, c = images.shape
-    p1, p2 = _pass_params(a_inv, b_inv)
-    t1 = torch.empty((b, w, h, c), dtype=torch.float32, device=images.device)
-    _pass(images, t1, p1, (b, h, w, w, c), (h * w * c, w * c, c, 1), (w * h * c, c, h * c, 1),
-          _LINES_FASTEST)
-    out = torch.empty_like(images)
-    _pass(t1, out, p2, (b, w, h, h, c), (w * h * c, h * c, c, 1), (h * w * c, c, w * c, 1),
-          _LINES_FASTEST)
-    shear_warp_rowmajor_two_pass.launches += 2
-    return out
-
-
-shear_warp_rowmajor_two_pass.launches = 0

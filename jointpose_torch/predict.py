@@ -33,6 +33,7 @@ import torch
 
 from jointpose_torch.cli import add_device_flag, apply_device
 from jointpose_torch.configs import Config
+from jointpose_torch.graphs import Graph, GraphPool
 from jointpose_torch.metrics import span
 from jointpose_torch.models.detector import spatial_features
 from jointpose_torch.models.pose import PoseModel, make_logits_tail_fn, unit_images
@@ -175,26 +176,24 @@ def _graph_anchors(model: torch.nn.Module) -> list[int]:
 
 
 class PredictorGraphs:
-    """The graph form of the predictor's call: one ``torch.cuda.CUDAGraph``
-    per input key (shape, dtype), each reading a static input buffer; all
-    of a predictor's graphs share one memory pool and one capture stream.
+    """The graph form of the predictor's call: one CUDA graph
+    (``graphs.Graph``) per input key (shape, dtype), each reading a static
+    input buffer; all of a predictor's graphs share one
+    ``graphs.GraphPool``.
 
-    - A key's first call on a thread runs eagerly on the capture stream:
-      it builds the kernels, and creates the thread's cuDNN and cuBLAS
-      handles and their workspaces for that stream (a capture cannot
-      allocate them: a service warms its keys on one thread and captures
-      on its dispatcher's).  The key's next call captures (``captures``)
-      and replays the graph; later calls, on any thread, replay it
-      (``replays``).  A capture that fails raises: nothing falls back to
-      eager in silence.
+    - A key's first call on a thread runs eagerly on the capture stream
+      (``GraphPool.warm``): it builds the kernels, and creates the
+      thread's cuDNN and cuBLAS handles and their workspaces for that
+      stream (a capture cannot allocate them: a service warms its keys on
+      one thread and captures on its dispatcher's).  The key's next call
+      captures (``captures``) and replays the graph; later calls, on any
+      thread, replay it (``replays``).  A capture that fails raises:
+      nothing falls back to eager in silence.
     - A replay copies the caller's images into the key's static buffer
       (span ``input``; synchronous from host memory, as ``images.to``),
       then launches the graph and clones its coordinates and heatmaps on
       the same stream (span ``replay``), so that a caller keeps each
       call's answers while it makes the next.
-    - A capture puts the kernels' launch counters (``ops.launch_counters``)
-      back as it found them; each replay adds the launches the capture
-      recorded, so a counter keeps meaning launches that reached the card.
     - The graphs read the model's parameters in place: when one of them,
       or a buffer, moves to other storage, the graphs are dropped and each
       key starts again from an eager call.
@@ -208,11 +207,10 @@ class PredictorGraphs:
         self.model = model
         self.device = device
         self.enabled = graph_predictor(device, model)
-        self.graphs: dict = {}
+        self.graphs: dict = {}  # key -> (graph, static images)
         self.warm: set = set()
         self.anchors: list[int] | None = None
-        self.stream = None
-        self.pool = None
+        self.pool = GraphPool()
         self.captures = 0
         self.replays = 0
 
@@ -226,66 +224,32 @@ class PredictorGraphs:
             if anchors != self.anchors:
                 self.release()
                 self.anchors = anchors
-            if self.stream is None:
-                self.stream, self.pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
-            graph = self.graphs.get(key)
-            if graph is None and warm not in self.warm:
-                current = torch.cuda.current_stream()
-                self.stream.wait_stream(current)
-                with torch.cuda.stream(self.stream):
-                    out = self.forward(images)
-                current.wait_stream(self.stream)
+            entry = self.graphs.get(key)
+            if entry is None and warm not in self.warm:
+                out = self.pool.warm(lambda: self.forward(images))
                 self.warm.add(warm)
                 return out
-            if graph is None:
-                graph = self.graphs[key] = _CapturedCall(self.forward, images, self.device,
-                                                         self.stream, self.pool)
+            if entry is None:
+                static = torch.empty(images.shape, dtype=images.dtype, device=self.device)
+                entry = self.graphs[key] = (Graph(self.pool, lambda: self.forward(static)),
+                                            static)
                 self.captures += 1
             else:
                 self.replays += 1
-            return graph.replay(images)
+            graph, static = entry
+            with span("input"):
+                static.copy_(images)
+            with span("replay"):
+                graph.replay()
+                coords, probs = graph.out
+                return coords.clone(), probs.clone()
 
     def release(self) -> None:
-        """Drop the graphs, their memory pool and the warm keys of every
-        thread."""
+        """Drop the graphs, their pool and the warm keys of every thread."""
         self.graphs.clear()
         self.warm.clear()
         self.anchors = None
-        self.pool = None
-        self.stream = None
-
-
-class _CapturedCall:
-    """One captured predictor call, its static input and its outputs."""
-
-    def __init__(self, forward, images, device, stream, pool):
-        from jointpose_torch.ops import launch_counters
-
-        self.images = torch.empty(images.shape, dtype=images.dtype, device=device)
-        self.graph = torch.cuda.CUDAGraph()
-        self.counters = launch_counters()
-        before = [getattr(holder, name) for holder, name in self.counters]
-        try:
-            # 'thread_local': a service's other threads wait on the card's
-            # events while its dispatcher captures; the default 'global'
-            # mode refuses their calls and invalidates the capture.
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.coords, self.probs = forward(self.images)
-            self.launches = [getattr(holder, name) - n
-                             for (holder, name), n in zip(self.counters, before)]
-        finally:
-            for (holder, name), n in zip(self.counters, before):
-                setattr(holder, name, n)
-
-    def replay(self, images: torch.Tensor):
-        with span("input"):
-            self.images.copy_(images)
-        with span("replay"):
-            self.graph.replay()
-            for (holder, name), n in zip(self.counters, self.launches):
-                setattr(holder, name, getattr(holder, name) + n)
-            return self.coords.clone(), self.probs.clone()
+        self.pool.release()
 
 
 def init_state_dict(config: Config, generator: torch.Generator) -> dict[str, torch.Tensor]:

@@ -90,6 +90,7 @@ from jointpose_torch.configs import Config, get_config
 from jointpose_torch.data.augment import AugmentParams, augment_batch, random_augment_params
 from jointpose_torch.data.pipeline import as_index
 from jointpose_torch.data.targets import image_to_heatmap_coords, render_gaussian_heatmaps
+from jointpose_torch.graphs import Graph, GraphPool
 from jointpose_torch.losses import heatmap_loss, mrf_heatmap_loss
 from jointpose_torch.metrics import span
 from jointpose_torch.models.mrf import priors_to_raw_kernels
@@ -460,23 +461,22 @@ def _graph_anchors(state: TrainState) -> list[int]:
 
 
 class DispatchGraphs:
-    """The graph form of the K-step dispatch: one ``torch.cuda.CUDAGraph``
-    per multi-step function, captured at its first dispatch once its stage
-    is warm, then replayed; all of a state's graphs share one memory pool
-    and one capture stream.
+    """The graph form of the K-step dispatch: one CUDA graph
+    (``graphs.Graph``) per multi-step function, captured at its first
+    dispatch once its stage is warm, then replayed; all of a state's graphs
+    share one ``graphs.GraphPool``.
 
-    - A stage's first dispatch runs eagerly, on the capture stream: it
-      creates the optimizer's state (a capture would record its creation
-      and replay it) and sets cuDNN and cuBLAS up for that stream; over a
-      mesh its collectives create the communicator of every process group
-      the step uses (NCCL creates one at a group's first collective, which
-      a capture cannot hold).
+    - A stage's first dispatch runs eagerly, on the capture stream
+      (``GraphPool.warm``): it creates the optimizer's state (a capture
+      would record its creation and replay it) and sets cuDNN and cuBLAS
+      up for that stream; over a mesh its collectives create the
+      communicator of every process group the step uses (NCCL creates one
+      at a group's first collective, which a capture cannot hold).
     - A capture records the K steps' launches on the card and nothing on
-      the host: the state's step count and the kernels' launch counters
-      are put back afterwards; each replay advances the step count by K,
-      adds the launches the capture recorded to the counters, and
-      advances the augmentation generator (registered with the graph) as
-      K eager steps would.
+      the host: the state's step count is put back afterwards, as the
+      kernels' launch counters are; each replay advances the step count by
+      K, and the augmentation generator (registered with the graph) as K
+      eager steps would.
     - The host fills the graph's static inputs (indices or batches) and
       its K learning rates before each replay, and clones the last step's
       metrics after it; each parameter's ``.grad`` is then the graph's
@@ -493,11 +493,10 @@ class DispatchGraphs:
     """
 
     def __init__(self):
-        self.graphs: dict = {}
+        self.graphs: dict = {}  # key -> (graph, static inputs, static rates, gradients)
         self.warm: set[str] = set()
         self.anchors: list[int] | None = None
-        self.stream = None
-        self.pool = None
+        self.pool = GraphPool()
 
     def refresh(self, state, mesh=None) -> bool:
         """Throw the graphs away, and forget the warm stages, when what they
@@ -518,100 +517,71 @@ class DispatchGraphs:
         return key in self.graphs and _graph_anchors(state) == self.anchors
 
     def release(self) -> None:
-        """Drop the graphs and forget the warm stages.  Over an nccl mesh a
-        graph holds the communicators of the collectives it captured:
-        NCCL destroys a communicator (``destroy_process_group``) only once
-        no graph holds it."""
+        """Drop the graphs, their pool and the warm stages.  Over an nccl
+        mesh a graph holds the communicators of the collectives it
+        captured: NCCL destroys a communicator (``destroy_process_group``)
+        only once no graph holds it."""
         self.graphs.clear()
         self.warm.clear()
         self.anchors = None
+        self.pool.release()
 
     def run(self, key, state, stage, k, body, lr_fn, inputs, batch_of, mesh=None):
         device = next(state.model.parameters()).device
         with torch.cuda.device(device):
-            if self.stream is None:
-                self.stream, self.pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
             with span("dispatch.prepare"):
                 self.refresh(state, mesh)
             if stage not in self.warm:
-                current = torch.cuda.current_stream()
-                self.stream.wait_stream(current)
-                with torch.cuda.stream(self.stream):
-                    out = _eager_steps(state, k, body, lr_fn, inputs, batch_of)
-                current.wait_stream(self.stream)
+                out = self.pool.warm(
+                    lambda: _eager_steps(state, k, body, lr_fn, inputs, batch_of))
                 self.warm.add(stage)
                 self.anchors = _graph_anchors(state)
                 return out
-            graph = self.graphs.get(key)
-            if graph is None:
-                graph = self.graphs[key] = self._capture(state, k, body, inputs, batch_of, mesh)
-            return graph.replay(state, lr_fn, inputs)
+            entry = self.graphs.get(key)
+            if entry is None:
+                entry = self.graphs[key] = self._capture(state, k, body, inputs, batch_of, mesh)
+            graph, static, lrs, grads = entry
+            with span("dispatch.prepare"):
+                for name, v in inputs.items():
+                    static[name].copy_(v, non_blocking=True)
+            with span("dispatch.rates"):
+                lrs.copy_(_learning_rates(state.optimizer, lr_fn, state.step, k))
+            with span("dispatch.replay"):
+                graph.replay()
+            with span("dispatch.outputs"):
+                state.step += k
+                for p, g in zip(state.model.parameters(), grads):
+                    p.grad = g
+                return state, {name: v.clone() for name, v in graph.out.items()}
 
     def _capture(self, state, k, body, inputs, batch_of, mesh):
         """Capture a dispatch on every rank, or raise on every rank: a rank
         whose capture failed must not leave the others replaying
         collectives it never joins.  Nothing is run eagerly instead."""
+        device = next(state.model.parameters()).device
+        static = {name: torch.empty(v.shape, dtype=v.dtype, device=device)
+                  for name, v in inputs.items()}
+        lrs = torch.zeros(k, dtype=torch.float32, device=device)
+
+        def steps():
+            first = state.step
+            try:
+                for i in range(k):
+                    _, metrics = body(state, batch_of(static, i), lrs[i])
+            finally:
+                state.step = first
+            return metrics
+
         failure = None
         try:
-            graph = _CapturedDispatch(state, k, body, inputs, batch_of, self.stream, self.pool)
+            graph = Graph(self.pool, steps, state.generator)
         except Exception as e:  # agreed on with the other ranks, then raised
             failure = e
         if mesh is not None and mesh.any(failure is not None) and failure is None:
             raise RuntimeError("the capture of a K-step dispatch failed on another rank of the mesh")
         if failure is not None:
             raise failure
-        return graph
-
-
-class _CapturedDispatch:
-    """One captured K-step dispatch and its static tensors."""
-
-    def __init__(self, state, k, body, inputs, batch_of, stream, pool):
-        from jointpose_torch.ops import launch_counters
-
-        device = next(state.model.parameters()).device
-        self.inputs = {name: torch.empty(v.shape, dtype=v.dtype, device=device)
-                       for name, v in inputs.items()}
-        self.lrs = torch.zeros(k, dtype=torch.float32, device=device)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(state.generator)
-        self.counters = launch_counters()
-        before = [getattr(holder, name) for holder, name in self.counters]
-        first = state.step
-        try:
-            # 'thread_local': over an nccl mesh, ProcessGroupNCCL's watchdog
-            # thread queries the CUDA events of finished collectives while a
-            # capture runs; in the default 'global' mode such a call from
-            # another thread is refused and invalidates the capture.
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                for i in range(k):
-                    state, metrics = body(state, batch_of(self.inputs, i), self.lrs[i])
-            self.launches = [getattr(holder, name) - n
-                             for (holder, name), n in zip(self.counters, before)]
-        finally:
-            state.step = first
-            for (holder, name), n in zip(self.counters, before):
-                setattr(holder, name, n)
-        self.metrics = metrics
-        self.grads = [p.grad for p in state.model.parameters()]
-
-    def replay(self, state, lr_fn, inputs):
-        k = self.lrs.numel()
-        with span("dispatch.prepare"):
-            for name, v in inputs.items():
-                self.inputs[name].copy_(v, non_blocking=True)
-        with span("dispatch.rates"):
-            self.lrs.copy_(_learning_rates(state.optimizer, lr_fn, state.step, k))
-        with span("dispatch.replay"):
-            self.graph.replay()
-        with span("dispatch.outputs"):
-            state.step += k
-            for (holder, name), n in zip(self.counters, self.launches):
-                setattr(holder, name, getattr(holder, name) + n)
-            for p, g in zip(state.model.parameters(), self.grads):
-                p.grad = g
-            return state, {name: v.clone() for name, v in self.metrics.items()}
+        return graph, static, lrs, [p.grad for p in state.model.parameters()]
 
 
 def init_mrf_from_priors(state: TrainState, priors) -> TrainState:

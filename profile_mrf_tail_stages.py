@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What each stage of the fused Fourier MRF tail costs on the card.
 
-    python3 profile_mrf_tail_stages.py [--source PATH] [--batch 8] [--passes 3]
+    python3 profile_mrf_tail_stages.py [--source PATH] [--batch 8]
     python3 profile_mrf_tail_stages.py --wgmma [--batch 8]
 
 Builds ``jointpose_torch/csrc/mrf_fft_tail.cu`` (or ``--source``: any
@@ -18,10 +18,9 @@ earlier CUDA-core kernel, so that a checkout of an older commit's source
 can be profiled by the same script, and the single pass's ``wgmma``
 kernel (``--wgmma``: ``csrc/mrf_fft_tail_wgmma.cu``, or a ``--source``
 holding ``wgmma.mma_async``), whose set also has variants that change a
-knob instead of cutting a stage.  ``--passes 1`` times the single-pass
-TF32 form (MRF precision 'default') of an ``mma.sync`` source whose entry
-takes the number of passes.  Each build's registers and spills (``ptxas
--v``) are printed beside its time.  Needs a CUDA card and ``nvcc``.
+knob instead of cutting a stage.  An ``mma.sync`` source whose entry
+takes the number of passes (an older commit's) is timed at 3xTF32.  Each
+build's registers and spills (``ptxas -v``) are printed beside its time.  Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -50,8 +49,7 @@ TENSOR_CORE_ANCHORS = {
         "ls[m][e] += logf(fmaxf(o[m][e] + bv, p.eps));",
         "ls[m][e] += o[m][e] + bv;"),
     # Plain TF32: a third of the mma, all of the loads and splits.  The
-    # difference from the whole kernel is what two thirds of the mma cost
-    # (nothing for --passes 1, which issues the hi*hi term alone).
+    # difference from the whole kernel is what two thirds of the mma cost.
     "with the hi*hi term only": [
         ("  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);\n", ""),
         ("  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);\n", "")],
@@ -112,8 +110,6 @@ def main() -> int:
     parser.add_argument("--source", type=Path, default=None,
                         help="a version of mrf_fft_tail.cu (default: the package's)")
     parser.add_argument("--batch", type=int, default=8)
-    parser.add_argument("--passes", type=int, choices=[1, 3], default=3,
-                        help="3xTF32 (3) or the single TF32 pass (1), where the source has both")
     parser.add_argument("--wgmma", action="store_true",
                         help="the single pass's wgmma kernel (csrc/mrf_fft_tail_wgmma.cu)")
     args = parser.parse_args()
@@ -133,9 +129,7 @@ def main() -> int:
     wgmma = "wgmma.mma_async" in src
     anchors = (WGMMA_ANCHORS if wgmma else TENSOR_CORE_ANCHORS if "mma.sync" in src
                else CUDA_CORE_ANCHORS)
-    takes_passes = "int passes" in src  # the entry's argument since the single-pass form
-    if args.passes != 3 and not takes_passes and not wgmma:
-        raise SystemExit(f"{path} has only the 3xTF32 form")
+    takes_passes = "int passes" in src  # an older entry's argument: 3 for 3xTF32
     b, k, (h, w), window = args.batch, 9, (60, 90), (45, 67)
     t = dft_tables((h, w), window, torch.device("cuda"))
     ph, g = t["ir_re"].shape[1], t["ict_re"].shape[0]
@@ -159,10 +153,10 @@ def main() -> int:
         entry = "mrf_fft_tail"
         kind = "mma.sync" if anchors is TENSOR_CORE_ANCHORS else "CUDA-core"
     pointers = [v.data_ptr() for v in operands]
-    passes = 1 if wgmma else args.passes
+    passes = 1 if wgmma else 3
     print(f"{path}: {kind} kernel, {passes} pass(es), B={b}, Kv=Ka={k}, H={h}, W={w}, Ph={ph}, "
           f"G={g}")
-    extra = [args.passes] if takes_passes else []
+    extra = [3] if takes_passes else []
     geometry = [b, k, k, ph, g, stride, h, w] if wgmma else [b, k, k, ph, g, h, w]
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}

@@ -42,7 +42,7 @@ PRESETS = ("joint", "joint_default", "joint_fft", "flagship", "flagship_pallas")
 PORT_KERNELS = ("mrf_epilogue_fwd_kernel", "mrf_epilogue_bwd_kernel",
                 "mrf_epilogue_bias_reduce_kernel", "mrf_fft_tail_kernel",
                 "mrf_fft_tail_combine_kernel", "mrf_tail_wgmma_kernel",
-                "mrf_tail_wgmma_combine_kernel", "shear_pass_kernel", "shear_warp_fused_kernel",
+                "mrf_tail_wgmma_combine_kernel", "shear_warp_fused_kernel",
                 "tail_kernel", "tail_mma_kernel", "tail_ring_kernel")
 
 

@@ -1,16 +1,14 @@
 #!/usr/bin/env python3
 """What each stage of the bf16 tensor-core head-conv tail costs on the card.
 
-    python3 profile_tail_stages.py [--version ring|regstaged]
+    python3 profile_tail_stages.py
 
 Builds ``jointpose_torch/csrc/fft_conv_tail.cu`` as it is and copies with
-one stage of a kernel cut out each, and times them at the paper head
-(60×90, 9×9, 128→512, batch 8, bf16, seeded operands): the difference from
-the whole kernel is what that stage costs where it sits.  ``--version
-ring`` (the default) cuts ``tail_ring_kernel``, timed through the
-resident entry (the served path); ``regstaged`` cuts the register-staged
-``tail_mma_kernel``, timed through its own entry.  The cut copies compute
-wrong results; only their times are read.  Each cut is a textual
+one stage of ``tail_ring_kernel`` cut out each, and times them through the
+resident entry (the served path) at the paper head (60×90, 9×9, 128→512,
+batch 8, bf16, seeded operands): the difference from the whole kernel is
+what that stage costs where it sits.  The cut copies compute wrong
+results; only their times are read.  Each cut is a textual
 replacement that must match the source exactly once, so an edit of the
 kernel that moves an anchor fails here loudly; a variant may make
 several cuts at once.  Needs a CUDA card and
@@ -29,76 +27,54 @@ from pathlib import Path
 import torch
 
 ANCHORS = {
-    "regstaged": {
-        "whole kernel": None,
-        "without the inverse row DFT": (
-            "const int m_tiles = round_up(2 * h, 32) / 16;",
-            "const int m_tiles = (h < 0) ? 2 : 0;"),
-        "without the K_f build": (
-            "    if constexpr (BUILD) {\n      // Build: this warp's two input channels",
-            "    if (BUILD && ph < 0) {\n      // Build: this warp's two input channels"),
-        "without the pointwise product": (
-            "#pragma unroll\n    for (int j = 0; j < 2; ++j) {\n      const int fl = warp + kWarps * j;\n"
-            "      // lane -> matrix",
-            "#pragma unroll\n    for (int j = 0; j < (ph < 0 ? 2 : 0); ++j) {\n"
-            "      const int fl = warp + kWarps * j;\n      // lane -> matrix"),
-        "without the stores of staged operands": ("    commit();\n", "    if (ph < 0) commit();\n"),
-        "without the loads of the next step's operands": (
-            "    if (step + 1 < nsteps) fetch(step + 1);",
-            "    if (step + 1 < nsteps && ph < 0) fetch(step + 1);"),
-    },
-    "ring": {
-        "whole kernel": None,
-        "without the inverse row DFT": (
-            "for (int pair = mh; pair < ir_rows / 32; pair += 2) {",
-            "for (int pair = mh; pair < (h < 0 ? ir_rows / 32 : 0); pair += 2) {"),
-        "without staging the inverse table": (
-            "  for (int u = tid; u < ir_rows * chunks; u += kRingThreads) {",
-            "  for (int u = tid; u < (h < 0 ? ir_rows * chunks : 0); u += kRingThreads) {"),
-        "without the K_f build": (
-            "    for (int n = 0; n < 4; ++n) {\n      uint32_t bf[4];\n      ldsm_x4_trans(bf, a_st",
-            "    for (int n = 0; n < (ph < 0 ? 4 : 0); ++n) {\n      uint32_t bf[4];\n"
-            "      ldsm_x4_trans(bf, a_st"),
-        "without the pointwise product": (
-            "      for (int np = 0; np < 2; ++np) {\n        uint32_t bf[4];\n"
-            "        ldsm_x4_trans(bf, kf_base + np * 32);",
-            "      for (int np = 0; np < (ph < 0 ? 2 : 0); ++np) {\n        uint32_t bf[4];\n"
-            "        ldsm_x4_trans(bf, kf_base + np * 32);"),
-        "without the barrier between build and pointwise": (
-            "    __syncthreads();  // K_f of the step is complete",
-            "    if (ph < 0) __syncthreads();"),
-        "without the copies of later steps' operands": (
-            "    if (step + kRingStages - 1 < nsteps) issue(step + kRingStages - 1);",
-            "    if (step + kRingStages - 1 < nsteps && ph < 0) issue(step + kRingStages - 1);"),
-        "without the copies of a'": (
-            "      if (a_dst[k] >= 0) cp_async16(", "      if (a_dst[k] >= 0 && ph < 0) cp_async16("),
-        "without the copies of X": (
-            "    cp_async16(st + x_dst, valid", "    if (ph < 0) cp_async16(st + x_dst, valid"),
-        "without the copies, the build, the pointwise product and the inverse (the walk's skeleton)": [
-            ("      if (a_dst[k] >= 0) cp_async16(", "      if (a_dst[k] >= 0 && ph < 0) cp_async16("),
-            ("    cp_async16(st + x_dst, valid", "    if (ph < 0) cp_async16(st + x_dst, valid"),
-            ("    for (int n = 0; n < 4; ++n) {\n      uint32_t bf[4];\n      ldsm_x4_trans(bf, a_st",
-             "    for (int n = 0; n < (ph < 0 ? 4 : 0); ++n) {\n      uint32_t bf[4];\n"
-             "      ldsm_x4_trans(bf, a_st"),
-            ("      for (int np = 0; np < 2; ++np) {\n        uint32_t bf[4];\n"
-             "        ldsm_x4_trans(bf, kf_base + np * 32);",
-             "      for (int np = 0; np < (ph < 0 ? 2 : 0); ++np) {\n        uint32_t bf[4];\n"
-             "        ldsm_x4_trans(bf, kf_base + np * 32);"),
-            ("for (int pair = mh; pair < ir_rows / 32; pair += 2) {",
-             "for (int pair = mh; pair < (h < 0 ? ir_rows / 32 : 0); pair += 2) {"),
-        ],
-        "without the stores of R and of the output": (
-            "    if (last) {\n      // R = conj(K_f) . X, rounded to bf16: rows f (re) and Ph + f (im).\n"
-            "      const int f = f0 + warp;",
-            "    if (last && ph < 0) {\n      const int f = f0 + warp;"),
-    },
+    "whole kernel": None,
+    "without the inverse row DFT": (
+        "for (int pair = mh; pair < ir_rows / 32; pair += 2) {",
+        "for (int pair = mh; pair < (h < 0 ? ir_rows / 32 : 0); pair += 2) {"),
+    "without staging the inverse table": (
+        "  for (int u = tid; u < ir_rows * chunks; u += kRingThreads) {",
+        "  for (int u = tid; u < (h < 0 ? ir_rows * chunks : 0); u += kRingThreads) {"),
+    "without the K_f build": (
+        "    for (int n = 0; n < 4; ++n) {\n      uint32_t bf[4];\n      ldsm_x4_trans(bf, a_st",
+        "    for (int n = 0; n < (ph < 0 ? 4 : 0); ++n) {\n      uint32_t bf[4];\n"
+        "      ldsm_x4_trans(bf, a_st"),
+    "without the pointwise product": (
+        "      for (int np = 0; np < 2; ++np) {\n        uint32_t bf[4];\n"
+        "        ldsm_x4_trans(bf, kf_base + np * 32);",
+        "      for (int np = 0; np < (ph < 0 ? 2 : 0); ++np) {\n        uint32_t bf[4];\n"
+        "        ldsm_x4_trans(bf, kf_base + np * 32);"),
+    "without the barrier between build and pointwise": (
+        "    __syncthreads();  // K_f of the step is complete",
+        "    if (ph < 0) __syncthreads();"),
+    "without the copies of later steps' operands": (
+        "    if (step + kRingStages - 1 < nsteps) issue(step + kRingStages - 1);",
+        "    if (step + kRingStages - 1 < nsteps && ph < 0) issue(step + kRingStages - 1);"),
+    "without the copies of a'": (
+        "      if (a_dst[k] >= 0) cp_async16(", "      if (a_dst[k] >= 0 && ph < 0) cp_async16("),
+    "without the copies of X": (
+        "    cp_async16(st + x_dst, valid", "    if (ph < 0) cp_async16(st + x_dst, valid"),
+    "without the copies, the build, the pointwise product and the inverse (the walk's skeleton)": [
+        ("      if (a_dst[k] >= 0) cp_async16(", "      if (a_dst[k] >= 0 && ph < 0) cp_async16("),
+        ("    cp_async16(st + x_dst, valid", "    if (ph < 0) cp_async16(st + x_dst, valid"),
+        ("    for (int n = 0; n < 4; ++n) {\n      uint32_t bf[4];\n      ldsm_x4_trans(bf, a_st",
+         "    for (int n = 0; n < (ph < 0 ? 4 : 0); ++n) {\n      uint32_t bf[4];\n"
+         "      ldsm_x4_trans(bf, a_st"),
+        ("      for (int np = 0; np < 2; ++np) {\n        uint32_t bf[4];\n"
+         "        ldsm_x4_trans(bf, kf_base + np * 32);",
+         "      for (int np = 0; np < (ph < 0 ? 2 : 0); ++np) {\n        uint32_t bf[4];\n"
+         "        ldsm_x4_trans(bf, kf_base + np * 32);"),
+        ("for (int pair = mh; pair < ir_rows / 32; pair += 2) {",
+         "for (int pair = mh; pair < (h < 0 ? ir_rows / 32 : 0); pair += 2) {"),
+    ],
+    "without the stores of R and of the output": (
+        "    if (last) {\n      // R = conj(K_f) . X, rounded to bf16: rows f (re) and Ph + f (im).\n"
+        "      const int f = f0 + warp;",
+        "    if (last && ph < 0) {\n      const int f = f0 + warp;"),
 }
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--version", choices=sorted(ANCHORS), default="ring")
-    opts = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
         print("profile_tail_stages: no CUDA device", file=sys.stderr)
         return 2
@@ -117,13 +93,10 @@ def main() -> int:
     ar, ai = ((torch.randn(g, kh, ci, co, generator=gen) / 30).cuda().to(dt) for _ in range(2))
     out = torch.empty(h, 2, g, b, co, dtype=dt, device="cuda")
     pointers = [v.data_ptr() for v in (xr, xi, ar, ai, t["gr"], t["ir_t"], t["gpack"], t["irpack"], out)]
-    if opts.version == "ring":
-        entry, ints = "fft_conv_tail_kdft_resident", (g, ph, b, ci, co, kh, h, 2)
-    else:
-        entry, ints = "fft_conv_tail_kdft_regstaged", (g, ph, b, ci, co, kh, h, b, 2)
+    entry, ints = "fft_conv_tail_kdft_resident", (g, ph, b, ci, co, kh, h, 2)
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for i, (name, cut) in enumerate(ANCHORS[opts.version].items()):
+        for i, (name, cut) in enumerate(ANCHORS.items()):
             text = src
             for old, new in [] if cut is None else cut if isinstance(cut, list) else [cut]:
                 if text.count(old) != 1:
@@ -157,7 +130,7 @@ def main() -> int:
             end.synchronize()
             ms = start.elapsed_time(end) / 20
             base = ms if base is None else base
-            print(f"{opts.version} {name}: {ms:.4f} ms ({base - ms:+.4f} ms saved), on {smi}")
+            print(f"ring {name}: {ms:.4f} ms ({base - ms:+.4f} ms saved), on {smi}")
     return 0
 
 

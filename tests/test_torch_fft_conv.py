@@ -267,9 +267,17 @@ def test_spectra_come_in_the_layouts_the_tails_read():
     assert _rel(a_im, em("gx,yxio->gyio", t["gc_im"], k)) <= CONV_RTOL
 
 
-def test_regstaged_tail_on_the_cpu_is_the_plain_version():
+@pytest.mark.parametrize("entry", ["kdft_resident", "kdft", "kf"])
+def test_cpu_tails_are_the_plain_version_and_launch_nothing(entry):
     ops, _, tables, h = _tail_operands()
     t = {n: torch.from_numpy(v) for n, v in ops.items()}
-    got = tfc.tail_kdft_regstaged(t["xr"], t["xi"], t["ar"], t["ai"], tables)
-    assert torch.equal(got, tfc.tail_kdft_plain(t["xr"], t["xi"], t["ar"], t["ai"], tables))
-    assert tfc.tail_kdft_regstaged.launches == 0
+    if entry == "kf":
+        operands = (t["xr"], t["xi"], *tfc._kf_from_a(t["ar"], t["ai"], tables), tables)
+        want = tfc.tail_kf_plain(*operands)
+    else:
+        operands = (t["xr"], t["xi"], t["ar"], t["ai"], tables)
+        want = tfc.tail_kdft_plain(*operands)
+    fn = getattr(tfc, f"tail_{entry}")
+    before = fn.launches
+    assert torch.equal(fn(*operands), want)
+    assert fn.launches == before

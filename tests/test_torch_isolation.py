@@ -77,7 +77,7 @@ def test_fit_modules_are_among_the_guarded_sources():
     assert {"jointpose_torch/train.py", "jointpose_torch/evaluate.py", "jointpose_torch/priors.py",
             "jointpose_torch/checkpoint.py", "jointpose_torch/metrics.py",
             "jointpose_torch/data/flic.py", "jointpose_torch/data/synthetic.py",
-            "jointpose_torch/data/pipeline.py", "profile_epilogue_fwd.py",
+            "jointpose_torch/data/pipeline.py", "profile_tail_stages.py", "jointpose_torch/graphs.py",
             "jointpose_torch/serve.py", "jointpose_torch/resilience.py"} <= names
 
 

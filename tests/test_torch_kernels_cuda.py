@@ -90,12 +90,10 @@ def test_epilogue_fwd_kernel_on_ragged_rows(cuda, dtype, shape):
     resp.view(-1)[::7] = -1.0  # clamped at eps
     got = tme.mrf_epilogue_fwd(resp, biases)
     assert got.shape == shape[:3] + shape[-1:] and got.dtype == torch.float32
-    assert _rel(got, tme.mrf_epilogue_plain(resp, biases)) <= KERNEL_RTOL
-    # One log of a product per chunk against the logs added one by one: a
-    # rounding apart (1e-6 of the result), and the same on a second run.
-    first = tme.mrf_epilogue_fwd_pervalue(resp, biases)
-    assert _rel(got, first) <= 1e-6
-    assert torch.equal(tme.mrf_epilogue_fwd_tiled(resp, biases), first)
+    # One log of a product per chunk against the plain version's logs added
+    # one by one: a rounding apart (1e-6 of the result), and the same on a
+    # second run.
+    assert _rel(got, tme.mrf_epilogue_plain(resp, biases)) <= 1e-6
     assert torch.equal(tme.mrf_epilogue_fwd(resp, biases), got)
 
 
@@ -103,10 +101,13 @@ def test_epilogue_fwd_kernel_passes_on_non_finite_responses(cuda):
     resp = torch.rand(1, 4, 8, K, K, device=cuda) * 0.02
     resp[0, 0, 0, 0, 0], resp[0, 0, 1, 2, 3], resp[0, 2, 2, 4, 4] = float("inf"), float("nan"), 3e38
     biases = torch.zeros(K, K, device=cuda)
-    got, first = tme.mrf_epilogue_fwd(resp, biases), tme.mrf_epilogue_fwd_pervalue(resp, biases)
-    assert torch.isinf(got[0, 0, 0, 0]) and torch.equal(torch.isfinite(got), torch.isfinite(first))
-    finite = torch.isfinite(first)
-    assert _rel(got[finite], first[finite]) <= 1e-6
+    got = tme.mrf_epilogue_fwd(resp, biases)
+    # The kernel's clamp (fmaxf) reads a NaN response as eps, where the plain
+    # version's clamp_min passes it on: the plain version of a zero there.
+    want = tme.mrf_epilogue_plain(torch.where(resp.isnan(), 0.0, resp), biases)
+    assert torch.isinf(got[0, 0, 0, 0]) and torch.equal(torch.isfinite(got), torch.isfinite(want))
+    finite = torch.isfinite(want)
+    assert _rel(got[finite], want[finite]) <= 1e-6
 
 
 def test_fit_tiny_on_the_card(cuda, tmp_path):
@@ -259,7 +260,7 @@ FUSED_WARP_SHAPES = [(32, 240, 360, 3), (3, 17, 29, 2), (2, 3000, 7, 3)]
 
 @pytest.mark.parametrize("extreme", [False, True], ids=["full_draw", "extreme"])
 @pytest.mark.parametrize("shape", FUSED_WARP_SHAPES)
-def test_fused_shear_warp_is_bit_equal_to_two_pass(cuda, shape, extreme):
+def test_fused_shear_warp_is_bit_equal_to_its_strips(cuda, shape, extreme):
     b, h, w, _ = shape
     images = torch.rand(shape, generator=torch.Generator().manual_seed(4)).to(cuda)
     if extreme:
@@ -269,21 +270,19 @@ def test_fused_shear_warp_is_bit_equal_to_two_pass(cuda, shape, extreme):
             torch.Generator().manual_seed(5), b, AugmentConfig(crop_frac_range=(0.8, 1.0)), (h, w)),
             (h, w))
     a_inv, b_inv = a_inv.to(cuda), b_inv.to(cuda)
-    before = (tw.shear_warp.launches, tw.shear_warp_two_pass.launches)
+    before = tw.shear_warp.launches
     got = tw.shear_warp(images, a_inv, b_inv)
-    two = tw.shear_warp_two_pass(images, a_inv, b_inv)
-    assert (tw.shear_warp.launches, tw.shear_warp_two_pass.launches) == (before[0] + 1, before[1] + 2)
-    assert torch.equal(got, two)
+    assert tw.shear_warp.launches == before + 1
     assert (got - tw.shear_warp_reference(images, a_inv, b_inv)).abs().max().item() <= WARP_ATOL
     assert torch.equal(got, tw.shear_warp_strips(images.cpu(), a_inv.cpu(), b_inv.cpu()).to(cuda))
 
 
 @pytest.mark.parametrize("extreme", [False, True], ids=["full_draw", "extreme"])
 @pytest.mark.parametrize("shape", FUSED_WARP_SHAPES)
-def test_fused_rowmajor_warp_is_bit_equal_to_its_two_launch_form(cuda, shape, extreme):
+def test_fused_rowmajor_warp_is_bit_equal_to_its_strips(cuda, shape, extreme):
     """The row-major orientation in one launch, its strip's intermediate as
-    (TW, H, C): the two-launch form's operations in its order, and the
-    production orientation's values."""
+    (TW, H, C): its strips' operations in their order, and the production
+    orientation's values."""
     b, h, w, _ = shape
     images = torch.rand(shape, generator=torch.Generator().manual_seed(4)).to(cuda)
     if extreme:
@@ -293,12 +292,9 @@ def test_fused_rowmajor_warp_is_bit_equal_to_its_two_launch_form(cuda, shape, ex
             torch.Generator().manual_seed(5), b, AugmentConfig(crop_frac_range=(0.8, 1.0)), (h, w)),
             (h, w))
     a_inv, b_inv = a_inv.to(cuda), b_inv.to(cuda)
-    before = (tw.shear_warp_rowmajor.launches, tw.shear_warp_rowmajor_two_pass.launches)
+    before = tw.shear_warp_rowmajor.launches
     got = tw.shear_warp_rowmajor(images, a_inv, b_inv)
-    two = tw.shear_warp_rowmajor_two_pass(images, a_inv, b_inv)
-    assert (tw.shear_warp_rowmajor.launches,
-            tw.shear_warp_rowmajor_two_pass.launches) == (before[0] + 1, before[1] + 2)
-    assert torch.equal(got, two)
+    assert tw.shear_warp_rowmajor.launches == before + 1
     assert torch.equal(got, tw.shear_warp(images, a_inv, b_inv))
     assert (got - tw.shear_warp_reference(images, a_inv, b_inv)).abs().max().item() <= WARP_ATOL
     strips = tw.shear_warp_strips(images.cpu(), a_inv.cpu(), b_inv.cpu(), rowmajor=True)
@@ -420,17 +416,14 @@ JOINT_BATCHES = [((60, 90), (45, 67), b) for b in (1, 8, 16, 32)]
 
 
 @pytest.mark.parametrize("hw,win,batch", JOINT_BATCHES)
-def test_wgmma_tail_matches_its_earlier_design_and_repeats(cuda, hw, win, batch):
-    """The wgmma kernel against the mma.sync kernel's one-pass form (the
-    timed entry no path takes), its own grouping of the sums emulated, and
-    fp32; then a rerun, bit-identical."""
+def test_wgmma_tail_matches_its_emulation_and_repeats(cuda, hw, win, batch):
+    """The wgmma kernel against one TF32 pass emulated, its own grouping of
+    the sums emulated, and fp32; then a rerun, bit-identical."""
     pf, kf, tables, biases = _fft_tail_operands(cuda, hw, win, batch, K, K, False)
-    before = (tmff.fused_tail.launches_1pass, tmff.fused_tail_1pass_mma_sync.launches)
+    before = tmff.fused_tail.launches_1pass
     got = tmff.fused_tail(pf, kf, tables, biases, precision="default")
-    old = tmff.fused_tail_1pass_mma_sync(pf, kf, tables, biases)
-    assert (tmff.fused_tail.launches_1pass,
-            tmff.fused_tail_1pass_mma_sync.launches) == (before[0] + 1, before[1] + 1)
-    assert _rel(got, old) <= KERNEL_RTOL
+    assert tmff.fused_tail.launches_1pass == before + 1
+    assert _rel(got, tmff.fused_tail_emulated(pf, kf, tables, biases, passes=1)) <= KERNEL_RTOL
     chunked = tmff.fused_tail_emulated(pf, kf, tables, biases, passes=1, chunk=32)
     assert _rel(got, chunked) <= KERNEL_RTOL
     assert _rel(got, tmff.fused_tail_plain(pf, kf, tables, biases)) <= SINGLE_PASS_RTOL
@@ -500,7 +493,7 @@ RING_CASES = [(entry, geom) for entry in ("kdft_resident", "kdft") for geom in R
 
 
 @pytest.mark.parametrize("entry,geom", RING_CASES)
-def test_ring_tail_matches_plain_and_the_register_staged_version(cuda, entry, geom):
+def test_ring_tail_matches_plain_and_repeats(cuda, entry, geom):
     b, h, w, kh, ci, co = geom
     t, xr, xi, ar, ai = _tail_operands(geom, torch.bfloat16, cuda)
     ph = xr.shape[1]
@@ -512,9 +505,6 @@ def test_ring_tail_matches_plain_and_the_register_staged_version(cuda, entry, ge
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert _rel(got, tfc.tail_kdft_plain(xr, xi, ar, ai, t)) <= TAIL_RTOL[torch.bfloat16]
-    if body == "ring":
-        old = tfc.tail_kdft_regstaged(xr, xi, ar, ai, t)
-        assert _rel(got, old) <= TAIL_RTOL[torch.bfloat16]
     assert torch.equal(fn(xr, xi, ar, ai, t), got)
 
 

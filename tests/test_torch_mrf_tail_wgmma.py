@@ -150,14 +150,15 @@ def test_cpu_wrappers_run_the_plain_tail_without_launching():
     p, kernels, biases = _inputs((9, 10), (6, 8), 1, seed=2)
     pf, kf, tables = tmf.forward_ffts(torch.from_numpy(p), torch.from_numpy(kernels))
     b = torch.from_numpy(biases)
-    before = (tmff.fused_tail.launches_1pass, tmff.fused_tail_1pass_mma_sync.launches)
+    before = (tmff.fused_tail.launches_1pass, tmff.fused_tail.launches)
     want = tmff.fused_tail_plain(pf, kf, tables, b)
     assert torch.equal(tmff.fused_tail(pf, kf, tables, b, precision="default"), want)
-    assert torch.equal(tmff.fused_tail_1pass_mma_sync(pf, kf, tables, b), want)
-    assert (tmff.fused_tail.launches_1pass, tmff.fused_tail_1pass_mma_sync.launches) == before
+    assert torch.equal(tmff.fused_tail(pf, kf, tables, b, precision="high"), want)
+    assert (tmff.fused_tail.launches_1pass, tmff.fused_tail.launches) == before
     counters = ops.launch_counters()
-    for holder in (tmff.fused_tail_1pass_mma_sync, tw.shear_warp_rowmajor_two_pass):
-        assert (holder, "launches") in counters
+    for counter in ((tmff.fused_tail, "launches"), (tmff.fused_tail, "launches_1pass"),
+                    (tw.shear_warp_rowmajor, "launches")):
+        assert counter in counters
 
 
 def _draw(seed, batch, hw):

@@ -275,10 +275,12 @@ for name, (cfg, mesh) in kmeshes.items():
     out["kstep", name] = (snapshot(multi, got), snapshot(single, want))
 
 # The recapture decision over the mesh: DispatchGraphs.run's flow on the
-# CPU, where a stub stands for each capture (it records it, and each of its
-# replays, and runs the K steps eagerly).  Between two dispatches the
-# optimizer state of the mesh's rank 1 is reloaded (new tensors, as from a
-# checkpoint): every rank must warm the stage again, then capture alike.
+# CPU, where a stub stands for each captured graph (it records its capture
+# and each of its replays, and runs nothing), and the optimizer holds its
+# rates as 0-d tensors, as make_optimizer has them on the card.  Between
+# two dispatches the optimizer state of the mesh's rank 1 is reloaded (new
+# tensors, as from a checkpoint): every rank must warm the stage again,
+# then capture alike.
 from jointpose_torch import train as ttrain
 
 events = []
@@ -288,15 +290,20 @@ fail_capture = False  # set where a rank's capture is to raise
 
 
 class StubCapture:
-    def __init__(self, state, k, body, inputs, batch_of, stream, pool):
+    def __init__(self, pool, fn, generator=None):
         events[-1].append("capture")
         if fail_capture:
             raise RuntimeError("stub capture failed")
-        self.k, self.body, self.batch_of = k, body, batch_of
+        self.out = {}
 
-    def replay(self, state, lr_fn, inputs):
+    def replay(self):
         events[-1].append("replay")
-        return ttrain._eager_steps(state, self.k, self.body, lr_fn, inputs, self.batch_of)
+
+
+def card_rates(state):
+    for group in state.optimizer.param_groups:
+        group["lr"] = torch.tensor(float(group["lr"]))
+    return state
 
 
 stream = types.SimpleNamespace(wait_stream=lambda other: None)
@@ -310,7 +317,7 @@ def recorded_refresh(self, state, mesh=None):
 with contextlib.ExitStack() as stack:
     for target, attr, value in (
             (ttrain, "graph_dispatch", lambda device, mesh=None: True),
-            (ttrain, "_CapturedDispatch", StubCapture),
+            (ttrain, "Graph", StubCapture),
             (ttrain.DispatchGraphs, "refresh", recorded_refresh),
             (torch.cuda, "device", lambda device: contextlib.nullcontext()),
             (torch.cuda, "stream", lambda s: contextlib.nullcontext()),
@@ -320,19 +327,20 @@ with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(target, attr, value))
     for name, (cfg, mesh) in kmeshes.items():
         ds = make_dataset(cfg.data, "cpu")[0]
-        state = kstate(cfg, mesh)
+        state = card_rates(kstate(cfg, mesh))
         multi = make_train_multistep(cfg, "joint", ds.get_batch, 2, mesh)
         events.clear()
         for d in range(5):
             if d == 3 and mesh.rank == 1:
                 opt = state.optimizer
                 opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+                card_rates(state)
             state, _ = multi(state, rank_rows(mesh, 2 * d, 2))
         out["recapture", name] = [tuple(e) for e in events]
     # A capture that fails on the mesh's rank 1 raises on every rank.
     for name, (cfg, mesh) in kmeshes.items():
         ds = make_dataset(cfg.data, "cpu")[0]
-        state = kstate(cfg, mesh)
+        state = card_rates(kstate(cfg, mesh))
         multi = make_train_multistep(cfg, "joint", ds.get_batch, 2, mesh)
         state, _ = multi(state, rank_rows(mesh, 0, 2))
         fail_capture = mesh.rank == 1
