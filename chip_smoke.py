@@ -2,12 +2,14 @@
 """On-card smoke run of the PyTorch/CUDA port (``jointpose_torch``).
 
     python3 chip_smoke.py [--save-joint FILE] [--joint-reference FILE] [--grouped-corr]
+                          [--upsample-log]
 
 ``--save-joint`` writes the served ``joint`` coordinates and heatmaps
 (phase 3) to an ``.npz``; ``--joint-reference`` compares them with such a
 file from another version of the port (same seeds, so same weights and
 images) and prints the differences.  ``--grouped-corr`` builds and runs
-the MRF grouped correlation's entry of phase 12 alone.
+the MRF grouped correlation's entry of phase 12 alone, ``--upsample-log``
+the coarse pass's upsample and unary log's (the two together with both).
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and when
 the package is missing.  Phases, each fatal on failure:
@@ -162,9 +164,12 @@ the package is missing.  Phases, each fatal on failure:
    head at batch 1, 8, 16 and 32; then ``flagship``'s MRF grouped
    correlation (``grouped_corr_phase``) at batch 32 and 128 against its
    plain version, bit-repeatable, in turns with cuDNN's grouped fprop, and
-   its launches in a served ``flagship`` batch.  The int8 detector is
-   timed in phase 9, against the bf16 cuDNN detector in turns, with each
-   conv's im2col and ``torch._int_mm``.
+   its launches in a served ``flagship`` batch; then the coarse pass's
+   upsample and unary log (``upsample_log_phase``): forward at batch 128
+   and 32, backward at 32, against the composition it replaced and in
+   turns with it, and its launches in served ``flagship`` batches.  The
+   int8 detector is timed in phase 9, against the bf16 cuDNN detector in
+   turns, with each conv's im2col and ``torch._int_mm``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -979,6 +984,133 @@ def grouped_corr_phase(smi: str) -> dict:
             "max_abs_err": top["max_abs_err"], "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "batch32": rows[flag.train.batch_size]}
+
+
+# The coarse pass's upsample and unary log (csrc/mrf_upsample.cu) against
+# the composition it replaced, PyTorch's kernels on the card: the same taps,
+# weights and order of operations, and nvcc contracts the products into
+# fused multiply-adds as PyTorch's build does: bit-equal.  Its coarse
+# gradient sums the terms of PyTorch's atomics in another order.
+UPSAMPLE_GRAD_RTOL = 1e-5
+
+
+def fp32_ulps(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:
+    """(largest distance in fp32 units in the last place, values that differ)."""
+    def ordered(t):
+        i = t.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = (ordered(got) - ordered(want)).abs()
+    return int(d.max().item()), int((d > 0).sum().item())
+
+
+def upsample_log_phase(smi: str) -> dict:
+    """The last step of ``flagship``'s coarse MRF pass on the card
+    (``ops.mrf_upsample.mrf_upsample_log``): coarse log-messages (B, 30, 45,
+    9) fp32 upsampled to the bf16 unaries' 60x90 and added to their log.
+    The forward at batch 128 and 32 and the backward at 32 against the plain
+    version, the composition the path ran before (``F.interpolate``, clamp,
+    log and add, and autograd's backward of it: the library's time, so the
+    plain and library times are one number), each twice bit for bit; then
+    timed by CUDA-graph replays in turns with it, beside the byte bound; and
+    its launches in 2 served ``flagship`` batches.  Returns the kernels
+    line's entry, the batch-32 numbers under ``batch32`` and the backward's
+    under ``backward32``."""
+    from jointpose_torch import get_config
+    from jointpose_torch.ops import mrf_upsample as mu
+
+    flag = get_config("flagship")
+    k, s, eps = flag.num_joints, flag.mrf.stride, flag.mrf.eps
+    ch, cw = (n // s for n in flag.heatmap_hw)
+    gen = torch.Generator().manual_seed(23)
+    rows = {}
+    for batch in (128, flag.train.batch_size):
+        coarse = (4 * torch.randn(batch, ch, cw, k, generator=gen) - 30).cuda()
+        p = unaries(gen, batch, ch * s, cw * s, k, torch.bfloat16)
+        got = mu.mrf_upsample_log(coarse, p, eps)
+        again = mu.mrf_upsample_log(coarse, p, eps)
+        want = mu.mrf_upsample_log_plain(coarse, p, eps)
+        torch.cuda.synchronize()
+        ulps, differ = fp32_ulps(got, want)
+        check(torch.equal(got, again), f"mrf_upsample_log at batch {batch}: two calls differ")
+        check(ulps == 0, f"mrf_upsample_log at batch {batch} is {ulps} ulps from the composition")
+
+        def kernel():
+            mu.mrf_upsample_log(coarse, p, eps)
+
+        def library():
+            mu.mrf_upsample_log_plain(coarse, p, eps)
+
+        turns = [time_ms(fn) for fn in (library, kernel, kernel, library)]
+        n_bytes, n_ops = mu.fwd_cost(coarse, p)
+        b_ms, by = bound(n_bytes, n_ops)
+        ms, library_ms = min(turns[1], turns[2]), min(turns[0], turns[3])
+        rows[batch] = {"ms": ms, "library_ms": library_ms, "plain_ms": library_ms,
+                       "bound_ms": b_ms, "bound_by": by, "max_ulps": ulps, "values_differing": differ,
+                       "bit_equal": ulps == 0, "turns_ms": turns}
+        print(f"mrf_upsample_log at batch {batch} (coarse {tuple(coarse.shape)} fp32, p "
+              f"{tuple(p.shape)} bf16, fp32 out): against the composition, {ulps} ulps at most, "
+              f"{differ} of {got.numel()} values differ; two calls bit-identical; CUDA-graph "
+              f"replays in turns, composition / kernel / kernel / composition: "
+              f"{' / '.join(f'{t:.6f}' for t in turns)} ms; kernel {ms:.6f} ms, "
+              f"{library_ms / ms:.1f}x faster, bound {b_ms:.6f} ms by {by} ({b_ms / ms:.1%} of it, "
+              f"{n_bytes / ms / 1e6:.0f} GB/s); on {smi}")
+        check(b_ms <= ms, "mrf_upsample_log beats its bound: the bound is wrong")
+        if batch != flag.train.batch_size:
+            continue
+        g = torch.randn(p.shape, generator=gen).cuda()
+        c_ref, p_ref = coarse.clone().requires_grad_(True), p.clone().requires_grad_(True)
+
+        def library_fb():
+            out_ref = mu.mrf_upsample_log_plain(c_ref, p_ref, eps)
+            return torch.autograd.grad(out_ref, (c_ref, p_ref), g)
+
+        want_c, want_p = library_fb()
+        got_c, got_p = mu.mrf_upsample_log_bwd(g, p, tuple(coarse.shape), eps)
+        again = mu.mrf_upsample_log_bwd(g, p, tuple(coarse.shape), eps)
+        torch.cuda.synchronize()
+        err = rel_err(got_c, want_c)
+        check(torch.equal(got_c, again[0]) and torch.equal(got_p, again[1]),
+              "mrf_upsample_log_bwd: two calls differ")
+        check(err[0] <= UPSAMPLE_GRAD_RTOL and torch.equal(got_p, want_p),
+              f"mrf_upsample_log_bwd disagrees with autograd of the composition: dcoarse {err}, "
+              f"dp equal {torch.equal(got_p, want_p)}")
+
+        def kernel_bwd():
+            mu.mrf_upsample_log_bwd(g, p, tuple(coarse.shape), eps)
+
+        # The composition's backward alone: its forward and backward, by
+        # autograd on the capture's stream, less its forward's time above.
+        turns = [time_ms(fn) for fn in (library_fb, kernel_bwd, kernel_bwd, library_fb)]
+        n_bytes, n_ops = mu.bwd_cost(g, p, coarse.numel())
+        b_ms, by = bound(n_bytes, n_ops)
+        ms = min(turns[1], turns[2])
+        library_ms = min(turns[0], turns[3]) - rows[batch]["library_ms"]
+        rows["backward32"] = {"ms": ms, "library_ms": library_ms, "plain_ms": library_ms,
+                              "bound_ms": b_ms, "bound_by": by, "dcoarse_rel_err": err[0],
+                              "dp_bit_equal": True, "turns_ms": turns}
+        print(f"mrf_upsample_log_bwd at batch {batch}: against autograd of the composition, "
+              f"dcoarse rel err / max abs {err[0]:.3e} / {err[1]:.3e} (limit "
+              f"{UPSAMPLE_GRAD_RTOL:g}), dp bit-equal; two calls bit-identical; CUDA-graph "
+              f"replays in turns, the composition's forward and backward / kernel / kernel / "
+              f"the same: "
+              f"{' / '.join(f'{t:.6f}' for t in turns)} ms; kernel {ms:.6f} ms, "
+              f"{library_ms / ms:.1f}x faster than the composition's backward ({library_ms:.6f} "
+              f"ms), bound {b_ms:.6f} ms by {by} ({b_ms / ms:.1%} of it); on {smi}")
+        check(b_ms <= ms, "mrf_upsample_log_bwd beats its bound: the bound is wrong")
+    served = serve(flag, seed=3, counters={"mrf_upsample_log": mu.mrf_upsample_log}, requests=2,
+                   batch=BATCH)
+    launches = served["launches"]["mrf_upsample_log"]
+    print(f"mrf_upsample_log launches in 2 served batches of {BATCH} of flagship as the preset "
+          f"stands: {launches}")
+    check(launches == 2, f"served flagship launched mrf_upsample_log {launches} times in 2 batches")
+    top = rows[128]
+    return {"name": "mrf_upsample_log", "route": "cuda",
+            "source": "jointpose_torch/csrc/mrf_upsample.cu", "replaces": None,
+            "launches": launches, "max_ulps": top["max_ulps"], "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "batch32": rows[flag.train.batch_size],
+            "backward32": rows["backward32"]}
 
 
 # The fp32-output grouped conv's hand-written backward (the reference's
@@ -2157,7 +2289,8 @@ def observe_phase(config, joint, counters: dict, smi: str) -> None:
           f"{' / '.join(f'{t:.3f}' for t in turns)} ms: the profiler adds "
           f"{profiled_ms / plain_ms - 1:.1%}; on {smi}")
     check({name: k["launches"] for name, k in kernels.items()}
-          == {"shear_warp": 1, "mrf_epilogue": 1, "mrf_epilogue_bwd": 1},
+          == {"shear_warp": 1, "mrf_epilogue": 1, "mrf_epilogue_bwd": 1, "mrf_upsample_log": 1,
+              "mrf_upsample_log_bwd": 1},
           f"count_cost: the path's kernels reported {kernels}")
     del state, train_ds
 
@@ -4141,6 +4274,8 @@ def main() -> int:
                         help=argparse.SUPPRESS)  # a rank of the nccl_kstep phase's worlds
     parser.add_argument("--grouped-corr", action="store_true",
                         help="run only the MRF grouped correlation's entry and exit")
+    parser.add_argument("--upsample-log", action="store_true",
+                        help="run only the coarse pass's upsample and unary log's entry and exit")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -4179,14 +4314,16 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     t0 = time.perf_counter()
-    names = ["mrf_grouped_corr"] if opts.grouped_corr else _build.kernel_names()
+    alone = {"mrf_grouped_corr": opts.grouped_corr, "mrf_upsample": opts.upsample_log}
+    names = [n for n, on in alone.items() if on] or _build.kernel_names()
     _build.build(names)
     print(f"build: {time.perf_counter() - t0:.2f} s for {names}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if opts.grouped_corr:
-        print(json.dumps({"kernels": [grouped_corr_phase(smi)]}))
+    if opts.grouped_corr or opts.upsample_log:
+        phases = [(opts.grouped_corr, grouped_corr_phase), (opts.upsample_log, upsample_log_phase)]
+        print(json.dumps({"kernels": [phase(smi) for on, phase in phases if on]}))
         return 0
     gen = torch.Generator().manual_seed(0)
     k = 9
@@ -4839,6 +4976,7 @@ def main() -> int:
           f"{TF32_FLOPS_PER_S / 1e12} TFLOP/s at a third for the 3xTF32 MRF tail and in full for "
           f"its single pass (H100 SXM data sheet)")
     kernels.append(grouped_corr_phase(smi))
+    kernels.append(upsample_log_phase(smi))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ def launch_counters() -> list[tuple[object, str]]:
     captured CUDA graph adds to on each replay (``graphs.Graph``),
     so that a counter keeps meaning launches that reached the card.  The
     fused Fourier pass's count of backward recomputes is one of them."""
-    from jointpose_torch.ops import fft_conv, mrf_corr, mrf_epilogue, mrf_fft_fused, warp
+    from jointpose_torch.ops import (
+        fft_conv, mrf_corr, mrf_epilogue, mrf_fft_fused, mrf_upsample, warp,
+    )
 
     return [
         (mrf_epilogue.mrf_epilogue, "launches"), (mrf_epilogue.mrf_epilogue_bwd, "launches"),
@@ -17,4 +19,6 @@ def launch_counters() -> list[tuple[object, str]]:
         (fft_conv.tail_kdft_resident, "launches"), (fft_conv.tail_kdft, "launches"),
         (fft_conv.tail_kf, "launches"),
         (mrf_corr.mrf_grouped_corr, "launches"),
+        (mrf_upsample.mrf_upsample_log, "launches"),
+        (mrf_upsample.mrf_upsample_log_bwd, "launches"),
     ]

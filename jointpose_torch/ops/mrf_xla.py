@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from jointpose_torch.ops import mrf_corr
 from jointpose_torch.ops.mrf_fft import single_pass
+from jointpose_torch.ops.mrf_upsample import mrf_upsample_log
 
 # Width positions packed into channels by ``dp_s2d``, and the most groups
 # it takes (beyond, the dense transpose has lanes enough).
@@ -255,7 +256,8 @@ def mrf_message_pass_coarse(
         log p̄_A = log p_A  +  up( Σ_v log( k_{A|v} ⊛ pool(p)_v + b ) )
 
     with a sum-pool to the coarse grid and a bilinear (half-pixel) upsample
-    back.  Returns (B, H, W, K) fp32.
+    back, the log and the upsample as one step (``ops/mrf_upsample.py``: the
+    kernel on the card).  Returns (B, H, W, K) fp32.
     """
     b, h, w, k = p.shape
     if h % stride or w % stride:
@@ -263,11 +265,7 @@ def mrf_message_pass_coarse(
     pc = p.reshape(b, h // stride, stride, w // stride, stride, k).sum(dim=(2, 4))
     pass_fn = message_pass or mrf_message_pass_xla
     coarse = pass_fn(pc, kernels, biases, eps=eps, precision=precision)
-    up = F.interpolate(
-        coarse.permute(0, 3, 1, 2), size=(h, w), mode="bilinear", align_corners=False
-    ).permute(0, 2, 3, 1)
-    unary = torch.log(p.float().clamp_min(eps))
-    return unary + up
+    return mrf_upsample_log(coarse.contiguous(), p.contiguous(), eps)
 
 
 def mrf_message_pass_direct(

@@ -17,6 +17,7 @@ from jointpose_torch.ops import fft_conv as tfc
 from jointpose_torch.ops import mrf_corr as tmc
 from jointpose_torch.ops import mrf_epilogue as tme
 from jointpose_torch.ops import mrf_fft_fused as tmff
+from jointpose_torch.ops import mrf_upsample as tmu
 from jointpose_torch.ops import warp as tw
 from jointpose_torch.ops.mrf_fft import forward_ffts
 from jointpose_torch.ops.mrf_xla import pairwise_conv
@@ -973,3 +974,138 @@ def test_a_key_warmed_on_one_thread_captures_on_another(cuda):
     want = _eager_pose_call(cfg, state, images)
     for coords, probs in got:
         assert torch.equal(coords, want[0]) and torch.equal(probs, want[1])
+
+
+# The coarse pass's upsample and unary log (csrc/mrf_upsample.cu) against
+# the composition it replaced (the plain version, PyTorch's own kernels on
+# the card).  The forward takes the same taps, weights and order of
+# operations, and nvcc contracts its products into fused multiply-adds as
+# PyTorch's build does: bit-equal.  The coarse gradient sums the same terms
+# as PyTorch's atomics in another order: UPSAMPLE_GRAD_RTOL of the largest.
+UPSAMPLE_GRAD_RTOL = 1e-5
+UPSAMPLE_EPS = 1e-6
+
+
+def _upsample_operands(batch, hc, wc, s, dtype, device, seed=0):
+    """Coarse log-messages and softmaxed unaries, with exact zeros and
+    values below eps among the unaries."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.randn(batch, hc, wc, K, generator=g) * 4 - 30
+    p = torch.randn(batch, hc * s * wc * s, K, generator=g).mul(3).softmax(dim=1)
+    p = p.reshape(batch, hc * s, wc * s, K)
+    p[:, : max(1, hc * s // 4), :, 0] = 0.0
+    p[:, :, : max(1, wc * s // 4), 1] = 1e-8
+    return coarse.to(device), p.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch", [1, 32, 128])
+def test_upsample_log_kernel_matches_the_composition(cuda, batch, dtype):
+    """flagship's coarse pass: 30x45 coarse log-messages to 60x90."""
+    coarse, p = _upsample_operands(batch, 30, 45, 2, dtype, cuda)
+    before = tmu.mrf_upsample_log.launches
+    got = tmu.mrf_upsample_log(coarse, p, UPSAMPLE_EPS)
+    assert tmu.mrf_upsample_log.launches == before + 1
+    want = tmu.mrf_upsample_log_plain(coarse, p, UPSAMPLE_EPS)
+    assert got.shape == want.shape and got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert torch.equal(tmu.mrf_upsample_log(coarse, p, UPSAMPLE_EPS), got)  # bit for bit
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("hc,wc,s", [(7, 9, 2), (5, 11, 3), (3, 3, 4), (1, 5, 3)])
+def test_upsample_log_kernel_at_other_strides(cuda, hc, wc, s, dtype):
+    """Odd coarse sizes, strides 2 to 4 (scale 1/3 is inexact in fp32)."""
+    coarse, p = _upsample_operands(3, hc, wc, s, dtype, cuda, seed=1)
+    got = tmu.mrf_upsample_log(coarse, p, UPSAMPLE_EPS)
+    assert torch.equal(got, tmu.mrf_upsample_log_plain(coarse, p, UPSAMPLE_EPS))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,hc,wc,s", [(4, 30, 45, 2), (3, 5, 11, 3), (2, 3, 4, 4)])
+def test_upsample_log_backward_matches_autograd(cuda, batch, hc, wc, s, dtype):
+    """The backward kernel against autograd of the plain version, on the
+    card and on the CPU: dp bit for bit (the same division and compare,
+    rounded to p's type), dcoarse within a rounding of its sums; two
+    backward calls agree bit for bit."""
+    coarse, p = _upsample_operands(batch, hc, wc, s, dtype, cuda, seed=2)
+    g = torch.randn(p.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    grads = {}
+    for name, device, fn in (("kernel", cuda, tmu.mrf_upsample_log),
+                             ("card", cuda, tmu.mrf_upsample_log_plain),
+                             ("cpu", "cpu", tmu.mrf_upsample_log_plain)):
+        c = coarse.to(device).requires_grad_(True)
+        q = p.to(device).requires_grad_(True)
+        grads[name] = torch.autograd.grad(fn(c, q, UPSAMPLE_EPS), (c, q), g.to(device))
+    before = tmu.mrf_upsample_log_bwd.launches
+    again = tmu.mrf_upsample_log_bwd(g, p, tuple(coarse.shape), UPSAMPLE_EPS)
+    assert tmu.mrf_upsample_log_bwd.launches == before + 1
+    dcoarse, dp = grads["kernel"]
+    assert torch.equal(again[0], dcoarse) and torch.equal(again[1], dp)
+    assert dp.dtype == dtype
+    for ref in ("card", "cpu"):
+        want_c, want_p = (t.to(cuda) for t in grads[ref])
+        assert _rel(dcoarse, want_c) <= UPSAMPLE_GRAD_RTOL, ref
+        assert torch.equal(dp, want_p), ref
+
+
+def test_upsample_log_in_a_graph_repeats_and_counts(cuda):
+    """Forward and backward captured once (``graphs.Graph``): each replay
+    writes the eager answers again, bit for bit, and adds one launch to
+    each counter."""
+    from jointpose_torch import graphs
+
+    coarse, p = _upsample_operands(32, 30, 45, 2, torch.bfloat16, cuda, seed=4)
+    g = torch.randn(p.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    coarse.requires_grad_(True)
+
+    def step():
+        out = tmu.mrf_upsample_log(coarse, p, UPSAMPLE_EPS)
+        return (out, *torch.autograd.grad(out, coarse, g))
+
+    pool = graphs.GraphPool()
+    eager = pool.warm(step)
+    fwd, bwd = tmu.mrf_upsample_log.launches, tmu.mrf_upsample_log_bwd.launches
+    graph = graphs.Graph(pool, step)
+    assert (tmu.mrf_upsample_log.launches, tmu.mrf_upsample_log_bwd.launches) == (fwd, bwd)
+    for n in range(1, 4):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(graph.out, eager))
+        assert tmu.mrf_upsample_log.launches == fwd + n
+        assert tmu.mrf_upsample_log_bwd.launches == bwd + n
+
+
+def test_the_predictor_at_batch_128_launches_the_upsample_once_a_call(cuda):
+    """The predictor's graph (flagship's 'xla' path at stride 2, ``tiny``'s
+    widths) at batch 128: eager call, capture, replays; one forward launch
+    a call, none backward, answers bit-equal to an eager call."""
+    cfg, state, predict = _graph_predictor(cuda)
+    images = _pose_images(cfg, 128, torch.uint8, seed=6)
+    want = _eager_pose_call(cfg, state, images)
+    for _ in range(4):
+        fwd, bwd = tmu.mrf_upsample_log.launches, tmu.mrf_upsample_log_bwd.launches
+        coords, probs = predict(images)
+        assert tmu.mrf_upsample_log.launches == fwd + 1
+        assert tmu.mrf_upsample_log_bwd.launches == bwd
+        assert torch.equal(coords, want[0]) and torch.equal(probs, want[1])
+    assert (predict.graphs.captures, predict.graphs.replays) == (1, 2)
+
+
+def test_upsample_log_wrapper_raises_on_what_it_cannot_take(cuda):
+    coarse, p = _upsample_operands(2, 6, 8, 2, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="integer stride"):
+        tmu.mrf_upsample_log(coarse, p[:, :11].contiguous())
+    with pytest.raises(TypeError):
+        tmu.mrf_upsample_log(coarse.bfloat16(), p)
+    with pytest.raises(TypeError):
+        tmu.mrf_upsample_log(coarse, p.to(torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        tmu.mrf_upsample_log(coarse, p.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        tmu.mrf_upsample_log(coarse.transpose(1, 2).contiguous().transpose(1, 2), p)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tmu.mrf_upsample_log(coarse.cpu(), p)
+    with pytest.raises(ValueError, match="g must be"):
+        tmu.mrf_upsample_log_bwd(torch.zeros(p.shape, device=cuda).bfloat16(), p,
+                                 tuple(coarse.shape))
